@@ -1,0 +1,116 @@
+"""Builder and loader for the port's CUDA kernels (the counterpart of
+ffmpeg_tpu/native.py, for `csrc/*.cu` instead of the host C++).
+
+At first use, `nvcc` compiles every `ffmpeg_tpu_torch/csrc/*.cu` for
+Hopper (`sm_90a`) into one shared library with a plain C interface under
+`build/ffmpeg_tpu_torch/` at the repository root, named by a content hash
+of the sources, and `ctypes` loads it.  No PyTorch headers are compiled,
+so a build takes seconds.  A failed build raises; there is no fallback.
+
+Calling convention of every entry point: device pointers and the CUDA
+stream are `c_void_p` (from `tensor.data_ptr()` and
+`torch.cuda.current_stream().cuda_stream`), sizes are `c_int`, and the
+function returns `cudaGetLastError()` after its launch.  `check` raises
+on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "ffmpeg_tpu_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+class CudaBuildError(RuntimeError):
+    pass
+
+
+def _sources() -> list[Path]:
+    return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
+
+
+def so_path() -> Path:
+    """Library path keyed by a content hash of csrc/ (git does not keep
+    mtimes, so they cannot tell staleness)."""
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libffmpeg_tpu_torch-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise CudaBuildError("nvcc not found (PATH, $CUDA_HOME/bin)")
+
+
+def build(so: Path) -> None:
+    srcs = [str(p) for p in _sources() if p.suffix == ".cu"]
+    if not srcs:
+        raise CudaBuildError(f"no CUDA sources under {_CSRC}")
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *srcs]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise CudaBuildError(f"nvcc failed ({r.returncode}):\n"
+                             f"{' '.join(cmd)}\n{r.stderr[-4000:]}")
+    os.replace(tmp, so)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    c = ctypes
+    lib.jpeg_scan_decode_packed_launch.restype = c.c_int
+    lib.jpeg_scan_decode_packed_launch.argtypes = [
+        c.c_void_p,            # regions (B, cap) u8
+        c.c_int,               # cap
+        c.c_void_p,            # starts (B, nmcu) i32
+        c.c_void_p,            # lens (B, nmcu) i32
+        c.c_void_p,            # luts (B, 512, 12) i8
+        c.c_void_p,            # out (B, nmcu, 6, 64) i16
+        c.c_int, c.c_int,      # B, nmcu
+        c.c_int,               # max_iter
+        c.c_void_p,            # cudaStream_t
+    ]
+    lib.cuda_error_string.restype = c.c_char_p
+    lib.cuda_error_string.argtypes = [c.c_int]
+
+
+def get() -> ctypes.CDLL:
+    """The loaded kernel library, built first if it is not there."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = so_path()
+            if not so.exists():
+                build(so)
+            lib = ctypes.CDLL(str(so))
+            _bind(lib)
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    if code != 0:
+        msg = lib.cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
