@@ -19,20 +19,26 @@ Phases, one line each:
    from the checkout's sources, one nvcc each, in parallel, timed;
    ptxas's register and shared-memory report;
 3. K1 against its plain PyTorch version on the card over the whole batch,
-   bit-exact int16 coefficients; frame 0 against the C++ host decoder
-   (ffmpeg_tpu.native mjpeg_decode_scan), bit-exact;
+   bit-exact int16 coefficients, and every frame against the port's C++
+   host decoder (mjpeg_decode_scan, ffmpeg_tpu_torch/native.py),
+   bit-exact; then K1 against its plain version on random bytes with
+   every fifth lane a padding lane;
 4. the pipeline against the committed output of the JAX reference:
    max |diff| <= 1, at most 1% of samples differing, PSNR >= 60 dB, and
    K1 launched by the run;
 5. frames/s over 30 batches timed with CUDA events, host-to-device copy
    included; a breakdown of one batch; K1 against its plain version at
-   the flagship shape;
+   the flagship shape, and K1 beside its bound (the bytes it must move
+   over the card's memory rate) and its share of that bound;
 6. K2 against its plain version on the card, bit-exact: at 1088x1920
    (B=16, R=8) on the padded luma of clip frames 1 and 0, which must
    also give the JAX reference's committed MVs and costs; on a
    1080x1910 plane (neither side a multiple of 16); on fractional
-   float32 samples; on a flat plane (all ties); K2 timed against its
-   plain version at 1088x1920;
+   float32 samples; on a flat plane (all ties); on B=8/R=4 and
+   B=32/R=16 instances, uint8 and float32; K2 timed against its plain
+   version at 1088x1920, uint8 (the encoder's samples) and float32, each
+   beside its bound (its absolute differences over the card's rate for
+   them) and its share of that bound;
 7. the encoder on the card against the reference's committed I P P P
    encode of the clip: at least one K2 launch per P frame, MV grids
    equal on >= 99.5% of blocks, packet sizes within 0.1%, reconstruction
@@ -46,9 +52,19 @@ Phases, one line each:
    (K2 -> mc_blocks_bounded -> fdct8x8 -> quant) in macroblocks/s at
    1088x1920, with its MC and FDCT timed alone.
 
-Then a JSON line with each kernel's launches, error and time, and as the
-last line {"ok": true, "device": {...}}.  Any failed phase raises and
-the script exits non-zero without that line.
+Then a JSON line with each kernel's launches, error, time, plain time
+and bound, and as the last line {"ok": true, "device": {...}}.  Any
+failed phase raises and the script exits non-zero without that line.
+
+Bounds use the card's published peaks (NVIDIA H100 SXM): 3.35 TB/s of
+device memory, and for integer work the rate NVIDIA's CUDA C++
+Programming Guide gives compute capability 9.0 for 32-bit integer add,
+subtract, absolute difference and multiply-add, 64 results per clock per
+SM: 132 SMs x 64 x 1.98 GHz = 16.73 T instructions/s.  Neither kernel
+has work a tensor core does.  No PyTorch call computes either kernel's
+function, so `library_ms` is null for both.  Kernel times are
+`kernel_ms` (ffmpeg_tpu_torch/timing.py: the card spins while the host
+queues the calls), with `cuda_ms` (no spin) printed beside them.
 
 Usage (from the repository root, one card):
 
@@ -68,6 +84,8 @@ K1_REPLACES = "ffmpeg_tpu/ops/huffman.py:446"
 K2_SOURCE = "ffmpeg_tpu_torch/csrc/sad_cost_volume.cu"
 K2_REPLACES = "ffmpeg_tpu/ops/me.py:79"
 ENC_W, ENC_H = 1920, 1080
+HBM_BYTES_PER_S = 3.35e12
+INT32_INSTR_PER_S = 132 * 64 * 1.98e9
 # phase 7 bounds against the reference's committed encode
 MV_MIN_AGREE, SIZE_REL_TOL, PSNR_TOL_DB = 0.995, 1e-3, 0.02
 
@@ -79,19 +97,38 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of fn() over reps calls, by CUDA events."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
+def bound(nbytes: float, instr: float) -> tuple[float, str]:
+    """(ms, what sets it): the larger of the bytes over the memory rate
+    and the integer instructions over the SMs' integer rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = instr / INT32_INSTR_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def k1_bound(lens, luts, out) -> tuple[float, str]:
+    """K1 reads each segment's scan bytes, the lengths and the tables
+    once and writes its coefficients once (the padding past each frame's
+    scan in `regions` is never read).  Its operations: about 20 integer
+    instructions per symbol, and this batch's symbols are at most its
+    non-zero coefficients plus a DC and an end of block per block of
+    each segment."""
+    nbytes = int(lens.sum()) + sum(t.numel() * t.element_size()
+                                   for t in (lens, luts, out))
+    symbols = int((out != 0).sum()) + 12 * int((lens > 0).sum())
+    return bound(nbytes, 20 * symbols)
+
+
+def k2_bound(cur, B: int, R: int, is_u8: bool) -> tuple[float, str]:
+    """K2 reads cur and ref once and writes the volume once.  Its work
+    is by*bx*B*B*(2R+1)^2 absolute differences, each accumulated: on
+    uint8 one VABSDIFF4 with its accumulator does four (a quarter of an
+    instruction each); on float32 input, once truncated to int32, each
+    takes two instructions (difference with absolute value, add)."""
+    h, w = cur.shape
+    by, bx, D = h // B, w // B, 2 * R + 1
+    nbytes = 2 * h * w * cur.element_size() + by * bx * D * D * 4
+    diffs = by * bx * B * B * D * D
+    return bound(nbytes, diffs / 4 if is_u8 else 2 * diffs)
 
 
 def main() -> int:
@@ -109,6 +146,7 @@ def main() -> int:
     from ffmpeg_tpu_torch.models.mjpeg_tpu_entropy import (
         MjpegTpuEntropyPipeline, TpuEntropySpec)
     from ffmpeg_tpu_torch.ops import huffman, me
+    from ffmpeg_tpu_torch.timing import cuda_ms, kernel_ms
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -146,13 +184,29 @@ def main() -> int:
     if got.shape != (BATCH, pipe.nmcu, 6, 64) or not torch.equal(got, want):
         raise RuntimeError(f"K1 differs from its plain version: max |diff| "
                            f"{k1_err}, {int((got != want).sum())} values")
-    host0 = host_decode(pkts[0])
-    if not np.array_equal(got[0].cpu().numpy(), host0):
-        raise RuntimeError("K1 frame 0 differs from the C++ host decoder")
+    for i, p in enumerate(pkts):
+        if not np.array_equal(got[i].cpu().numpy(), host_decode(p)):
+            raise RuntimeError(f"K1 frame {i} differs from the C++ host "
+                               f"decoder")
+    rng = np.random.default_rng(5)
+    junk = regions.clone()
+    junk[:, pipe.hdr:] = torch.from_numpy(rng.integers(
+        0, 256, tuple(junk[:, pipe.hdr:].shape), dtype=np.uint8)).to(dev)
+    jlens, jluts = pipe.program.split_regions(junk)
+    jlens = jlens.clone()
+    jlens[:, ::5] = 0                          # padding lanes
+    jgot = huffman.jpeg_scan_decode_packed(junk, jlens, jluts, pipe.hdr)
+    jwant = huffman.decode_packed_plain(junk, jlens, jluts, pipe.hdr)
+    torch.cuda.synchronize()
+    if not torch.equal(jgot, jwant):
+        raise RuntimeError(f"K1 differs from its plain version on random "
+                           f"bytes: {int((jgot != jwant).sum())} values")
+    k1_err = max(k1_err, int((jgot.int() - jwant.int()).abs().max()))
     print(f"phase 3 K1: {BATCH}x{pipe.nmcu} lanes bit-exact against the "
-          f"plain version (max |diff| {k1_err}); frame 0 bit-exact against "
-          f"mjpeg_decode_scan; {int((got != 0).sum())} nonzero "
-          f"coefficients", flush=True)
+          f"plain version (max |diff| {k1_err}); all {BATCH} frames "
+          f"bit-exact against mjpeg_decode_scan; {int((got != 0).sum())} "
+          f"nonzero coefficients; random bytes with every fifth lane "
+          f"padding bit-exact against the plain version", flush=True)
 
     # 4. the main path, through the pipeline's entry points, against the
     #    JAX reference's committed output
@@ -184,7 +238,9 @@ def main() -> int:
     fps = BATCH * 1e3 / batch_ms
     h2d_ms = cuda_ms(lambda: pipe._host.to(dev, non_blocking=True), 20)
     prog_ms = cuda_ms(lambda: pipe.program(regions), 20)
-    k1_ms = cuda_ms(lambda: huffman.jpeg_scan_decode_packed(
+    k1_ms = kernel_ms(lambda: huffman.jpeg_scan_decode_packed(
+        regions, lens, luts, pipe.hdr), 20)
+    k1_nospin_ms = cuda_ms(lambda: huffman.jpeg_scan_decode_packed(
         regions, lens, luts, pipe.hdr), 20)
     plain_ms = cuda_ms(lambda: huffman.decode_packed_plain(
         regions, lens, luts, pipe.hdr), 3)
@@ -193,12 +249,15 @@ def main() -> int:
         for i, p in enumerate(pkts):
             pipe.prep_frame(p, i)
     prep_ms = (time.perf_counter() - t) * 1e3 / (3 * BATCH)
+    k1_bound_ms, k1_by = k1_bound(lens, luts, got)
     print(f"phase 5 timing [{card}]: {fps:.2f} frames/s over "
           f"{TIMED_BATCHES} batches of {BATCH} ({batch_ms:.3f} ms/batch, "
           f"h2d included); one batch: h2d {h2d_ms:.3f} ms, program "
-          f"{prog_ms:.3f} ms, of which K1 {k1_ms:.3f} ms (plain version "
-          f"{plain_ms:.3f} ms); host prep {prep_ms:.3f} ms/frame "
-          f"(one CPU thread, not in frames/s)", flush=True)
+          f"{prog_ms:.3f} ms, of which K1 {k1_ms:.4f} ms (no spin "
+          f"{k1_nospin_ms:.4f} ms; plain version "
+          f"{plain_ms:.3f} ms; bound {k1_bound_ms:.4f} ms by {k1_by}, "
+          f"{k1_bound_ms / k1_ms:.1%} of it); host prep {prep_ms:.3f} "
+          f"ms/frame (one CPU thread, not in frames/s)", flush=True)
 
     k2 = phase6_k2(dev)
     frames, k2_launches = phase7_encoder(dev)
@@ -208,11 +267,14 @@ def main() -> int:
         "name": "jpeg_scan_decode_packed", "route": "cuda",
         "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches, "max_abs_err": k1_err,
-        "ms": k1_ms, "plain_ms": plain_ms}, {
+        "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": k1_bound_ms,
+        "bound_by": k1_by, "library_ms": None}, {
         "name": "sad_cost_volume_strip", "route": "cuda",
         "source": K2_SOURCE, "replaces": K2_REPLACES,
         "launches": k2_launches, "max_abs_err": k2["err"],
-        "ms": k2["ms"], "plain_ms": k2["plain_ms"]}]}))
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -220,38 +282,51 @@ def main() -> int:
 
 
 def _k2_cases(golden_pair):
-    """(name, cur, ref) uint8/float32 host planes for phase 6."""
+    """(name, cur, ref, B, R) with uint8/float32 host planes, phase 6."""
     import numpy as np
     rng = np.random.default_rng(9)
-    cur = rng.integers(0, 256, (1088, 1920)).astype(np.float32)
-    ref = np.roll(cur, (3, -5), (0, 1)) + rng.normal(0, 2, cur.shape) - 4
+
+    def frac(h, w):
+        cur = rng.integers(0, 256, (h, w)).astype(np.float32)
+        ref = np.roll(cur, (3, -5), (0, 1)) + rng.normal(0, 2, cur.shape) - 4
+        return cur, ref.astype(np.float32)
+
+    def u8(h, w):
+        return tuple(rng.integers(0, 256, (h, w)).astype(np.uint8)
+                     for _ in range(2))
+
     flat = np.full((1088, 1920), 200, np.uint8)
-    return [("1088x1920 clip luma", *golden_pair),
-            ("1080x1910 u8", *(rng.integers(0, 256, (1080, 1910))
-                               .astype(np.uint8) for _ in range(2))),
-            ("1088x1920 fractional f32", cur, ref.astype(np.float32)),
-            ("1088x1920 flat", flat, flat)]
+    return [("1088x1920 clip luma", *golden_pair, 16, 8),
+            ("1080x1910 u8", *u8(1080, 1910), 16, 8),
+            ("1088x1920 fractional f32", *frac(1088, 1920), 16, 8),
+            ("1088x1920 flat", flat, flat, 16, 8),
+            ("1088x1920 u8 B=8 R=4", *u8(1088, 1920), 8, 4),
+            ("1088x1920 f32 B=8 R=4", *frac(1088, 1920), 8, 4),
+            ("544x960 u8 B=32 R=16", *u8(544, 960), 32, 16),
+            ("544x960 f32 B=32 R=16", *frac(544, 960), 32, 16)]
 
 
 def phase6_k2(dev) -> dict:
     """K2 bit-exact against its plain version on the card and against
-    the reference's committed pair; K2 and plain timed at 1088x1920."""
+    the reference's committed pair; K2 and plain timed at 1088x1920,
+    uint8 and float32, each beside its bound."""
     import numpy as np
     import torch
     from ffmpeg_tpu_torch.codecs.mpeg12_enc import _pad
     from ffmpeg_tpu_torch.ops import me
     from ffmpeg_tpu_torch.testing import ENC_FRAMES, ENCODE_GOLDEN, \
         clip_checksum, mpeg2_clip
+    from ffmpeg_tpu_torch.timing import cuda_ms, kernel_ms
     g = np.load(ENCODE_GOLDEN)
     clip = mpeg2_clip(ENC_FRAMES, ENC_W, ENC_H)
     if clip_checksum(clip) != str(g["clip_sha256"]):
         raise RuntimeError("the seeded clip differs from the golden's")
     luma = [_pad(np.asarray(f.planes[0]), 1088, 1920) for f in clip[:2]]
-    err, notes = 0.0, []
-    for name, cur, ref in _k2_cases((luma[1], luma[0])):
+    err, notes, f32 = 0.0, [], None
+    for name, cur, ref, B, R in _k2_cases((luma[1], luma[0])):
         c, r = (torch.from_numpy(a).to(dev) for a in (cur, ref))
-        got = me.sad_cost_volume_strip(c, r, 16, 8)
-        want = me.sad_cost_volume_strip_plain(c, r, 16, 8)
+        got = me.sad_cost_volume_strip(c, r, B, R)
+        want = me.sad_cost_volume_strip_plain(c, r, B, R)
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
         err = max(err, e)
@@ -262,20 +337,31 @@ def phase6_k2(dev) -> dict:
         if name == "1088x1920 flat" and not bool(
                 (me.best_mvs(got, 8) == -8).all()):
             raise RuntimeError("K2 on a flat plane: ties not at (-8, -8)")
+        if name == "1088x1920 fractional f32":
+            f32 = (c, r)
     c, r = (torch.from_numpy(a).to(dev) for a in (luma[1], luma[0]))
     mvs, cost = me.motion_search(c, r, 16, 8)
     if not (np.array_equal(mvs.cpu().numpy(), g["pair_mvs"])
             and np.array_equal(cost.cpu().numpy(), g["pair_costs"])):
         raise RuntimeError("K2's MVs or costs differ from the reference's "
                            "committed pair")
-    ms = cuda_ms(lambda: me.sad_cost_volume_strip(c, r, 16, 8), 20)
+    ms = kernel_ms(lambda: me.sad_cost_volume_strip(c, r, 16, 8), 20)
+    nospin_ms = cuda_ms(lambda: me.sad_cost_volume_strip(c, r, 16, 8), 20)
     plain_ms = cuda_ms(lambda: me.sad_cost_volume_strip_plain(c, r, 16, 8),
                        3)
+    f32_ms = kernel_ms(lambda: me.sad_cost_volume_strip(*f32, 16, 8), 20)
+    b_ms, b_by = k2_bound(c, 16, 8, True)
+    fb_ms, fb_by = k2_bound(f32[0], 16, 8, False)
     print(f"phase 6 K2: bit-exact against the plain version on "
           f"{', '.join(notes)} (max |diff| {err}); MVs and costs equal to "
-          f"the reference's on the golden pair; {ms:.3f} ms at 1088x1920 "
-          f"B=16 R=8 (plain version {plain_ms:.3f} ms)", flush=True)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+          f"the reference's on the golden pair; at 1088x1920 B=16 R=8: "
+          f"uint8 {ms:.4f} ms (no spin {nospin_ms:.4f} ms; plain version "
+          f"{plain_ms:.3f} ms; bound "
+          f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it), float32 "
+          f"{f32_ms:.4f} ms (bound {fb_ms:.4f} ms by {fb_by}, "
+          f"{fb_ms / f32_ms:.1%} of it)", flush=True)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def _encode(dev, frames):
@@ -341,6 +427,7 @@ def phase8_timing(dev, card, frames):
     import torch
     from ffmpeg_tpu_torch.codecs.mpeg12_enc import _blocks, _pad
     from ffmpeg_tpu_torch.ops import idct, mc, me
+    from ffmpeg_tpu_torch.timing import cuda_ms
     res = _encode(dev, frames)                 # warm: second encode
     y, u, v = (np.asarray(p) for p in frames[1].planes[:3])
     planes = [_pad(y, 1088, 1920), _pad(u, 544, 960), _pad(v, 544, 960)]

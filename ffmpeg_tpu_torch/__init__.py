@@ -6,11 +6,12 @@ is the counterpart of `ffmpeg_tpu/models/mjpeg_tpu_entropy.py`).  Dense
 math is PyTorch; each Pallas kernel of the reference is a kernel written
 by hand for Hopper under `csrc/`, built at first use by `_cuda_build`.
 
-The port imports torch and never jax.  From `ffmpeg_tpu` it imports only
-modules that are free of jax (`native`, `ops.huffman`'s numpy table
-builders, `scale.filters`, `scale.colorspace`, `formats.pixfmt`,
-`core.frame`, `core.packet`, `utils.error`, `utils.rational`) and
-carries its own counterpart of the rest.
+The port imports torch and never jax, and nothing of `ffmpeg_tpu`: it
+keeps its own copies of what it needs (`utils/`, `core/`,
+`formats/pixfmt.py`, `scale/colorspace.py`, `scale/filters.py`, the
+Huffman table builders in `ops/huffman.py`, and the host C++ under
+`csrc/host/`, built by `native`).  Its entry points run on the card
+(`device="cuda"`) unless the caller asks for another device.
 
 Ported so far:
 - the flagship path, batched 1080p MJPEG with restart markers decoded

@@ -110,9 +110,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.jpeg_scan_decode_packed_launch.argtypes = [
         c.c_void_p,            # regions (B, cap) u8
         c.c_int,               # cap
-        c.c_void_p,            # starts (B, nmcu) i32
         c.c_void_p,            # lens (B, nmcu) i32
-        c.c_void_p,            # luts (B, 512, 12) i8
+        c.c_int,               # hdr
+        c.c_void_p,            # luts: B tables (512, 12) i8
+        c.c_longlong,          # lut_stride (bytes between tables)
         c.c_void_p,            # out (B, nmcu, 6, 64) i16
         c.c_int, c.c_int,      # B, nmcu
         c.c_int,               # max_iter

@@ -8,8 +8,9 @@ implements `encode(frame) -> [Packet]`; the queueing and drain logic
 live once in CodecContext.
 
 Port encoders run their device stage on the device they are opened on:
-`open_encoder` takes it as an explicit argument and hands it to the
-encoder's constructor.  There is no fallback to another device.
+`open_encoder` hands its `device` (the card unless the caller names
+another, such as "cpu") to the encoder's constructor.  There is no
+fallback to another device.
 """
 
 from __future__ import annotations
@@ -20,10 +21,10 @@ from typing import Dict, List, Optional, Type
 
 import torch
 
-from ffmpeg_tpu.core.frame import Frame
-from ffmpeg_tpu.core.packet import Packet
-from ffmpeg_tpu.utils.error import EncoderNotFound, EndOfStream, TryAgain
-from ffmpeg_tpu.utils.rational import Rational
+from ..core.frame import Frame
+from ..core.packet import Packet
+from ..utils.error import EncoderNotFound, EndOfStream, TryAgain
+from ..utils.rational import Rational
 
 _ENCODERS: Dict[str, Type["Codec"]] = {}
 
@@ -78,7 +79,8 @@ class CodecContext:
     @staticmethod
     def open_encoder(par, options: Optional[dict] = None,
                      codec_id: Optional[str] = None, *,
-                     device: torch.device | str) -> "CodecContext":
+                     device: torch.device | str = "cuda"
+                     ) -> "CodecContext":
         cid = codec_id or par.codec_id
         cls = _ENCODERS.get(cid)
         if cls is None:

@@ -1,9 +1,8 @@
 """Baseline JPEG header parse (reference: libavcodec/mjpegdec.c).
 
 Counterpart of the header half of ffmpeg_tpu/codecs/mjpeg.py (`_Component`,
-`_JpegState`, `_parse_until_scan`), carried here because importing that
-module registers every codec and so imports jax.  The host scan decode
-stays shared: `ffmpeg_tpu.native` (csrc/mjpeg_huff.cpp) is free of jax.
+`_JpegState`, `_parse_until_scan`).  The host scan decode is the port's
+own C++ copy (`ffmpeg_tpu_torch/native.py`).
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from ffmpeg_tpu.utils.error import InvalidData
+from ..utils.error import InvalidData
 
 # markers
 SOI, EOI, SOS, DQT, DHT, DRI = 0xD8, 0xD9, 0xDA, 0xDB, 0xC4, 0xDD

@@ -31,14 +31,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ffmpeg_tpu.core.frame import Frame
-from ffmpeg_tpu.core.packet import Packet, PKT_FLAG_KEY
-from ffmpeg_tpu.formats import pixfmt as _pf
-from ffmpeg_tpu.utils.error import NotSupported
-from ffmpeg_tpu.utils.rational import Rational
-
+from ..core.frame import Frame
+from ..core.packet import Packet, PKT_FLAG_KEY
+from ..formats import pixfmt as _pf
 from ..ops.idct import ZIGZAG, fdct8x8, idct8x8
 from ..ops.me import motion_search
+from ..utils.error import NotSupported
+from ..utils.rational import Rational
 from . import mpeg12_tables as T
 from .codec import Codec, register_encoder
 
@@ -125,7 +124,8 @@ class Mpeg2Encoder(Codec):
     F_CODE = 2                   # half-pel deltas in [-32, 31]
     SEARCH = 8                   # full-pel search radius
 
-    def __init__(self, par, options=None, *, device: torch.device | str):
+    def __init__(self, par, options=None, *,
+                 device: torch.device | str = "cuda"):
         super().__init__(par, options)
         self.device = torch.device(device)
         o = options or {}
@@ -145,14 +145,15 @@ class Mpeg2Encoder(Codec):
         self.last_mv_grid = None     # motion_search's MVs of the last P
         self.intra_matrix = np.array(T.DEFAULT_INTRA_MATRIX, np.int32)
         self.inter_matrix = np.array(T.DEFAULT_NON_INTRA_MATRIX, np.int32)
-        # The default matrices are in raster order (13818-2 6.3.11; only
-        # matrices sent in a stream come in zigzag order), and decoders
-        # dequantise with them so.  The reference scatters them through
-        # ZIGZAG as if they were zigzag, so its reconstruction is not
-        # what a decoder makes of its stream; the port quantises with
-        # the raster matrices themselves.
-        self.intra_m_raster = self.intra_matrix.copy()
-        self.inter_m_raster = self.inter_matrix.copy()
+        # As the reference does, the default matrices are scattered
+        # through ZIGZAG as if they were in zigzag order.  They are in
+        # raster order (13818-2 6.3.11), so the encoder's reconstruction
+        # is not what a decoder makes of its stream; the port keeps the
+        # reference's arithmetic and the fault stays recorded with it.
+        self.intra_m_raster = np.zeros(64, np.int32)
+        self.intra_m_raster[ZIGZAG] = self.intra_matrix
+        self.inter_m_raster = np.zeros(64, np.int32)
+        self.inter_m_raster[ZIGZAG] = self.inter_matrix
         # TM5-ish rate control state
         self._Xi = 160.0 * self.bit_rate / 115.0
         self._Xp = 60.0 * self.bit_rate / 115.0

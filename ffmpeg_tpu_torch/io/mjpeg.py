@@ -1,9 +1,8 @@
 """Raw MJPEG stream demuxer: concatenated JPEG images, one packet per
 SOI..EOI span.
 
-Counterpart of ffmpeg_tpu/io/formats/img_mjpeg.py MjpegDemuxer (which
-cannot be imported without jax: the `io` package registers every format
-and codec).  Same split rule: a packet ends at the first FFD9 after the
+Counterpart of ffmpeg_tpu/io/formats/img_mjpeg.py MjpegDemuxer.  Same
+split rule: a packet ends at the first FFD9 after the
 previous one, spans of 4 bytes or less are dropped, and anything but
 zero padding after the last EOI is an error.
 """
@@ -12,7 +11,7 @@ from __future__ import annotations
 
 from typing import List
 
-from ffmpeg_tpu.utils.error import InvalidData
+from ..utils.error import InvalidData
 
 
 def split_packets(data: bytes) -> List[bytes]:

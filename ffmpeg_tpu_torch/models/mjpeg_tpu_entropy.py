@@ -2,8 +2,8 @@
 
 Counterpart of ffmpeg_tpu/models/mjpeg_tpu_entropy.py.  The host's only
 per-frame work is the header parse and destuffing the scan and splitting
-it at restart markers (csrc mjpeg_split_segments, shared through
-ffmpeg_tpu.native).  The packed segment bytes go to the card, where K1
+it at restart markers (mjpeg_split_segments of the port's host C++,
+csrc/host/, loaded by native.py).  The packed segment bytes go to the card, where K1
 (ops/huffman.py jpeg_scan_decode_packed, csrc/jpeg_huffman.cu) decodes
 all segments in parallel and two full-float32 contractions per plane do
 dequant + IDCT + chroma upsample + resize, followed by the colour matrix
@@ -33,8 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ffmpeg_tpu import native
-
+from .. import native
 from ..codecs.mjpeg import _JpegState, _parse_until_scan
 from ..ops.huffman import build_jpeg_luts9, jpeg_scan_decode_packed
 from ..ops.idct import ZIGZAG, _dct8_matrix
@@ -166,7 +165,7 @@ class MjpegEntropyProgram(nn.Module):
     """
 
     def __init__(self, spec: TpuEntropySpec, cap: int, operators,
-                 device: torch.device | str):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         ky, ly, kc, lc, tail, (b_ofs, a_scl) = operators
         self.mcus_x, self.mcus_y = spec.mcus
@@ -222,7 +221,7 @@ class MjpegTpuEntropyPipeline:
     """
 
     def __init__(self, spec: TpuEntropySpec, first_packet: bytes,
-                 device: torch.device | str):
+                 device: torch.device | str = "cuda"):
         self.spec = spec
         self.device = torch.device(device)
         st = _JpegState()

@@ -13,7 +13,8 @@ They decode in parallel, one lane per segment:
   tensor it launches the hand-written kernel csrc/jpeg_huffman.cu; on a
   CPU tensor it gathers the lanes and runs `jpeg_scan_decode9`.
 
-`build_jpeg_luts9` (numpy) is shared with the reference.
+`build_jpeg_luts9` (numpy) builds the per-frame tables K1 reads; it is
+the port's copy of the reference's, held equal to it by a test.
 
 Reference for the sequential semantics: libavcodec/mjpegdec.c
 decode_block / ITU T.81 §F.2.2.
@@ -21,10 +22,9 @@ decode_block / ITU T.81 §F.2.2.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
-
-from ffmpeg_tpu.ops.huffman import build_jpeg_luts9  # noqa: F401 (re-export)
 
 from .. import _cuda_build
 
@@ -36,6 +36,53 @@ _DONE_CHECK = 8                 # steps between "all lanes done?" syncs
 # Launches of the K1 kernel (counted by jpeg_scan_decode_packed where it
 # launches, and nowhere else).
 KERNEL_LAUNCHES = 0
+
+
+def build_lut(counts: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """(16,) code-length counts + values -> (65536,) int32 LUT of
+    len<<8 | symbol for a 16-bit MSB-first peek. 0 = invalid code."""
+    lut = np.zeros(1 << 16, np.int32)
+    code = 0
+    vi = 0
+    for l in range(1, 17):
+        for _ in range(int(counts[l - 1])):
+            lo = code << (16 - l)
+            hi = lo + (1 << (16 - l))
+            lut[lo:hi] = (l << 8) | int(values[vi])
+            code += 1
+            vi += 1
+        code <<= 1
+    return lut
+
+
+def build_jpeg_luts9(st) -> np.ndarray:
+    """Length-capped (<=9 bit) tables -> (512, 12) int8 LUT: per 9-bit
+    peek, columns [len, run, size] x [dc_luma, dc_chroma, ac_luma,
+    ac_chroma], each a nibble.  Raises if any code is longer than 9
+    bits."""
+    comps = st.components
+    specs = [(st.dc_counts[comps[0].dc_tab], st.dc_values[comps[0].dc_tab]),
+             (st.dc_counts[comps[1].dc_tab], st.dc_values[comps[1].dc_tab]),
+             (st.ac_counts[comps[0].ac_tab], st.ac_values[comps[0].ac_tab]),
+             (st.ac_counts[comps[1].ac_tab], st.ac_values[comps[1].ac_tab])]
+    out = np.zeros((512, 12), np.int8)
+    for t, (counts, values) in enumerate(specs):
+        if any(counts[l] for l in range(9, 16)):
+            raise ValueError("jpeg: code longer than 9 bits")
+        code = 0
+        vi = 0
+        for l in range(1, 10):
+            for _ in range(int(counts[l - 1])):
+                lo = code << (9 - l)
+                hi = lo + (1 << (9 - l))
+                v = int(values[vi])
+                out[lo:hi, 3 * t] = l
+                out[lo:hi, 3 * t + 1] = v >> 4
+                out[lo:hi, 3 * t + 2] = v & 15
+                code += 1
+                vi += 1
+            code <<= 1
+    return out
 
 
 def jpeg_scan_decode9(rows: torch.Tensor, valid: torch.Tensor,
@@ -187,8 +234,8 @@ def jpeg_scan_decode_packed(regions: torch.Tensor, lens: torch.Tensor,
     nmcu = lens.shape[1]
     regions = regions.contiguous()
     lens = lens.contiguous()
-    luts = luts.contiguous()
-    starts = segment_starts(lens, hdr)
+    if luts.stride()[1:] != (12, 1):
+        luts = luts.contiguous()
     out = torch.empty((B, nmcu, BLOCKS_PER_SEG, 64), dtype=torch.int16,
                       device=regions.device)
     if out.numel() == 0:
@@ -197,8 +244,8 @@ def jpeg_scan_decode_packed(regions: torch.Tensor, lens: torch.Tensor,
     with torch.cuda.device(regions.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.jpeg_scan_decode_packed_launch(
-            regions.data_ptr(), cap, starts.data_ptr(), lens.data_ptr(),
-            luts.data_ptr(), out.data_ptr(), B, nmcu, MAX_ITER, stream)
+            regions.data_ptr(), cap, lens.data_ptr(), hdr, luts.data_ptr(),
+            luts.stride(0), out.data_ptr(), B, nmcu, MAX_ITER, stream)
     _cuda_build.check(lib, code, "jpeg_scan_decode_packed")
     KERNEL_LAUNCHES += 1
     return out

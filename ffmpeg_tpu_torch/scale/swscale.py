@@ -4,10 +4,10 @@ Counterpart of ffmpeg_tpu/scale/swscale.py (reference: libswscale
 swscale.h:439 sws_scale_frame, graph.c pass graph, ops.c op compiler).
 A Scaler lowers a conversion spec to the typed op list of scale/ops.py,
 optimizes it, and runs it eagerly on batch-of-frames component planes
-(N, h_c, w_c) on its device.  The filter banks, colour matrices and
-pixel-format tables are shared with the reference (`ffmpeg_tpu.scale.
-filters`, `ffmpeg_tpu.scale.colorspace`, `ffmpeg_tpu.formats.pixfmt`),
-which are numpy.
+(N, h_c, w_c) on its device, which is the card unless the caller names
+another.  The filter banks, colour matrices and pixel-format tables are
+the port's own numpy copies (`scale/filters.py`, `scale/colorspace.py`,
+`formats/pixfmt.py`), held equal to the reference's by its tests.
 """
 
 from __future__ import annotations
@@ -19,12 +19,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ffmpeg_tpu.core.frame import Frame
-from ffmpeg_tpu.formats import pixfmt as _pf
-from ffmpeg_tpu.scale import colorspace as csp
-from ffmpeg_tpu.scale import filters as _filters
-from ffmpeg_tpu.utils.error import InvalidData, NotSupported
-
+from ..core.frame import Frame
+from ..formats import pixfmt as _pf
+from ..utils.error import InvalidData, NotSupported
+from . import colorspace as csp
+from . import filters as _filters
 from .ops import (FromFloat, Linear, Op, ResizeAxis, SelectComps, ToFloat,
                   compile_ops, optimize)
 
@@ -245,7 +244,7 @@ def _is_identity(m: np.ndarray) -> bool:
 class Scaler:
     """sws context: build the op list once, run it on many batches."""
 
-    def __init__(self, device: torch.device | str, **kw):
+    def __init__(self, device: torch.device | str = "cuda", **kw):
         self.device = torch.device(device)
         self.spec = ScaleSpec(**kw)
         self.ops = build_ops(self.spec)
@@ -280,5 +279,5 @@ def _cached_scaler(device: str, items: tuple) -> Scaler:
     return Scaler(device, **dict(items))
 
 
-def get_scaler(device: torch.device | str, **kw) -> Scaler:
+def get_scaler(device: torch.device | str = "cuda", **kw) -> Scaler:
     return _cached_scaler(str(torch.device(device)), tuple(sorted(kw.items())))

@@ -22,11 +22,10 @@ from pathlib import Path
 
 import numpy as np
 
-from ffmpeg_tpu import native
-from ffmpeg_tpu.core.frame import Frame
-from ffmpeg_tpu.utils.rational import Rational
-
+from . import native
 from .codecs.mjpeg import _JpegState, _parse_until_scan
+from .core.frame import Frame
+from .utils.rational import Rational
 
 DATA = Path(__file__).resolve().parent.parent / "tests" / "data" / "port"
 FIXTURE = DATA / "flagship_1080p_8.mjpeg"

@@ -47,7 +47,15 @@ def _port9(rows, valid, lut9, cur0=None):
 
 
 def test_build_jpeg_luts9_is_the_reference_function():
-    assert huffman.build_jpeg_luts9 is ref_huffman.build_jpeg_luts9
+    """The port keeps its own copy of the table builder; it computes
+    the reference's function on the tables of frames made at several
+    qualities."""
+    assert huffman.build_jpeg_luts9 is not ref_huffman.build_jpeg_luts9
+    for quality in (30, 85, 92):
+        st = _JpegState()
+        _parse_until_scan(encode_jpeg(128, 96, quality), st)
+        np.testing.assert_array_equal(huffman.build_jpeg_luts9(st),
+                                      ref_huffman.build_jpeg_luts9(st))
 
 
 @pytest.mark.parametrize("w,h,quality", [

@@ -7,11 +7,12 @@ import torch
 
 from ffmpeg_tpu.codecs import mjpeg as ref_mjpeg
 from ffmpeg_tpu.ops import idct as ref_idct
-from ffmpeg_tpu.utils.error import InvalidData
+from ffmpeg_tpu.utils.error import InvalidData as RefInvalidData
 from ffmpeg_tpu_torch import testing as fx
 from ffmpeg_tpu_torch.codecs import mjpeg as port_mjpeg
 from ffmpeg_tpu_torch.io.mjpeg import split_packets
 from ffmpeg_tpu_torch.ops import idct as port_idct
+from ffmpeg_tpu_torch.utils.error import InvalidData
 
 from torch_port_util import encode_jpeg, fixture_packets
 
@@ -54,7 +55,7 @@ def test_parse_until_scan_fixture_frames():
 
 @pytest.mark.parametrize("data", [b"", b"\x00\x01", b"\xFF\xD8\xFF\xD9"])
 def test_parse_until_scan_rejects_what_the_reference_rejects(data):
-    with pytest.raises(InvalidData):
+    with pytest.raises(RefInvalidData):
         ref_mjpeg._parse_until_scan(data, ref_mjpeg._JpegState())
     with pytest.raises(InvalidData):
         port_mjpeg._parse_until_scan(data, port_mjpeg._JpegState())

@@ -5,8 +5,8 @@ the moving-gradient clip of tests/test_mpeg2_enc.py (160x128, 8 frames).
 The reference's encoder quantises with its default matrices permuted
 (it scatters the raster-order tables through ZIGZAG), so its
 reconstruction is not what a decoder makes of its stream.  The port
-quantises with the raster matrices; the comparisons below run the
-reference with its matrices set the same way (`_ref_ctx`), and
+computes what the reference computes, permutation included; the
+comparisons below run the reference as it ships (`_ref_ctx`), and
 `test_reference_matrix_fault` keeps the fault in view.
 
 The device's float32 DCT rounds differently from the reference's in the
@@ -24,14 +24,15 @@ from ffmpeg_tpu.core.frame import Frame
 from ffmpeg_tpu.core.packet import PKT_FLAG_KEY, Packet
 from ffmpeg_tpu.io.stream import CodecParameters, MediaType
 from ffmpeg_tpu.ops.me import motion_search as ref_motion_search
-from ffmpeg_tpu.utils.error import (EncoderNotFound, EndOfStream,
-                                    NotSupported, TryAgain)
+from ffmpeg_tpu.utils import error as ref_error
 from ffmpeg_tpu.utils.rational import Rational
 from ffmpeg_tpu_torch import testing as fx
 from ffmpeg_tpu_torch.codecs import CodecContext, EncoderParameters
 from ffmpeg_tpu_torch.codecs import mpeg12_enc as port_enc
 from ffmpeg_tpu_torch.codecs import mpeg12_tables as port_tables
 from ffmpeg_tpu_torch.ops import me
+from ffmpeg_tpu_torch.utils.error import (EncoderNotFound, EndOfStream,
+                                          NotSupported, TryAgain)
 
 W, H, N = 160, 128, 8
 PH, PW = -(-H // 16) * 16, -(-W // 16) * 16
@@ -49,12 +50,8 @@ def _ref_par():
                            codec_id="mpeg2video", width=W, height=H)
 
 
-def _ref_ctx(opts, raster=True):
-    ctx = RefContext.open_encoder(_ref_par(), options=dict(opts))
-    if raster:
-        ctx.codec.intra_m_raster = np.array(ctx.codec.intra_matrix, np.int32)
-        ctx.codec.inter_m_raster = np.array(ctx.codec.inter_matrix, np.int32)
-    return ctx
+def _ref_ctx(opts):
+    return RefContext.open_encoder(_ref_par(), options=dict(opts))
 
 
 def _port_ctx(opts):
@@ -195,27 +192,79 @@ def test_p_frame_from_reference_state_has_identical_mvs(frames):
         port.codec.load_state({"weights": 0})
 
 
-def test_port_stream_decodes_to_its_reconstruction(fixed_q):
-    """Drift-free: the reference decoder reconstructs the port's stream
-    as the port's encoder did, within 1 LSB (the decoder's IDCT rounds
-    in another float32 order).  Share of samples that differ on this
-    clip: 0."""
-    _, port = fixed_q
+def test_port_stream_decodes_to_its_reconstruction(fixed_q, frames):
+    """The port's stream, decoded by the reference decoder, against the
+    reference's own stream decoded.  Every I frame agrees within the
+    port's 1 LSB float32 tolerance (on this clip 0.62% and 2.36% of the
+    samples differ).  P frames predict from each encoder's own
+    reconstruction, so a level that rounds the other way in one encoder
+    carries into every later frame of the GOP, whatever the matrices'
+    order: there the decoded frames are held to the source within 0.1 dB
+    of the reference's (0.021 dB at most on this clip).  `test_p_frames_from_one_state_agree` holds the P-frame path
+    itself, without that carry, as tightly as the I-frame path."""
+    ref, port = fixed_q
     got = _ref_decode(b"".join(p.data for p in port["pkts"]))
-    assert len(got) == N
-    diff = np.concatenate([
-        np.abs(np.asarray(a).astype(np.int32)
-               - r[:a.shape[0], :a.shape[1]].astype(np.int32)).ravel()
-        for f, rec in zip(got, port["recon"])
-        for a, r in zip(f.planes[:3], rec)])
-    assert diff.max() <= 1
-    assert (diff > 0).mean() <= 1e-3
+    want = _ref_decode(b"".join(p.data for p in ref["pkts"]))
+    assert len(got) == len(want) == N
+    for g, w, pkt, f in zip(got, want, port["pkts"], frames):
+        gp = [np.asarray(a) for a in g.planes[:3]]
+        wp = [np.asarray(a) for a in w.planes[:3]]
+        if pkt.flags & PKT_FLAG_KEY:
+            diff = np.concatenate([np.abs(a.astype(np.int32)
+                                          - b.astype(np.int32)).ravel()
+                                   for a, b in zip(gp, wp)])
+            assert diff.max() <= 1 and (diff > 0).mean() <= 0.05
+        assert abs(fx.recon_psnr(gp, f) - fx.recon_psnr(wp, f)) <= 0.1
+
+
+def _raster(ctx):
+    """An encoder of either package set to quantise with the default
+    matrices in raster order (instance attributes only)."""
+    enc = ctx.codec
+    enc.intra_m_raster = np.array(enc.intra_matrix, np.int32)
+    enc.inter_m_raster = np.array(enc.inter_matrix, np.int32)
+    return ctx
+
+
+@pytest.mark.parametrize("raster", [False, True],
+                         ids=["as_shipped", "raster_matrices"])
+def test_p_frames_from_one_state_agree(frames, raster):
+    """The witness for the P-frame tolerance above.  Before each frame the
+    reference's state, its reconstructed picture included, is carried
+    into a fresh port encoder, and both encode that one frame: each P
+    frame is coded from the same reference picture in both packages, so
+    no difference carries over from an earlier frame.  Then P frames agree
+    as closely as I frames do: MVs equal, packet sizes within 0.1%, the
+    encoders' reconstructions within 2 LSB, on at most 3% of the samples,
+    and 2 LSB apart on at most 0.2% of them (a level that rounds the
+    other way after the float32 DCT, plus the IDCT's own rounding; on
+    this clip at most 2.73% and 0.12%, both on an I frame).  The same
+    holds with both encoders set to raster-order matrices, so the bound
+    does not rest on the reference's permutation."""
+    ref = _raster(_ref_ctx(FIXED_Q)) if raster else _ref_ctx(FIXED_Q)
+    for i, f in enumerate(frames):
+        port = _port_ctx(FIXED_Q)
+        port.codec.load_state(port_enc.state_from_reference(ref.codec))
+        r = _encode(ref, [f], port=False)
+        p = _encode(port, [f], port=True)
+        assert p["pkts"][0].flags == r["pkts"][0].flags
+        assert len(p["grids"]) == len(r["grids"]) == int(i % FIXED_Q["gop_size"] > 0)
+        for g, want in zip(p["grids"], r["grids"]):
+            np.testing.assert_array_equal(g, want)
+        rs, ps = len(r["pkts"][0].data), len(p["pkts"][0].data)
+        assert abs(ps / rs - 1) <= 1e-3, (i, rs, ps)
+        diff = np.concatenate([np.abs(a.astype(np.int32)
+                                      - b.astype(np.int32)).ravel()
+                               for a, b in zip(p["recon"][0],
+                                               r["recon"][0])])
+        assert diff.max() <= 2, i
+        assert (diff > 0).mean() <= 0.03 and (diff > 1).mean() <= 2e-3, i
 
 
 def test_reference_matrix_fault(frames):
     """The reference as it ships: its own decoder does not reconstruct
     its stream as its encoder did (tens of LSBs on the first I frame)."""
-    ctx = _ref_ctx(FIXED_Q, raster=False)
+    ctx = _ref_ctx(FIXED_Q)
     ref = _encode(ctx, frames[:1], port=False)
     got = _ref_decode(ref["pkts"][0].data)
     y = np.asarray(got[0].planes[0]).astype(np.int32)
@@ -230,7 +279,7 @@ def test_two_pass_matches_reference(frames, tmp_path):
         first = ctx_of({**opts, "pass": 1, "qscale": 8})
         _encode(first, frames[:4], port)
         first.send_frame(None)
-        with pytest.raises(EndOfStream):
+        with pytest.raises(EndOfStream if port else ref_error.EndOfStream):
             first.receive_packet()
         log = [tuple(map(int, ln.split()))
                for ln in stats.read_text().splitlines()]

@@ -11,11 +11,12 @@ tests/data/port/mpeg2_1080p_ippp_golden.npz with:
   reference's motion_search(frame 1, frame 0) on the padded 1088x1920
   luma, block 16, search 8 — an exact pair for K2;
 - for an I P P P encode through the reference's CodecContext at fixed
-  qscale (testing.ENC_OPTIONS), with its quantiser matrices in raster
-  order as decoders read them: `packet_bytes` (4,), `psnr` (4,), the
-  PSNR in dB of the encoder's reconstruction after each frame against
-  the source, and `p_mvs` (3, 68, 120, 2) int32, the motion search grid
-  of each P frame against the encoder's reconstructed reference.
+  qscale (testing.ENC_OPTIONS), the reference as it ships (its quantiser
+  matrices scattered through ZIGZAG, as the port's are): `packet_bytes`
+  (4,); `psnr` (4,), the PSNR in dB of the encoder's reconstruction
+  after each frame against the source; and `p_mvs` (3, 68, 120, 2)
+  int32, the motion search grid of each P frame against the encoder's
+  reconstructed reference.
 
 The card's machine has no JAX, so the reference's answer is committed.
 Usage:
@@ -57,11 +58,6 @@ def main() -> None:
                           width=W, height=H)
     ctx = CodecContext.open_encoder(par, options=dict(fx.ENC_OPTIONS))
     enc = ctx.codec
-    # The reference permutes its raster-order default matrices as if they
-    # were zigzag (see the port's codecs/mpeg12_enc.py); encode with the
-    # raster matrices that decoders use, as the port does.
-    enc.intra_m_raster = np.array(enc.intra_matrix, np.int32)
-    enc.inter_m_raster = np.array(enc.inter_matrix, np.int32)
     sizes, psnr, p_mvs = [], [], []
     for i, f in enumerate(frames):
         if i % fx.ENC_GOP:
