@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (ffmpeg_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's two paths through their user entry points at full
-size:
+Drives the port's paths through their user entry points at full size:
 
 - the flagship, 1080p MJPEG decoded and scaled to 224x224 rgb24
   (MjpegTpuEntropyPipeline: prep_frame, run_batch) on the committed
   8-frame 1920x1080 fixture, batch 8, bicubic;
 - the MPEG-2 encoder (CodecContext.open_encoder, send_frame,
   receive_packet) on a 1920x1080 clip made from a seed, I P P P at
-  fixed qscale, motion search by K2 on every P frame.
+  fixed qscale, motion search by K2 on every P frame;
+- the host-entropy decode->scale function (build_decode_scale, entry()),
+  the MJPEG decoder (CodecContext.open_decoder) into a parsed filter
+  graph, and the dataloader's batched graph, on the same fixture and on
+  benchrows.py's seeded clips.
 
 Phases, one line each:
 
@@ -50,7 +53,30 @@ Phases, one line each:
    shapes) and host ms (the rest of the wall time: the per-macroblock
    loop, copies, Python); and the encode hot loop of benchrows.py
    (K2 -> mc_blocks_bounded -> fdct8x8 -> quant) in macroblocks/s at
-   1088x1920, with its MC and FDCT timed alone.
+   1088x1920, with its MC and FDCT timed alone;
+9. the host-entropy decode->scale path (`build_decode_scale`, the
+   function `ffmpeg_tpu_torch.entry.entry()` returns) at the fixture's
+   full width: the 8 frames' first 12 coefficients per block from the
+   host's C++ scan, DecodeScaleSpec.auto(1920, 1080, 224, 224) (lowres
+   2) on the card against the JAX reference's committed output, with
+   phase 4's bounds; frames/s over 30 batches of 8 with the coefficients'
+   host-to-device copy; `entry()` at its own spec on the card within
+   1 LSB of the port's CPU run;
+10. the decoder and the filter graph: CodecContext.open_decoder on the
+   card decodes the fixture's 8 packets into planes on the card, and
+   parse_graph("scale=224:224:format=rgb24,tensornorm") fuses into one
+   node; its rgb24 planes against the reference's committed output
+   (phase 4's bounds), tensornorm against the port's CPU run within
+   1e-6; decode ms per frame split into host scan and device transform,
+   graph ms per frame, launches per frame by torch.profiler;
+11. the dataloader row of benchrows.py: 16 clips x 8 frames of 256x256
+   yuv420p (seed 0) as one frame with batched planes through
+   "scale=224:224:format=rgb24,crop=200:200:12:12,tensornorm=mean=0.45:
+   std=0.225" on the card; the first clip against the port's CPU run
+   within 1 LSB of rgb24 after normalisation; clips/s with the
+   host-to-device copy, launches per batch.
+Phases 9-11 run PyTorch only: K1 and K2 are not on their paths, and
+each prints their launch counts over its run (0).
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -218,20 +244,11 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = huffman.KERNEL_LAUNCHES
     out = np.stack([c.cpu().numpy() for c in comps])
-    if out.shape != gold.shape or out.dtype != np.uint8:
-        raise RuntimeError(f"output {out.shape} {out.dtype}, golden "
-                           f"{gold.shape} {gold.dtype}")
-    diff = np.abs(out.astype(np.int32) - gold.astype(np.int32))
-    frac = float((diff > 0).mean())
-    mse = float((diff.astype(np.float64) ** 2).mean())
-    psnr = 10 * np.log10(255 ** 2 / max(mse, 1e-12))
-    print(f"phase 4 pipeline: {out.shape} uint8 vs JAX golden: max |diff| "
-          f"{int(diff.max())}, {frac:.6%} of samples differ, PSNR "
-          f"{psnr:.2f} dB; K1 launches {launches}", flush=True)
-    if diff.max() > 1 or frac > 0.01 or psnr < 60 or launches < 1:
-        raise RuntimeError("pipeline output outside its tolerance "
-                           "(max 1 LSB, <= 1% differ, >= 60 dB) or K1 "
-                           "not launched")
+    note = check_close(out, gold, "pipeline output against the JAX golden")
+    print(f"phase 4 pipeline: {out.shape} uint8 vs JAX golden: {note}; K1 "
+          f"launches {launches}", flush=True)
+    if launches < 1:
+        raise RuntimeError("K1 not launched by the pipeline")
 
     # 5. timing (CUDA events; the h2d copy from pinned memory included)
     batch_ms = cuda_ms(pipe.run_batch, TIMED_BATCHES)
@@ -262,6 +279,9 @@ def main() -> int:
     k2 = phase6_k2(dev)
     frames, k2_launches = phase7_encoder(dev)
     phase8_timing(dev, card, frames)
+    phase9_decode_scale(dev, card)
+    phase10_decoder_graph(dev, card)
+    phase11_dataloader(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "jpeg_scan_decode_packed", "route": "cuda",
@@ -475,6 +495,280 @@ def phase8_timing(dev, card, frames):
           f"quant) {hot_ms:.3f} ms per 1088x1920 frame = {mbps:.0f} "
           f"macroblocks/s (MB/s), of which mc_blocks_bounded {mc_ms:.3f} "
           f"ms, fdct8x8 {fdct_ms:.3f} ms", flush=True)
+
+
+def check_close(got, want, what: str) -> str:
+    """Phases 4, 9 and 10: uint8 planes within 1 LSB of `want`, on at
+    most 1% of samples, at >= 60 dB PSNR; raises outside, else describes."""
+    import numpy as np
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise RuntimeError(f"{what}: {got.shape} {got.dtype}, expected "
+                           f"{want.shape} {want.dtype}")
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    frac = float((d > 0).mean())
+    psnr = 10 * np.log10(255 ** 2 / max(float((d.astype(np.float64) ** 2)
+                                              .mean()), 1e-12))
+    note = (f"max |diff| {int(d.max())}, {frac:.6%} of samples differ, "
+            f"PSNR {psnr:.2f} dB")
+    if d.max() > 1 or frac > 0.01 or psnr < 60:
+        raise RuntimeError(f"{what} outside its tolerance (max 1 LSB, <= 1% "
+                           f"differ, >= 60 dB): {note}")
+    return note
+
+
+def zero_counts() -> None:
+    from ffmpeg_tpu_torch.ops import huffman, me
+    huffman.KERNEL_LAUNCHES = me.KERNEL_LAUNCHES = 0
+
+
+def read_counts() -> str:
+    """K1's and K2's launch counts since zero_counts(): neither kernel is
+    on the paths of phases 9-11, which run PyTorch only."""
+    from ffmpeg_tpu_torch.ops import huffman, me
+    return f"K1/K2 launches {huffman.KERNEL_LAUNCHES}/{me.KERNEL_LAUNCHES}"
+
+
+def count_launches(fn, call_ms: float) -> str:
+    """Device kernels and copies of one warm call of fn(), counted by
+    torch.profiler, with the host's kernel-launch API calls beside them,
+    and the device's busy time in that call (the sum of the kernels' and
+    copies' durations) as a share of `call_ms`, the call's time by CUDA
+    events in a loop, and the three longest kinds of device work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = copies = api = 0
+    busy_us = 0.0
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            by_name[e.name[:48]] = by_name.get(e.name[:48], 0.0) + us
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
+        elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            api += 1
+    if kernels == 0 and api == 0:
+        return "launches not measured (the profiler saw no CUDA activity)"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return (f"{kernels} kernels + {copies} copies on the device, {api} "
+            f"launch calls on the host; device busy {busy_us / 1e3:.3f} ms "
+            f"({busy_us / 1e3 / call_ms:.1%} of {call_ms:.3f} ms), longest: "
+            + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us in top))
+
+
+def median_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of fn() over reps calls."""
+    import statistics
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ts)
+
+
+def phase9_decode_scale(dev, card) -> None:
+    """The entry() twin at full width: the fixture's coefficients at
+    DecodeScaleSpec.auto(1920, 1080, 224, 224) through build_decode_scale
+    on the card, against the reference's committed golden; then entry()
+    at its own spec on the card against the port's CPU run."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch import entry
+    from ffmpeg_tpu_torch.io.mjpeg import split_packets
+    from ffmpeg_tpu_torch.models.mjpeg_pipeline import (
+        DecodeScaleSpec, build_decode_scale, pack_coeffs)
+    from ffmpeg_tpu_torch.testing import (BATCH, DECODE_SCALE_GOLDEN,
+                                          FIXTURE, H, OUT, W, scan_coeffs)
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    pkts = split_packets(FIXTURE.read_bytes())
+    spec = DecodeScaleSpec.auto(W, H, OUT, OUT)
+    per = [scan_coeffs(p, spec.ncoeff) for p in pkts]
+    scan_ms = median_ms(lambda: [scan_coeffs(p, spec.ncoeff)
+                                 for p in pkts]) / len(pkts)
+    wire = [torch.from_numpy(pack_coeffs(np.stack([f[i] for f in per])))
+            .pin_memory() for i in range(3)]
+    qy, qc = (torch.from_numpy(per[0][i]).to(dev) for i in (3, 4))
+    fn = build_decode_scale(spec)
+
+    def step():
+        return fn(*[w.to(dev, non_blocking=True) for w in wire], qy, qc)
+
+    zero_counts()
+    out = step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if not all(o.is_cuda for o in out):
+        raise RuntimeError("build_decode_scale's planes are not on the card")
+    got = np.stack([o.cpu().numpy() for o in out])
+    note = check_close(got, np.load(DECODE_SCALE_GOLDEN)["decode_scale"],
+                       "build_decode_scale against the JAX golden")
+    batch_ms = cuda_ms(step, TIMED_BATCHES)
+    on_dev = [w.to(dev) for w in wire]
+    dev_ms = cuda_ms(lambda: fn(*on_dev, qy, qc), TIMED_BATCHES)
+    h2d_ms = cuda_ms(lambda: [w.to(dev, non_blocking=True) for w in wire],
+                     TIMED_BATCHES)
+    launches = count_launches(step, batch_ms)
+
+    efn, eargs = entry.entry()
+    cfn, cargs = entry.entry(device="cpu")
+    if not all(a.is_cuda for a in eargs):
+        raise RuntimeError("entry()'s arguments are not on the card")
+    ed = max(int((a.cpu().int() - b.int()).abs().max())
+             for a, b in zip(efn(*eargs), cfn(*cargs)))
+    if ed > 1:
+        raise RuntimeError(f"entry() on the card differs from the CPU run "
+                           f"by {ed} LSB")
+    print(f"phase 9 decode_scale [{card}]: {BATCH} fixture frames at "
+          f"lowres {spec.lowres}, {spec.ncoeff} coefficients per block; host "
+          f"scan (mjpeg_decode_scan, one thread, median of 3) "
+          f"{scan_ms:.3f} ms/frame; "
+          f"{tuple(got.shape)} uint8 on the card vs JAX golden: {note}; "
+          f"{counts}; {BATCH * 1e3 / batch_ms:.2f} frames/s over "
+          f"{TIMED_BATCHES} batches of {BATCH} ({batch_ms:.3f} ms/batch, "
+          f"h2d of {sum(w.numel() for w in wire)} coefficient bytes "
+          f"included; h2d alone {h2d_ms:.3f} ms, without the h2d "
+          f"{dev_ms:.3f} ms); one batch: {launches}; entry() 256x192 -> "
+          f"128x128 batch 2 on the card within {ed} LSB of its CPU run",
+          flush=True)
+
+
+def phase10_decoder_graph(dev, card) -> None:
+    """CodecContext.open_decoder on the card decodes the fixture; a parsed
+    graph scales its frames to 224x224 rgb24 and normalises them, against
+    the reference's committed golden and the port's CPU tensornorm."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.codecs.mjpeg import scan_decode
+    from ffmpeg_tpu_torch.core.packet import Packet
+    from ffmpeg_tpu_torch.filters import parse_graph
+    from ffmpeg_tpu_torch.io.mjpeg import split_packets
+    from ffmpeg_tpu_torch.io.stream import CodecParameters, MediaType
+    from ffmpeg_tpu_torch.testing import (DECODE_SCALE_GOLDEN, FIXTURE,
+                                          GRAPH_FRAMES, GRAPH_TEXT, H, W)
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    pkts = split_packets(FIXTURE.read_bytes())
+    par = CodecParameters(codec_type=MediaType.VIDEO, codec_id="mjpeg")
+    text = GRAPH_TEXT + ",tensornorm"
+    zero_counts()
+    ctx = CodecContext.open_decoder(par, device=dev)
+    frames = ctx.decode_all([Packet(data=p, pts=i)
+                             for i, p in enumerate(pkts)])
+    g = parse_graph(text, device=dev)
+    out = g.run(frames)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    shapes = [tuple(p.shape) for p in frames[0].planes]
+    if (len(frames) != len(pkts) or shapes != [(H, W), (H // 2, W // 2),
+                                               (H // 2, W // 2)]
+            or not all(p.is_cuda for f in frames for p in f.planes)):
+        raise RuntimeError(f"decoder gave {len(frames)} frames of {shapes}, "
+                           f"or planes off the card")
+    if [n.filter.name for n in g.nodes] != ["scale+tensornorm"]:
+        raise RuntimeError(f"graph nodes {[n.filter.name for n in g.nodes]}")
+    if len(out) != len(pkts) or not all(
+            p.is_cuda and p.dtype == torch.float32 and p.shape == (224, 224)
+            for f in out for p in f.planes):
+        raise RuntimeError("graph output not 224x224 float32 on the card")
+    rgb = parse_graph(GRAPH_TEXT, device=dev).run(frames[:GRAPH_FRAMES])
+    got = np.stack([np.stack([p.cpu().numpy() for p in f.planes])
+                    for f in rgb], axis=1)
+    note = check_close(got, np.load(DECODE_SCALE_GOLDEN)["graph"],
+                       "decoder -> scale graph against the JAX golden")
+    norm = parse_graph("tensornorm", device="cpu").run(
+        [f.numpy() for f in rgb])
+    nd = max(float((a.cpu() - b).abs().max())
+             for f, n in zip(out, norm) for a, b in zip(f.planes, n.planes))
+    if nd > 1e-6:
+        raise RuntimeError(f"tensornorm on the card differs from the CPU "
+                           f"run by {nd}")
+
+    dec = ctx.codec
+    scans = [scan_decode(p) for p in pkts]
+    scan_ms = median_ms(lambda: [scan_decode(p) for p in pkts]) / len(pkts)
+    recon_ms = cuda_ms(lambda: [dec.reconstruct(s) for s in scans],
+                       5) / len(pkts)
+
+    def decode():
+        ctx.flush()
+        ctx.decode_all([Packet(data=p) for p in pkts])
+        torch.cuda.synchronize()
+    wall_ms = median_ms(decode) / len(pkts)
+    graph_ms = cuda_ms(lambda: g.run(frames), 5) / len(pkts)
+    launches = count_launches(lambda: g.run(frames[:1]), graph_ms)
+    print(f"phase 10 decoder->graph [{card}]: {len(frames)} frames {shapes} "
+          f"uint8 on the card; graph '{text}' fused into one node "
+          f"'{g.nodes[0].filter.name}'; rgb24 frames 0-{GRAPH_FRAMES - 1} "
+          f"vs JAX golden: {note}; tensornorm within {nd:.3g} of the CPU "
+          f"run; {counts}; decode {wall_ms:.3f} ms/frame wall, median of 3 "
+          f"(host scan {scan_ms:.3f} ms, device transform {recon_ms:.3f} ms with the "
+          f"coefficients' h2d), graph {graph_ms:.3f} ms/frame; one frame "
+          f"through the graph: {launches}", flush=True)
+
+
+def phase11_dataloader(dev, card) -> None:
+    """benchrows.dataloader_row's batch, 16 clips x 8 frames of 256x256
+    yuv420p made from seed 0, as one frame with batched planes through
+    the parsed graph on the card; the first clip against the port's CPU
+    run of the same graph."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.core.frame import Frame
+    from ffmpeg_tpu_torch.filters import parse_graph
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    B, T, S = 16, 8, 256
+    text = ("scale=224:224:format=rgb24,crop=200:200:12:12,"
+            "tensornorm=mean=0.45:std=0.225")
+    rng = np.random.default_rng(0)
+    planes = [rng.integers(0, 256, (B * T, S, S), np.uint8),
+              rng.integers(0, 256, (B * T, S // 2, S // 2), np.uint8),
+              rng.integers(0, 256, (B * T, S // 2, S // 2), np.uint8)]
+    pinned = [torch.from_numpy(p).pin_memory() for p in planes]
+    g = parse_graph(text, device=dev)
+
+    def step():
+        return g.run([Frame.video(S, S, "yuv420p", planes=[
+            p.to(dev, non_blocking=True) for p in pinned])])[0]
+
+    zero_counts()
+    out = step()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if [n.filter.name for n in g.nodes] != ["scale+crop+tensornorm"] or \
+            not all(p.is_cuda and p.shape == (B * T, 200, 200)
+                    for p in out.planes):
+        raise RuntimeError(f"dataloader graph: nodes "
+                           f"{[n.filter.name for n in g.nodes]}, planes "
+                           f"{[tuple(p.shape) for p in out.planes]}")
+    want = parse_graph(text, device="cpu").run([Frame.video(
+        S, S, "yuv420p", planes=[p[:T] for p in planes])])[0]
+    d = max(float((a[:T].cpu() - b).abs().max())
+            for a, b in zip(out.planes, want.planes))
+    tol = 1 / (255 * 0.225) + 1e-5
+    if d > tol:
+        raise RuntimeError(f"dataloader's first clip differs from the CPU "
+                           f"run by {d} (> {tol:.6f})")
+    ms = cuda_ms(step, TIMED_BATCHES)
+    h2d_ms = cuda_ms(lambda: [p.to(dev, non_blocking=True) for p in pinned],
+                     TIMED_BATCHES)
+    print(f"phase 11 dataloader [{card}]: {B} clips x {T} frames {S}x{S} "
+          f"yuv420p through '{text}' (one node "
+          f"'{g.nodes[0].filter.name}'), planes {tuple(out.planes[0].shape)} "
+          f"float32 on the card; first clip within {d:.3g} of the CPU run "
+          f"(<= {tol:.6f}); {counts}; {B * 1e3 / ms:.2f} clips/s over "
+          f"{TIMED_BATCHES} batches ({ms:.3f} ms/batch, h2d included; h2d "
+          f"alone {h2d_ms:.3f} ms); one batch: {count_launches(step, ms)}",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""The port's codecs.  Importing the package registers its encoders, as
-the reference's codec registry does."""
+"""The port's codecs.  Importing the package registers its decoders and
+encoders, as the reference's codec registry does."""
 
 from .codec import (CodecContext, EncoderParameters, Rational,  # noqa: F401
-                    encoder_names)
+                    decoder_names, encoder_names)
+from . import mjpeg  # noqa: F401  (registers the mjpeg decoder)
 from . import mpeg12_enc  # noqa: F401  (registers mpeg2video)

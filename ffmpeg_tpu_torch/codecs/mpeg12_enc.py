@@ -31,7 +31,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core.frame import Frame
+from ..core.frame import Frame, host_array
 from ..core.packet import Packet, PKT_FLAG_KEY
 from ..formats import pixfmt as _pf
 from ..ops.idct import ZIGZAG, fdct8x8, idct8x8
@@ -230,7 +230,7 @@ class Mpeg2Encoder(Codec):
                            or self._recon is None) else P_TYPE
         qscale = self._pick_qscale(ftype)
 
-        planes = [np.asarray(p) for p in frame.planes[:3]]
+        planes = [host_array(p) for p in frame.planes[:3]]
         y = _pad(planes[0], mb_h * 16, mb_w * 16)
         u = _pad(planes[1], mb_h * 8, mb_w * 8)
         v = _pad(planes[2], mb_h * 8, mb_w * 8)

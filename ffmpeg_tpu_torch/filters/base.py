@@ -1,0 +1,212 @@
+"""Filter framework (counterpart of ffmpeg_tpu/filters/base.py; analog of
+libavfilter's AVFilter/AVFilterPad).
+
+Two filter species:
+  * TraceableFilter — pure per-frame transforms of component planes
+    (crop, pad, scale, format, normalize...).  `make_tracer(props)`
+    returns (fn, out_props), fn mapping a list of component tensors to a
+    list of component tensors, with any leading batch dims.  The graph
+    composes consecutive traceable filters into one FusedChain
+    (filters/graph.py).  Where the reference jits each fn, the port calls
+    the composition eagerly (no torch.compile, no CUDA graph), cached per
+    input props as the reference caches its jitted programs.
+  * Filter — generic: consumes/produces Frames via process(); used for
+    rate-changing (fps, trim) and timestamp filters.
+
+A traceable filter runs on the device of the frame's planes and never
+moves them off it.  Options use the reference's string surface
+("scale=640:480:flags=bicubic" / positional args in OPTIONS order).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
+
+import torch
+
+from ..core.frame import Frame, device_planes
+from ..io.stream import MediaType
+from ..utils.error import FilterNotFound, InvalidData
+from ..utils.log import LogMixin
+from ..utils.options import OptionsMixin
+from ..utils.rational import Rational
+
+_FILTERS: Dict[str, Type["Filter"]] = {}
+
+
+def register_filter(cls: Type["Filter"]) -> Type["Filter"]:
+    _FILTERS[cls.name] = cls
+    return cls
+
+
+def filter_names() -> List[str]:
+    return sorted(_FILTERS)
+
+
+def get_filter(name: str) -> Type["Filter"]:
+    cls = _FILTERS.get(name)
+    if cls is None:
+        raise FilterNotFound(f"no such filter: {name!r}")
+    return cls
+
+
+@dataclass(frozen=True)
+class VideoProps:
+    width: int
+    height: int
+    format: str
+    time_base: Rational
+    frame_rate: Rational = Rational(0, 1)
+    sample_aspect_ratio: Rational = Rational(0, 1)
+    color_range: str = "unspecified"
+    color_space: str = "unspecified"
+
+    media_type = MediaType.VIDEO
+
+
+@dataclass(frozen=True)
+class AudioProps:
+    sample_rate: int
+    format: str
+    channels: int
+    time_base: Rational
+    layout: str = ""
+
+    media_type = MediaType.AUDIO
+
+
+class Filter(OptionsMixin, LogMixin):
+    """Generic filter: frames in → frames out."""
+
+    name = "?"
+    description = ""
+    n_inputs = 1
+    n_outputs = 1
+    media_type = MediaType.VIDEO
+
+    def __init__(self, args: str = "", **opts):
+        self.init_options()
+        self._parse_args(args)
+        for k, v in opts.items():
+            self.set_option(k, v)
+        self.log_name = self.name
+        self.out_props = None
+
+    def _parse_args(self, args: str) -> None:
+        if not args:
+            return
+        positional = [o.name for o in type(self).mro_options()
+                      if o.type.value != "const"]
+        idx = 0
+        for part in _split_filter_args(args):
+            if "=" in part:
+                k, _, v = part.partition("=")
+                self.set_option(k, v)
+            else:
+                if idx >= len(positional):
+                    raise InvalidData(f"{self.name}: too many args")
+                self.set_option(positional[idx], part)
+                idx += 1
+
+    # --- configuration -------------------------------------------------------
+    def configure(self, in_props: Sequence) -> object:
+        """Given input pad props, validate + return output props."""
+        self.out_props = in_props[0] if in_props else None
+        return self.out_props
+
+    # --- runtime -------------------------------------------------------------
+    def process(self, frame: Optional[Frame], pad: int = 0) -> List[Frame]:
+        """frame=None signals EOF on that pad; return output frames."""
+        if frame is None:
+            return []
+        return [frame]
+
+
+class TraceableFilter(Filter):
+    """Per-frame pure transform; fusable into the chain's composition."""
+
+    def make_tracer(self, props) -> Tuple[Callable, object]:
+        """Return (fn(comps)->comps, out_props)."""
+        raise NotImplementedError
+
+    def configure(self, in_props: Sequence) -> object:
+        _, out = self.make_tracer(in_props[0])
+        self.out_props = out
+        return out
+
+    def update_frame_props(self, frame: Frame, out_props) -> Frame:
+        if isinstance(out_props, VideoProps):
+            frame.width = out_props.width
+            frame.height = out_props.height
+            frame.format = out_props.format
+            if out_props.color_range != "unspecified":
+                frame.color_range = out_props.color_range
+            if out_props.color_space != "unspecified":
+                frame.color_space = out_props.color_space
+        return frame
+
+    def process(self, frame: Optional[Frame], pad: int = 0) -> List[Frame]:
+        if frame is None:
+            return []
+        props = _props_of(frame)
+        cache = self.__dict__.setdefault("_tracer_cache", {})
+        hit = cache.get(props)
+        if hit is None:
+            hit = cache[props] = self.make_tracer(props)
+        fn, out_props = hit
+        out = frame.clone_props()
+        out.planes = list(fn(_tensor_planes(frame.planes)))
+        return [self.update_frame_props(out, out_props)]
+
+
+def _tensor_planes(planes) -> List[torch.Tensor]:
+    """The planes as tensors where they lie: tensors as they are, numpy
+    planes as host tensors; planes on two devices raise InvalidData."""
+    dev = next((p.device for p in planes if isinstance(p, torch.Tensor)),
+               torch.device("cpu"))
+    return device_planes(planes, dev)
+
+
+def _props_of(frame: Frame):
+    if frame.is_video:
+        return VideoProps(frame.width, frame.height, frame.format,
+                          frame.time_base,
+                          sample_aspect_ratio=frame.sample_aspect_ratio,
+                          color_range=frame.color_range,
+                          color_space=frame.color_space)
+    return AudioProps(frame.sample_rate, frame.format,
+                      frame.ch_layout.nb_channels if frame.ch_layout else
+                      len(frame.planes), frame.time_base)
+
+
+def props_of(frame: Frame):
+    return _props_of(frame)
+
+
+def _split_filter_args(s: str) -> List[str]:
+    """Split on ':' honoring quoting and \\ escapes (like av_get_token)."""
+    out = []
+    cur = []
+    esc = False
+    quote = None
+    for ch in s:
+        if esc:
+            cur.append(ch)
+            esc = False
+        elif ch == "\\":
+            esc = True
+        elif quote:
+            if ch == quote:
+                quote = None
+            else:
+                cur.append(ch)
+        elif ch in "'\"":
+            quote = ch
+        elif ch == ":":
+            out.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    out.append("".join(cur))
+    return [p for p in out if p != ""]

@@ -72,6 +72,10 @@ class PixFmtDescriptor:
         return bool(self.flags & FLAG_ALPHA)
 
     @property
+    def nb_planes(self) -> int:
+        return 1 + max(c.plane for c in self.comp)
+
+    @property
     def depth(self) -> int:
         return max(c.depth for c in self.comp)
 

@@ -84,6 +84,12 @@ def _recon_matrix(s: int, ncoeff: int) -> np.ndarray:
     return np.ascontiguousarray(w_zz[:, :ncoeff]).astype(np.float32)
 
 
+@lru_cache(maxsize=64)
+def _recon_weights(s: int, ncoeff: int, device: torch.device) -> torch.Tensor:
+    """_recon_matrix on `device`, copied there once."""
+    return torch.as_tensor(_recon_matrix(s, ncoeff), device=device)
+
+
 def jpeg_plane_reconstruct(coeffs_zz: torch.Tensor, qtab: torch.Tensor,
                            out_h: int, out_w: int, bit_depth: int = 8,
                            scale: int = 1) -> torch.Tensor:
@@ -101,7 +107,7 @@ def jpeg_plane_reconstruct(coeffs_zz: torch.Tensor, qtab: torch.Tensor,
     *lead, rows, cols, ncoeff = coeffs_zz.shape
     dev = coeffs_zz.device
     s = 8 // scale
-    w = torch.as_tensor(_recon_matrix(s, ncoeff), device=dev)  # (s², L)
+    w = _recon_weights(s, ncoeff, dev)                     # (s², L)
     q = torch.as_tensor(qtab, device=dev).to(torch.float32)[:ncoeff]
     wq = w * q[None, :]                                   # fold dequant
     flat = coeffs_zz.reshape(*lead, rows * cols, ncoeff).to(torch.float32)

@@ -130,14 +130,24 @@ class ResizeAxis(Op):
     axis: int                     # -2 = vertical (h), -1 = horizontal (w)
     matrices: Tuple[Optional[np.ndarray], ...]  # one per comp; None = skip
 
+    def _on(self, i: int, m: np.ndarray, device) -> torch.Tensor:
+        """Matrix i as float32 on `device`, copied there once: a copy from
+        pageable host memory per call would wait for the device."""
+        cache = self.__dict__.setdefault("_device_mats", {})
+        t = cache.get((i, device))
+        if t is None:
+            t = cache[(i, device)] = torch.as_tensor(
+                m, dtype=torch.float32, device=device)
+        return t
+
     def apply(self, comps):
         out = []
-        for x, m in zip(comps, self.matrices):
+        for i, (x, m) in enumerate(zip(comps, self.matrices)):
             if m is None:
                 out.append(x)
                 continue
             require_full_fp32()
-            mm = torch.as_tensor(m, dtype=torch.float32, device=x.device)
+            mm = self._on(i, m, x.device)
             if self.axis == -1:
                 out.append(torch.matmul(x, mm.T))      # (..., h, w_out)
             else:

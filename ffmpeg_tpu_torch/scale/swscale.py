@@ -19,7 +19,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.frame import Frame
+from ..core.frame import Frame, device_planes
 from ..formats import pixfmt as _pf
 from ..utils.error import InvalidData, NotSupported
 from . import colorspace as csp
@@ -251,23 +251,23 @@ class Scaler:
         self._fn = compile_ops(self.ops)
 
     def run(self, comps: Sequence) -> List[torch.Tensor]:
-        """comps: per-component arrays or tensors (..., h_c, w_c) in native
-        dtype; they are moved to the scaler's device."""
-        return self._fn([torch.as_tensor(c, device=self.device)
-                         for c in comps])
+        """comps: per-component tensors or numpy arrays (..., h_c, w_c) in
+        native dtype.  Tensors on the scaler's device go in as they are,
+        numpy arrays are copied there once, and a tensor on another device
+        raises InvalidData.  The outputs stay on the device."""
+        return self._fn(device_planes(comps, self.device))
 
     def scale_frame(self, frame: Frame) -> Frame:
-        """Scale one Frame.  Its output planes come back to the host as
-        numpy: Frame calls np.asarray on its planes, which a CUDA tensor
-        refuses."""
+        """Scale one Frame; its output planes are tensors on the scaler's
+        device."""
         s = self.spec
         if (frame.width, frame.height) != (s.src_w, s.src_h):
             raise InvalidData("frame size does not match scaler spec")
-        out_comps = self.run([np.ascontiguousarray(p) for p in frame.planes])
+        out_comps = self.run(frame.planes)
         out = frame.clone_props()
         out.width, out.height = s.dst_w, s.dst_h
         out.format = _pf.get(s.dst_fmt).name
-        out.planes = [c.cpu().numpy() for c in out_comps]
+        out.planes = list(out_comps)
         dk = _kind(_pf.get(s.dst_fmt))
         out.color_range = "pc" if (s.dst_range or dk == "rgb") else "tv"
         out.color_space = "rgb" if dk == "rgb" else s.dst_colorspace
@@ -281,3 +281,17 @@ def _cached_scaler(device: str, items: tuple) -> Scaler:
 
 def get_scaler(device: torch.device | str = "cuda", **kw) -> Scaler:
     return _cached_scaler(str(torch.device(device)), tuple(sorted(kw.items())))
+
+
+def scale_frame(frame: Frame, dst_w: int, dst_h: int, dst_fmt: str,
+                device: torch.device | str = "cuda", **kw) -> Frame:
+    """One-shot API (sws_scale_frame analog) with the reference's
+    defaults: the source colour space and range are the frame's.  Scalers
+    are cached per device and spec."""
+    if frame.color_space not in ("unspecified", "rgb"):
+        kw.setdefault("src_colorspace", frame.color_space)
+    kw.setdefault("src_range", frame.color_range == "pc")
+    sc = get_scaler(
+        device, src_w=frame.width, src_h=frame.height, src_fmt=frame.format,
+        dst_w=dst_w, dst_h=dst_h, dst_fmt=dst_fmt, **kw)
+    return sc.scale_frame(frame)

@@ -8,7 +8,14 @@ both check the port against the JAX reference's committed answers:
   host decoder's coefficients;
 - the MPEG-2 encoder: a clip made from a seed (`mpeg2_clip`, not
   committed) and the reference's motion search and I P P P encode of it
-  at 1080p (`ENCODE_GOLDEN`, written by tools/gen_torch_encode_fixture.py).
+  at 1080p (`ENCODE_GOLDEN`, written by tools/gen_torch_encode_fixture.py);
+- the host-entropy decode→scale path and the decoder → graph path on the
+  same clip: the reference's `build_decode_scale` at
+  `DecodeScaleSpec.auto(1920, 1080, 224, 224)` on all 8 frames and its
+  MjpegDecoder + `scale=224:224:format=rgb24` graph on frames 0-1
+  (`DECODE_SCALE_GOLDEN`, written by
+  tools/gen_torch_decode_scale_fixture.py), and the host's coefficients
+  for that path (`scan_coeffs`).
 
 They live here so that each check reads them from the package and not
 from the other.
@@ -16,14 +23,12 @@ from the other.
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 from pathlib import Path
 
 import numpy as np
 
-from . import native
-from .codecs.mjpeg import _JpegState, _parse_until_scan
+from .codecs.mjpeg import _JpegState, _parse_until_scan, scan_decode
 from .core.frame import Frame
 from .utils.rational import Rational
 
@@ -31,6 +36,9 @@ DATA = Path(__file__).resolve().parent.parent / "tests" / "data" / "port"
 FIXTURE = DATA / "flagship_1080p_8.mjpeg"
 GOLDEN = DATA / "flagship_1080p_8_golden.npz"
 W, H, OUT, BATCH, STRIDE = 1920, 1080, 224, 8, 192
+DECODE_SCALE_GOLDEN = DATA / "flagship_1080p_8_decode_scale_golden.npz"
+GRAPH_TEXT = f"scale={OUT}:{OUT}:format=rgb24"
+GRAPH_FRAMES = 2             # frames of the graph golden
 
 # The MPEG-2 encode golden: I P P P of mpeg2_clip at 1920x1080, fixed
 # qscale (so that rate control cannot amplify rounding differences).
@@ -50,30 +58,23 @@ def packed_cap(pkts) -> int:
 def host_decode(pkt: bytes) -> np.ndarray:
     """Coefficients of one 4:2:0 frame with one MCU per restart interval
     from the C++ host decoder, in K1's (nmcu, 6, 64) int16 lane layout."""
-    st = _JpegState()
-    off, _ = _parse_until_scan(pkt, st)
-    mcus_x, mcus_y = -(-st.width // 16), -(-st.height // 16)
-    lx, ly = 2 * mcus_x, 2 * mcus_y
-    planes = [np.zeros((ly, lx, 64), np.int16),
-              np.zeros((mcus_y, mcus_x, 64), np.int16),
-              np.zeros((mcus_y, mcus_x, 64), np.int16)]
-    specs = [v for c in st.components
-             for v in (c.dc_tab, c.ac_tab, c.h, c.v, lx if c.h == 2 else
-                       mcus_x)]
-    ptrs = (ctypes.POINTER(ctypes.c_int16) * 3)(
-        *[p.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)) for p in planes])
-    scan = pkt[off:]
-    r = native.get().mjpeg_decode_scan(
-        scan, len(scan), st.dc_counts.tobytes(), st.dc_values.tobytes(),
-        st.ac_counts.tobytes(), st.ac_values.tobytes(),
-        (ctypes.c_int * len(specs))(*specs), len(st.components),
-        mcus_x, mcus_y, st.restart_interval, 64, ptrs)
-    if r != 0:
-        raise RuntimeError(f"host decoder failed: {r}")
-    y = planes[0].reshape(mcus_y, 2, mcus_x, 2, 64).transpose(0, 2, 1, 3, 4)
-    return np.concatenate([y.reshape(-1, 4, 64),
-                           planes[1].reshape(-1, 1, 64),
-                           planes[2].reshape(-1, 1, 64)], axis=1)
+    y, u, v = scan_decode(pkt).coeffs
+    my, mx = u.shape[:2]
+    y = y.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4)
+    return np.concatenate([y.reshape(-1, 4, 64), u.reshape(-1, 1, 64),
+                           v.reshape(-1, 1, 64)], axis=1)
+
+
+def scan_coeffs(pkt: bytes, L: int):
+    """The first L zigzag coefficients of every block of one 4:2:0 frame
+    from the C++ host decoder, as build_decode_scale takes them (before
+    pack_coeffs): (ly, lx, L), (cy, cx, L), (cy, cx, L) int16, and the
+    luma and chroma quantiser tables as int32 (the reference's
+    tests/test_pipeline.py makes them so)."""
+    sc = scan_decode(pkt, L)
+    q = [sc.st.qtabs[sc.st.components[i].q_idx].astype(np.int32)
+         for i in (0, 1)]
+    return (*sc.coeffs, *q)
 
 
 def mpeg2_clip(n: int, w: int, h: int, seed: int = 0) -> list:

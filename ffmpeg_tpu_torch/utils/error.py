@@ -28,5 +28,17 @@ class NotSupported(FFTPUError):
     """AVERROR(ENOSYS)/PATCHWELCOME: feature not (yet) implemented."""
 
 
+class DecoderNotFound(FFTPUError):
+    pass
+
+
 class EncoderNotFound(FFTPUError):
+    pass
+
+
+class FilterNotFound(FFTPUError):
+    pass
+
+
+class OptionNotFound(FFTPUError):
     pass

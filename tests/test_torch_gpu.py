@@ -1,9 +1,12 @@
-"""The port's kernels against their plain PyTorch versions on the card,
-bit-exact: K1 (ffmpeg_tpu_torch/csrc/jpeg_huffman.cu) and K2
-(ffmpeg_tpu_torch/csrc/sad_cost_volume.cu).  Marked `gpu`: they need a
-CUDA device and nvcc, and skip without them.  They use no jax, so on a
-machine with a card and without jax they run without tests/conftest.py
-(which imports jax):
+"""The port on the card: its kernels against their plain PyTorch
+versions, bit-exact: K1 (ffmpeg_tpu_torch/csrc/jpeg_huffman.cu) and K2
+(ffmpeg_tpu_torch/csrc/sad_cost_volume.cu); and the PyTorch-only paths
+(the MJPEG decoder, the filter graph, build_decode_scale and entry())
+against the same code on the CPU and the reference's committed output,
+within 1 LSB.  Marked `gpu`: they need a CUDA device (and nvcc for the
+kernels), and skip without one.  They use no jax, so on a machine with a
+card and without jax they run without tests/conftest.py (which imports
+jax):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -14,9 +17,18 @@ import torch
 
 from ffmpeg_tpu_torch.models.mjpeg_tpu_entropy import (
     MjpegTpuEntropyPipeline, TpuEntropySpec)
+from ffmpeg_tpu_torch import entry
 from ffmpeg_tpu_torch.codecs import CodecContext, EncoderParameters
 from ffmpeg_tpu_torch.codecs.mpeg12_enc import state_from_reference
+from ffmpeg_tpu_torch.core.frame import Frame
+from ffmpeg_tpu_torch.core.packet import Packet
+from ffmpeg_tpu_torch.filters import parse_graph
+from ffmpeg_tpu_torch.io.stream import CodecParameters, MediaType
+from ffmpeg_tpu_torch.models.mjpeg_pipeline import (DecodeScaleSpec,
+                                                    build_decode_scale,
+                                                    pack_coeffs)
 from ffmpeg_tpu_torch.ops import huffman, me
+from ffmpeg_tpu_torch.utils.error import InvalidData
 from ffmpeg_tpu_torch import testing as fx
 
 from torch_port_util import fixture_packets
@@ -147,3 +159,87 @@ def test_encoder_on_card_launches_k2_per_p_frame(cuda):
         assert c.receive_packet().data
     np.testing.assert_array_equal(ctx.codec.last_mv_grid,
                                   cpu.codec.last_mv_grid)
+
+
+def _within_one_lsb(got, want):
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert d.max() <= 1 and (d > 0).mean() <= 0.01, (d.max(), (d > 0).mean())
+
+
+def _decode(pkts, device):
+    ctx = CodecContext.open_decoder(
+        CodecParameters(codec_type=MediaType.VIDEO, codec_id="mjpeg"),
+        device=device)
+    return ctx.decode_all([Packet(data=p, pts=i) for i, p in enumerate(pkts)])
+
+
+def test_decoder_on_card_matches_cpu(cuda):
+    """The MJPEG decoder's planes are CUDA tensors within 1 LSB of the
+    same decoder on the CPU."""
+    pkts = fixture_packets()[:2]
+    got, want = _decode(pkts, cuda), _decode(pkts, "cpu")
+    assert [f.pts for f in got] == [0, 1]
+    for g, w in zip(got, want):
+        assert (g.format, g.color_range) == ("yuv420p", "pc")
+        for a, b in zip(g.planes, w.planes):
+            assert a.is_cuda and a.dtype == torch.uint8
+            _within_one_lsb(a.cpu().numpy(), b.numpy())
+
+
+def test_graph_on_card_matches_golden_and_cpu(cuda):
+    """Decoder -> scale graph on the card against the reference's golden;
+    the fused scale+tensornorm against the CPU tensornorm of those planes;
+    planes on the CPU refused by a graph on the card."""
+    frames = _decode(fixture_packets()[:fx.GRAPH_FRAMES], cuda)
+    rgb = parse_graph(fx.GRAPH_TEXT, device=cuda).run(frames)
+    got = np.stack([np.stack([p.cpu().numpy() for p in f.planes])
+                    for f in rgb], axis=1)
+    _within_one_lsb(got, np.load(fx.DECODE_SCALE_GOLDEN)["graph"])
+    g = parse_graph(fx.GRAPH_TEXT + ",tensornorm", device=cuda)
+    assert [n.filter.name for n in g.nodes] == ["scale+tensornorm"]
+    norm = parse_graph("tensornorm", device="cpu").run(
+        [f.numpy() for f in rgb])
+    for f, n in zip(g.run(frames), norm):
+        for a, b in zip(f.planes, n.planes):
+            assert a.is_cuda and a.dtype == torch.float32
+            assert float((a.cpu() - b).abs().max()) <= 1e-6
+    host = frames[0].clone_props()
+    host.planes = [p.cpu() for p in frames[0].planes]
+    with pytest.raises(InvalidData):
+        g.feed(host)
+
+
+def test_dataloader_graph_on_card_matches_cpu(cuda):
+    """benchrows.dataloader_row's graph on batched planes (4 frames of
+    64x64 here) on the card, against the same graph on the CPU."""
+    text = "scale=56:56:format=rgb24,crop=50:50:3:3," \
+        "tensornorm=mean=0.45:std=0.225"
+    rng = np.random.default_rng(0)
+    planes = [rng.integers(0, 256, s, np.uint8)
+              for s in ((4, 64, 64), (4, 32, 32), (4, 32, 32))]
+    got = parse_graph(text, device=cuda).run(
+        [Frame.video(64, 64, "yuv420p", planes=planes)])[0]
+    want = parse_graph(text, device="cpu").run(
+        [Frame.video(64, 64, "yuv420p", planes=planes)])[0]
+    for a, b in zip(got.planes, want.planes):
+        assert a.is_cuda and tuple(a.shape) == (4, 50, 50)
+        assert float((a.cpu() - b).abs().max()) <= 1 / (255 * 0.225) + 1e-5
+
+
+def test_decode_scale_entry_on_card_matches_cpu(cuda):
+    """entry() runs on the card by default, within 1 LSB of its CPU run;
+    the 1080p auto spec on fixture frame 0 against the golden."""
+    fn, args = entry.entry()
+    assert all(a.is_cuda for a in args)
+    cfn, cargs = entry.entry(device="cpu")
+    for a, b in zip(fn(*args), cfn(*cargs)):
+        assert a.is_cuda
+        _within_one_lsb(a.cpu().numpy(), b.numpy())
+    spec = DecodeScaleSpec.auto(fx.W, fx.H, fx.OUT, fx.OUT)
+    c = fx.scan_coeffs(fixture_packets()[0], spec.ncoeff)
+    out = build_decode_scale(spec)(
+        *[torch.from_numpy(pack_coeffs(x[None])).to(cuda) for x in c[:3]],
+        *[torch.from_numpy(q).to(cuda) for q in c[3:]])
+    _within_one_lsb(np.stack([o.cpu().numpy() for o in out]),
+                    np.load(fx.DECODE_SCALE_GOLDEN)["decode_scale"][:, :1])

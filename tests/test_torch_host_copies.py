@@ -1,14 +1,18 @@
 """The port's own copies of the reference's host modules against the
 reference, on the CPU: the pixel-format descriptors, the colour matrices
 and levels, the resize filter banks, the JPEG Huffman tables, Rational
-arithmetic, the exception classes, and the host C++ (scan split and
-sequential decode) on every frame of the 1080p fixture, byte-exact."""
+arithmetic and timestamp rescaling, the exception classes, the host C++
+(scan split and sequential decode) on every frame of the 1080p fixture,
+byte-exact; and the host modules of the decode → filter graph slice:
+logging, the expression language, the option system, the stream
+containers, image packing and the frame's byte and host conversions."""
 
 import ctypes
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from ffmpeg_tpu import native as ref_native
 from ffmpeg_tpu.codecs.mjpeg import _JpegState, _parse_until_scan
@@ -127,7 +131,8 @@ def test_rational_equal_reference():
 
 def test_errors_packet_frame_mirror_reference():
     for name in ("FFTPUError", "TryAgain", "EndOfStream", "InvalidData",
-                 "NotSupported", "EncoderNotFound"):
+                 "NotSupported", "EncoderNotFound", "DecoderNotFound",
+                 "FilterNotFound", "OptionNotFound"):
         cls = getattr(error, name)
         assert issubclass(cls, error.FFTPUError)
         assert cls.__doc__ == getattr(ref_error, name).__doc__
@@ -152,13 +157,13 @@ def _split(lib, scan, nmcu):
 def _ref_host_decode(pkt):
     """The reference library's mjpeg_decode_scan, through the port's
     `host_decode` with its library swapped for the reference's."""
-    from ffmpeg_tpu_torch import testing
-    saved = testing.native
+    from ffmpeg_tpu_torch.codecs import mjpeg
+    saved = mjpeg.native
     try:
-        testing.native = ref_native
+        mjpeg.native = ref_native
         return host_decode(pkt)
     finally:
-        testing.native = saved
+        mjpeg.native = saved
 
 
 @pytest.mark.parametrize("frame", range(8))
@@ -178,3 +183,247 @@ def test_host_cpp_equals_reference(frame):
     coef = host_decode(pkt)
     assert coef.shape == (nmcu, 6, 64)
     np.testing.assert_array_equal(coef, _ref_host_decode(pkt))
+
+
+# --- the host modules of the decode → filter graph slice -------------------
+
+def test_log_levels_and_mixin_equal_reference(capsys):
+    from ffmpeg_tpu.utils import log as ref_log
+    from ffmpeg_tpu_torch.utils import log
+    assert {k: int(v) for k, v in log.LogLevel.__members__.items()} == \
+        {k: int(v) for k, v in ref_log.LogLevel.__members__.items()}
+    assert {int(k): v for k, v in log._NAMES.items()} == \
+        {int(k): v for k, v in ref_log._NAMES.items()}
+    seen = []
+    prev = log.get_level()
+    try:
+        log.set_callback(lambda ctx, lvl, msg: seen.append((lvl, msg)))
+        log.set_level("warning")
+
+        class Ctx(log.LogMixin):
+            log_name = "ctx"
+        Ctx().info("hidden")
+        Ctx().error("shown")
+    finally:
+        log.set_callback(None)
+        log.set_level(prev)
+    assert seen == [(log.LogLevel.INFO, "hidden"),
+                    (log.LogLevel.ERROR, "shown")]
+    assert capsys.readouterr().err == "[ctx] shown\n"
+
+
+EXPRS = [
+    # the default expressions of filters/video.py, with their names
+    ("iw", {"iw": 64}), ("ih", {"ih": 48}),
+    ("(in_w-out_w)/2", {"in_w": 64, "out_w": 40}),
+    ("(in_h-out_h)/2", {"in_h": 48, "out_h": 30}),
+    ("(ow-iw)/2", {"ow": 80, "iw": 64}), ("(oh-ih)/2", {"oh": 64, "ih": 48}),
+    ("val", {"val": 17}), ("PTS", {"PTS": 12}),
+    # and others
+    ("iw/2", {"iw": 1919}), ("-2", {}), ("maxval-val", {"maxval": 255,
+                                                         "val": 3}),
+    ("clip(val*2,0,255)", {"val": 200}), ("2*PTS", {"PTS": 7}),
+    ("N*10+3", {"N": 4}), ("if(gt(a,1),a*2,a/2)", {"a": 1.5}),
+    ("1.5e3+0x10-2^3^2", {}), ("sqrt(-1)", {}), ("0/0", {}), ("1/0", {}),
+    ("10k+1Ki+2M", {}), ("st(0,5);ld(0)*2", {}), ("floor(-2.5)+ceil(2.1)",
+                                                    {}),
+    ("round(2.5)+round(-2.5)+trunc(-1.7)", {}), ("mod(7,3)+7%3", {}),
+    ("hypot(3,4)+atan2(1,1)+gcd(12,18)", {}), ("PI*E-PHI", {}),
+    ("between(5,1,10)+lerp(0,10,0.25)+bitand(12,10)", {}),
+    ("not(0)+!1+isnan(NAN)+isinf(INF)", {}), ("lt(1,2)*lte(2,2)*eq(3,3)",
+                                              {}),
+]
+
+
+@pytest.mark.parametrize("expr,names", EXPRS, ids=[e[0] for e in EXPRS])
+def test_eval_expr_equal_reference(expr, names):
+    from ffmpeg_tpu.utils import eval as ref_eval
+    from ffmpeg_tpu_torch.utils import eval as port_eval
+    if ";" in expr:         # two statements sharing the register file
+        a, b = expr.split(";")
+        got, want = [0.0] * 10, [0.0] * 10
+        port_eval.eval_expr(a, names, state=got)
+        ref_eval.eval_expr(a, names, state=want)
+        g = port_eval.eval_expr(b, names, state=got)
+        w = ref_eval.eval_expr(b, names, state=want)
+    else:
+        g = port_eval.eval_expr(expr, names)
+        w = ref_eval.eval_expr(expr, names)
+    assert (g == w) or (g != g and w != w), (g, w)
+
+
+@pytest.mark.parametrize("expr", ["unknown_name", "1+", "max(1)", "(1",
+                                  "2 3", "foo(1)"])
+def test_eval_expr_rejects_what_the_reference_rejects(expr):
+    from ffmpeg_tpu.utils import eval as ref_eval
+    from ffmpeg_tpu.utils.error import InvalidData as RefInvalidData
+    from ffmpeg_tpu_torch.utils import eval as port_eval
+    with pytest.raises(RefInvalidData):
+        ref_eval.eval_expr(expr)
+    with pytest.raises(error.InvalidData):
+        port_eval.eval_expr(expr)
+
+
+def test_eval_random_keeps_the_reference_seeding():
+    import random
+    from ffmpeg_tpu.utils import eval as ref_eval
+    from ffmpeg_tpu_torch.utils import eval as port_eval
+    random.seed(3)
+    got = [port_eval.eval_expr("random(0)") for _ in range(3)]
+    random.seed(3)
+    want = [ref_eval.eval_expr("random(0)") for _ in range(3)]
+    assert got == want
+
+
+def _opt_classes():
+    from ffmpeg_tpu.utils import options as ro
+    from ffmpeg_tpu_torch.utils import options as po
+
+    def make(m):
+        class C(m.OptionsMixin):
+            OPTIONS = (m.opt_int("n", default=3, min=0, max=100),
+                       m.opt_float("x", default=0.5),
+                       m.opt_str("s", default="iw"),
+                       m.opt_bool("b"),
+                       m.opt_rational("r"),
+                       m.Option("flags", type=m.OptType.FLAGS, default=0,
+                                unit="fl"),
+                       m.opt_const("fast", 1, "fl"),
+                       m.opt_const("slow", 2, "fl"),
+                       m.Option("size", type=m.OptType.IMAGE_SIZE),
+                       m.Option("dur", type=m.OptType.DURATION, default=0),
+                       m.Option("d", type=m.OptType.DICT))
+        return C
+    return make(po), make(ro), po, ro
+
+
+@pytest.mark.parametrize("name,value", [
+    ("n", "7"), ("n", "2*3+1"), ("x", "1/4"), ("x", 2), ("s", 5),
+    ("b", "yes"), ("b", "off"), ("b", "auto"), ("r", "30000/1001"),
+    ("r", "ntsc"), ("r", 2.5), ("r", "16:9"), ("flags", "fast+slow"),
+    ("flags", "slow"), ("flags", "fast+slow-fast"), ("size", "hd720"),
+    ("size", "320x240"), ("dur", "1:02.5"), ("dur", "1500ms"),
+    ("d", "a=1:b=2")])
+def test_options_convert_as_the_reference(name, value):
+    P, R, _, _ = _opt_classes()
+    p, r = P(), R()
+    p.init_options()
+    r.init_options()
+    p.set_option(name, value)
+    r.set_option(name, value)
+    g, w = p.get_option(name), r.get_option(name)
+    if hasattr(w, "num"):
+        g, w = (g.num, g.den), (w.num, w.den)
+    assert g == w
+    assert p.option_names() == r.option_names()
+
+
+def test_options_reject_as_the_reference():
+    from ffmpeg_tpu.utils.error import (InvalidData as RefInvalidData,
+                                        OptionNotFound as RefNotFound)
+    P, R, _, _ = _opt_classes()
+    for cls, inv, nf in ((P, error.InvalidData, error.OptionNotFound),
+                         (R, RefInvalidData, RefNotFound)):
+        o = cls()
+        with pytest.raises(nf):
+            o.set_option("nope", 1)
+        with pytest.raises(inv):
+            o.set_option("n", "500")
+        with pytest.raises(inv):
+            o.set_option("b", "maybe")
+
+
+def test_rational_rescale_equal_reference():
+    from ffmpeg_tpu.utils import rational as rr
+    from ffmpeg_tpu_torch.utils import rational as pr
+    assert {k: int(v) for k, v in pr.Rounding.__members__.items()} == \
+        {k: int(v) for k, v in rr.Rounding.__members__.items()}
+    rng = np.random.default_rng(11)
+    for _ in range(300):
+        a = int(rng.integers(-10**12, 10**12))
+        bn, bd, cn, cd = (int(x) for x in rng.integers(1, 90001, 4))
+        for rnd in (0, 1, 2, 3, 5):
+            assert pr.rescale_q_rnd(a, Rational(bn, bd), Rational(cn, cd),
+                                    pr.Rounding(rnd)) == \
+                rr.rescale_q_rnd(a, RefRational(bn, bd), RefRational(cn, cd),
+                                 rr.Rounding(rnd))
+        assert pr.rescale_q(a, Rational(bn, bd), Rational(cn, cd)) == \
+            rr.rescale_q(a, RefRational(bn, bd), RefRational(cn, cd))
+    assert pr.rescale_rnd(NOPTS, 1, 2, pr.Rounding.NEAR_INF
+                          | pr.Rounding.PASS_MINMAX) == NOPTS
+    for v in (25.0, 29.97, 0.1, 30000 / 1001, float("nan"), float("inf"),
+              -float("inf"), 1e-9):
+        got, want = Rational.from_float(v), RefRational.from_float(v)
+        assert (got.num, got.den) == (want.num, want.den)
+    assert Rational(3, 7).inv() == Rational(7, 3)
+    assert hash(Rational(1, 25)) == hash(Rational(1, 25))
+
+
+def test_stream_containers_equal_reference():
+    from ffmpeg_tpu.io import stream as rs
+    from ffmpeg_tpu_torch.io import stream as ps
+    for k in ("VIDEO", "AUDIO", "SUBTITLE", "DATA", "ATTACHMENT"):
+        assert getattr(ps.MediaType, k) == getattr(rs.MediaType, k)
+    for cls in ("CodecParameters", "StreamInfo"):
+        got = {f.name for f in dataclasses.fields(getattr(ps, cls))}
+        want = {f.name for f in dataclasses.fields(getattr(rs, cls))}
+        assert got == want, cls
+    p, r = ps.CodecParameters(), rs.CodecParameters()
+    for f in dataclasses.fields(p):
+        if f.name in ("sample_aspect_ratio", "framerate"):
+            assert getattr(p, f.name) == Rational(0, 1)
+        else:
+            assert getattr(p, f.name) == getattr(r, f.name), f.name
+    assert p.channels == 0 and p.copy() is not p
+    s = ps.StreamInfo(codecpar=ps.CodecParameters(codec_type="video"))
+    assert s.codec_type == "video" and s.time_base == Rational(1, 90000)
+
+
+@pytest.mark.parametrize("fmt", ["yuv420p", "yuv422p10le", "rgb24",
+                                 "bgra", "nv12", "gray", "gray16le",
+                                 "yuyv422", "rgb565le", "p010le",
+                                 "yuva420p", "gbrp", "monow"])
+def test_imgutils_and_frame_bytes_equal_reference(fmt):
+    from ffmpeg_tpu.core import imgutils as ref_img
+    from ffmpeg_tpu.core.frame import Frame as RefFrame
+    from ffmpeg_tpu_torch.core import imgutils
+    w, h = 34, 18
+    size = imgutils.image_buffer_size(fmt, w, h)
+    assert size == ref_img.image_buffer_size(fmt, w, h)
+    buf = np.random.default_rng(4).integers(0, 256, size, np.uint8) \
+        .tobytes()
+    got = imgutils.unpack(buf, fmt, w, h)
+    want = ref_img.unpack(buf, fmt, w, h)
+    for g, r in zip(got, want):
+        np.testing.assert_array_equal(g, r)
+    assert imgutils.pack(got, fmt, w, h) == ref_img.pack(want, fmt, w, h)
+    for lim in (False, True):
+        for g, r in zip(imgutils.fill_black(fmt, w, h, lim),
+                        ref_img.fill_black(fmt, w, h, lim)):
+            assert g.dtype == r.dtype
+            np.testing.assert_array_equal(g, r)
+    for i in range(len(got)):
+        assert imgutils.component_dims(pixfmt.get(fmt), i, w, h) == \
+            ref_img.component_dims(ref_pf.get(fmt), i, w, h)
+    f = Frame.from_bytes(buf, fmt, w, h, device="cpu", pts=5,
+                         time_base=Rational(1, 25))
+    assert all(isinstance(p, torch.Tensor) for p in f.planes)
+    assert f.to_bytes() == RefFrame.from_bytes(buf, fmt, w, h).to_bytes()
+    n = f.numpy()
+    assert all(isinstance(p, np.ndarray) for p in n.planes)
+    assert n.pix_desc == pixfmt.get(fmt) and f.is_video and not f.is_audio
+    assert f.best_effort_pts_seconds() == \
+        RefFrame(pts=5, time_base=RefRational(1, 25)) \
+        .best_effort_pts_seconds() == 0.2
+
+
+def test_frame_classification_equal_reference():
+    from ffmpeg_tpu.core.frame import Frame as RefFrame
+    for kw in ({}, {"width": 4, "height": 2}, {"sample_rate": 48000},
+               {"nb_samples": 10}, {"width": 4, "height": 2,
+                                    "sample_rate": 8000}):
+        p, r = Frame(**kw), RefFrame(**kw)
+        assert (p.is_video, p.is_audio, p.pix_desc) == \
+            (r.is_video, r.is_audio, r.pix_desc)
+    assert Frame(pts=NOPTS).best_effort_pts_seconds() is None
+    assert Frame(pts=3).best_effort_pts_seconds() is None

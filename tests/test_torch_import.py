@@ -5,7 +5,10 @@ jax and ffmpeg_tpu already (tests/conftest.py and the other tests): a
 meta-path finder refuses every `jax` and every `ffmpeg_tpu` module, then
 the port is imported, its pipeline built on a packet of the 1080p
 fixture, and its plain path run on the CPU; then three frames go through
-the MPEG-2 encoder's entry point on the CPU."""
+the MPEG-2 encoder's entry point on the CPU; then a fixture frame through
+the MJPEG decoder, a parsed filter graph and the one-shot scale_frame,
+and the entry() twin and build_decode_scale at the 1080p auto spec, all
+on the CPU."""
 
 import re
 import subprocess
@@ -63,6 +66,32 @@ for f in mpeg2_clip(3, 64, 48):
     assert enc.receive_packet().data
 assert enc.codec.last_mv_grid.shape == (3, 4, 2)
 assert me.KERNEL_LAUNCHES == 0
+from ffmpeg_tpu_torch.codecs import CodecContext
+from ffmpeg_tpu_torch.core.packet import Packet
+from ffmpeg_tpu_torch.entry import entry
+from ffmpeg_tpu_torch.filters import parse_graph
+from ffmpeg_tpu_torch.io.stream import CodecParameters
+from ffmpeg_tpu_torch.models.mjpeg_pipeline import (
+    DecodeScaleSpec, cached_decode_scale, pack_coeffs)
+from ffmpeg_tpu_torch.scale.swscale import scale_frame
+from ffmpeg_tpu_torch.testing import scan_coeffs
+dec = CodecContext.open_decoder(CodecParameters(codec_id="mjpeg"),
+                                device="cpu")
+fr = dec.decode_all([Packet(data=pkts[0])])[0]
+assert fr.planes[0].shape == (1080, 1920) and fr.planes[0].device.type == "cpu"
+g = parse_graph("scale=224:224:format=rgb24,tensornorm", device="cpu")
+out = g.run([fr])[0]
+assert [tuple(p.shape) for p in out.planes] == [(224, 224)] * 3
+assert scale_frame(fr, 64, 36, "rgb24", device="cpu").planes[0].shape \
+    == (36, 64)
+fn, args = entry(device="cpu")
+assert [tuple(o.shape) for o in fn(*args)] == [(2, 128, 128)] * 3
+spec = DecodeScaleSpec.auto(1920, 1080, 224, 224)
+cy_, cu_, cv_, qy, qc = scan_coeffs(pkts[0], spec.ncoeff)
+o = cached_decode_scale(spec)(*[torch.from_numpy(pack_coeffs(c[None]))
+                                for c in (cy_, cu_, cv_)],
+                              torch.from_numpy(qy), torch.from_numpy(qc))
+assert [tuple(x.shape) for x in o] == [(1, 224, 224)] * 3
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
              or m.startswith(("jax.", "ffmpeg_tpu.")))

@@ -12,10 +12,10 @@ from ffmpeg_tpu_torch.testing import FIXTURE
 
 
 def encode_jpeg(w: int, h: int, quality: int = 85, frame: int = 0,
-                **opts) -> bytes:
-    """One testsrc frame through the reference MJPEG encoder, with one MCU
-    per restart interval and optimal (<= 9-bit) Huffman tables unless
-    `opts` say otherwise."""
+                pix_fmt: str = "yuv420p", **opts) -> bytes:
+    """One testsrc frame in `pix_fmt` (full range) through the reference
+    MJPEG encoder, with one MCU per restart interval and optimal (<= 9-bit)
+    Huffman tables unless `opts` say otherwise."""
     from ffmpeg_tpu.codecs import CodecContext
     from ffmpeg_tpu.filters import get_filter
     from ffmpeg_tpu.io.stream import CodecParameters, MediaType
@@ -27,7 +27,7 @@ def encode_jpeg(w: int, h: int, quality: int = 85, frame: int = 0,
         **opts})
     src = get_filter("testsrc")(f"size={w}x{h}")
     fr = list(src.generate(frame + 1))[frame]
-    enc.send_frame(scale_frame(fr, w, h, "yuv420p", dst_range=True))
+    enc.send_frame(scale_frame(fr, w, h, pix_fmt, dst_range=True))
     return enc.receive_packet().data
 
 
