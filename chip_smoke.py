@@ -12,7 +12,11 @@ Drives the port's paths through their user entry points at full size:
 - the host-entropy decode->scale function (build_decode_scale, entry()),
   the MJPEG decoder (CodecContext.open_decoder) into a parsed filter
   graph, and the dataloader's batched graph, on the same fixture and on
-  benchrows.py's seeded clips.
+  benchrows.py's seeded clips;
+- the audio frontend: the committed 20.03 s ADTS clip (48 kHz stereo
+  AAC-LC) through the ADTS demuxer, CodecContext.open_decoder(...)
+  .decode_frames and SwrContext(48000 stereo -> 16000 mono fltp), and
+  the graph "aresample=16000,aformat=channel_layouts=mono".
 
 Phases, one line each:
 
@@ -75,7 +79,21 @@ Phases, one line each:
    std=0.225" on the card; the first clip against the port's CPU run
    within 1 LSB of rgb24 after normalisation; clips/s with the
    host-to-device copy, launches per batch.
-Phases 9-11 run PyTorch only: K1 and K2 are not on their paths, and
+12. the audio frontend on the card over the whole clip (939 packets):
+   the 16 kHz mono output and the first 32 decoded frames against the
+   JAX reference's committed golden (max |diff| <= 1e-5, SNR >= 100 dB);
+   tx.imdct at n=1024 and n=128 on the card against the port's CPU run
+   on seeded coefficients, within 1e-5 of full scale, and each against
+   the float64 product of the same operands; the graph
+   "aresample=16000,aformat=channel_layouts=mono" on the card over the
+   first 200 packets against the golden's prefix within 1e-5;
+   x-realtime (clip seconds over the median wall time of 5 passes after
+   a warm one), split into demux, host parse, IMDCT (device, CUDA
+   events), host window/overlap-add, resample (FIR on the device, CUDA
+   events, and the rest), with the bytes and times of the host-device
+   copies; torch.profiler over one pass (kernels, copies, device busy
+   share) and over the IMDCT and the FIR alone (their CUDA kernels).
+Phases 9-12 run PyTorch only: K1 and K2 are not on their paths, and
 each prints their launch counts over its run (0).
 
 Then a JSON line with each kernel's launches, error, time, plain time
@@ -114,6 +132,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_INSTR_PER_S = 132 * 64 * 1.98e9
 # phase 7 bounds against the reference's committed encode
 MV_MIN_AGREE, SIZE_REL_TOL, PSNR_TOL_DB = 0.995, 1e-3, 0.02
+# phase 12 bounds: against the reference's committed golden; and the
+# card's IMDCT and FIR against the port's CPU run, as a share of the CPU
+# output's largest magnitude: float32 sums in another order (1.64e-7 of
+# 0.11 at n=1024 over the main path's 3.8 M outputs on an H100), the
+# bound tests/test_torch_tx.py holds against the reference
+AUDIO_TOL, AUDIO_MIN_SNR, TX_REL = 1e-5, 100.0, 1e-5
 
 
 def card_line() -> str:
@@ -282,6 +306,7 @@ def main() -> int:
     phase9_decode_scale(dev, card)
     phase10_decoder_graph(dev, card)
     phase11_dataloader(dev, card)
+    phase12_audio(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "jpeg_scan_decode_packed", "route": "cuda",
@@ -528,12 +553,9 @@ def read_counts() -> str:
     return f"K1/K2 launches {huffman.KERNEL_LAUNCHES}/{me.KERNEL_LAUNCHES}"
 
 
-def count_launches(fn, call_ms: float) -> str:
-    """Device kernels and copies of one warm call of fn(), counted by
-    torch.profiler, with the host's kernel-launch API calls beside them,
-    and the device's busy time in that call (the sum of the kernels' and
-    copies' durations) as a share of `call_ms`, the call's time by CUDA
-    events in a loop, and the three longest kinds of device work."""
+def profile_device(fn) -> tuple[list, int]:
+    """torch.profiler over one warm call of fn(): ([(name, us)] of the
+    device's kernels and copies, the host's kernel-launch API calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -542,20 +564,29 @@ def count_launches(fn, call_ms: float) -> str:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = copies = api = 0
-    busy_us = 0.0
-    by_name: dict = {}
+    device, api = [], 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            busy_us += us
-            by_name[e.name[:48]] = by_name.get(e.name[:48], 0.0) + us
-            if e.name.startswith(("Memcpy", "Memset")):
-                copies += 1
-            else:
-                kernels += 1
+            device.append((e.name, e.time_range.elapsed_us()))
         elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
             api += 1
+    return device, api
+
+
+def count_launches(fn, call_ms: float) -> str:
+    """Device kernels and copies of one warm call of fn(), counted by
+    torch.profiler, with the host's kernel-launch API calls beside them,
+    and the device's busy time in that call (the sum of the kernels' and
+    copies' durations) as a share of `call_ms`, the call's time by CUDA
+    events in a loop, and the three longest kinds of device work."""
+    device, api = profile_device(fn)
+    kernels = sum(1 for name, _ in device
+                  if not name.startswith(("Memcpy", "Memset")))
+    copies = len(device) - kernels
+    busy_us = sum(us for _, us in device)
+    by_name: dict = {}
+    for name, us in device:
+        by_name[name[:48]] = by_name.get(name[:48], 0.0) + us
     if kernels == 0 and api == 0:
         return "launches not measured (the profiler saw no CUDA activity)"
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
@@ -769,6 +800,268 @@ def phase11_dataloader(dev, card) -> None:
           f"{TIMED_BATCHES} batches ({ms:.3f} ms/batch, h2d included; h2d "
           f"alone {h2d_ms:.3f} ms); one batch: {count_launches(step, ms)}",
           flush=True)
+
+
+def _close_audio(got, want, what: str, tol: float, min_snr: float) -> str:
+    """Phase 12: float32 samples within `tol` of `want` at >= `min_snr`
+    dB; raises outside, else describes."""
+    import numpy as np
+    from ffmpeg_tpu_torch.testing import snr_db
+    if got.shape != want.shape or got.dtype != np.float32:
+        raise RuntimeError(f"{what}: {got.shape} {got.dtype}, expected "
+                           f"{want.shape} float32")
+    err, snr = float(np.abs(got - want).max()), snr_db(got, want)
+    note = f"{what} {got.shape} max |diff| {err:.3g}, SNR {snr:.2f} dB"
+    if err > tol or snr < min_snr:
+        raise RuntimeError(f"{note}: outside max |diff| <= {tol}, SNR >= "
+                           f"{min_snr} dB")
+    return note
+
+
+def _kernels(device: list) -> str:
+    """The kernels (not copies) of a profile_device() list, with times."""
+    ks = [(n, us) for n, us in device
+          if not n.startswith(("Memcpy", "Memset"))]
+    return ", ".join(f"{n[:60]} {us / 1e3:.4f} ms" for n, us in ks)
+
+
+def _audio_device_stages(dev, par, pkts, pcm):
+    """The main path's two device stages at its shapes, on `dev`: the
+    IMDCT of every long channel of `pkts` and the FIR of the first
+    convert of `pcm` (the decoded clip) to 16 kHz mono.  Returns
+    (imdct(), fir(), their host inputs and the resampler)."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.codecs.aac import EIGHT_SHORT, LONG_SCALE
+    from ffmpeg_tpu_torch.ops import tx
+    from ffmpeg_tpu_torch.resample import swresample
+    dec = CodecContext.open_decoder(par, device=dev).codec
+    chans = [ch for _, outs in dec.parse_packets(pkts) for _, ch in outs]
+    spec = np.stack([ch.coeffs.astype(np.float32) for ch in chans
+                     if ch.ics.window_sequence != EIGHT_SHORT])
+    spec_d = torch.from_numpy(spec).to(dev)
+    swr = swresample.SwrContext(par.sample_rate, "stereo", "fltp", 16000,
+                                "mono", "fltp", device=dev)
+    mono = (swr.matrix @ pcm.astype(np.float64)).astype(np.float32)
+    r = swr.resampler
+    b0, buf = r._buf_start, np.concatenate([r._buf, mono], axis=1)
+    r.process(mono)
+    ipos, ph = r._positions(0, r._out_count)
+    fir_host = [buf, (ipos - r.center - b0).astype(np.int32),
+                ph.astype(np.int32)]
+    fir_args = [torch.from_numpy(a).to(dev) for a in fir_host]
+    return (lambda: tx.imdct(spec_d, 1024, LONG_SCALE),
+            lambda: swresample._fir_kernel(*fir_args, r.bank, r.taps),
+            {"spec": spec, "n_short": len(chans) - len(spec),
+             "fir_host": fir_host, "resampler": r})
+
+
+def audio_profile(pass_ms: float, device: str = "cuda:0") -> None:
+    """Phase 12's torch.profiler sessions, which phase12_audio runs in a
+    process of its own: in a whole run of this script (torch 2.11 on an
+    H100) the sessions after phases 9-11's lost their last one or two
+    kernel records (15 launches gave 14 kernels, the FIR's 9 gave 7, the
+    IMDCT's one gave none), while the same sessions as the first of a
+    process kept every one.  Prints one JSON line: one pass's launches
+    (count_launches against `pass_ms`), then the IMDCT's and the FIR's
+    kernels."""
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.io.adts import read_adts
+    from ffmpeg_tpu_torch.testing import AAC_CLIP, audio_frontend
+    dev = torch.device(device)
+    data = AAC_CLIP.read_bytes()
+
+    def one_pass():
+        return audio_frontend(*read_adts(data), dev)
+    frames, _ = one_pass()
+    pcm = np.concatenate([f.audio_data for f in frames], axis=1)
+    imdct, fir, _ = _audio_device_stages(dev, *read_adts(data), pcm)
+    print(json.dumps({"pass": count_launches(one_pass, pass_ms),
+                      "imdct": _kernels(profile_device(imdct)[0]),
+                      "fir": _kernels(profile_device(fir)[0])}), flush=True)
+
+
+def _audio_profile_in_child(pass_ms: float, dev) -> dict:
+    """audio_profile() in a child process on `dev`; its JSON line."""
+    r = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.audio_profile({pass_ms!r}, {str(dev)!r})"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"phase 12's profile exited {r.returncode}: "
+                           f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def phase12_audio(dev, card) -> None:
+    """The audio frontend at full size on the card: the committed clip
+    through the ADTS demuxer, decode_frames and SwrContext against the
+    reference's committed golden; tx.imdct against the port's CPU run;
+    the audio graph over the reference row's 200 packets; x-realtime and
+    its split; torch.profiler over one pass, the IMDCT and the FIR."""
+    import statistics
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.codecs.aac import LONG_SCALE, SHORT_SCALE
+    from ffmpeg_tpu_torch.filters import parse_graph
+    from ffmpeg_tpu_torch.io.adts import read_adts
+    from ffmpeg_tpu_torch.ops import tx
+    from ffmpeg_tpu_torch.resample import swresample
+    from ffmpeg_tpu_torch.testing import (AAC_CLIP, AUDIO_GOLDEN,
+                                          AUDIO_GRAPH_PACKETS,
+                                          AUDIO_GRAPH_TEXT, audio_frontend,
+                                          graph_prefix)
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    data = AAC_CLIP.read_bytes()
+
+    def one_pass():
+        return audio_frontend(*read_adts(data), dev)
+
+    # the main path, checked
+    zero_counts()
+    frames, out = one_pass()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    par, pkts = read_adts(data)
+    clip_s = len(pkts) * 1024 / par.sample_rate
+    if len(frames) != len(pkts) or not all(
+            isinstance(p, np.ndarray) and p.dtype == np.float32
+            for f in frames for p in f.planes):
+        raise RuntimeError(f"decode_frames gave {len(frames)} frames for "
+                           f"{len(pkts)} packets, or planes not float32")
+    gold = np.load(AUDIO_GOLDEN)
+    pcm = np.concatenate([f.audio_data for f in frames], axis=1)
+    notes = [_close_audio(out, gold["resampled"], "16 kHz mono output",
+                          AUDIO_TOL, AUDIO_MIN_SNR),
+             _close_audio(pcm[:, :gold["decoded"].shape[1]], gold["decoded"],
+                          "first 32 decoded frames", AUDIO_TOL,
+                          AUDIO_MIN_SNR)]
+
+    # tx.imdct on the card against the port's CPU run; each also against
+    # the float64 product of the same float32 operands
+    rng = np.random.default_rng(12)
+    tx_notes = []
+    for n, scale, rows in ((1024, LONG_SCALE, 2 * len(pkts)),
+                           (128, SHORT_SCALE, 8 * 64)):
+        c = (rng.standard_normal((rows, n)) * 2 ** 15).astype(np.float32)
+        want = tx.imdct(torch.from_numpy(c), n, scale).numpy()
+        got = tx.imdct(torch.from_numpy(c).to(dev), n, scale)
+        if got.device != dev:
+            raise RuntimeError(f"tx.imdct of a tensor on {dev} gave one on "
+                               f"{got.device}")
+        got = got.cpu().numpy()
+        m_t = np.float32(tx._mdct_matrix(n) * scale).astype(np.float64)
+        exact = c.astype(np.float64) @ m_t
+        full = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        if err > TX_REL * full:
+            raise RuntimeError(f"tx.imdct n={n} on the card differs from "
+                               f"the CPU run by {err:.3g} (> {TX_REL} of "
+                               f"full scale {full:.3g})")
+        tx_notes.append(
+            f"n={n} ({rows}, {n}) within {err:.3g} of the CPU run, full "
+            f"scale {full:.3g} ({err / full:.3g} of it); against float64 "
+            f"the card {float(np.abs(got - exact).max()) / full:.3g}, the "
+            f"CPU {float(np.abs(want - exact).max()) / full:.3g}")
+
+    # the graph over the reference row's cut
+    g = parse_graph(AUDIO_GRAPH_TEXT, device=dev)
+    gout = g.run(frames[:AUDIO_GRAPH_PACKETS])
+    if [nd.filter.name for nd in g.nodes] != ["aresample", "aformat"] or \
+            g.nodes[0].filter._ctx.resampler.bank.device != dev:
+        raise RuntimeError("the audio graph's resampler is not on the card")
+    k = graph_prefix(AUDIO_GRAPH_PACKETS)
+    gcat = np.concatenate([f.audio_data for f in gout], axis=1)
+    if gcat.shape[1] < k or not all(f.sample_rate == 16000 for f in gout):
+        raise RuntimeError(f"the audio graph gave {gcat.shape} at "
+                           f"{gout[0].sample_rate} Hz")
+    gnote = _close_audio(gcat[:, :k], gold["resampled"][:, :k],
+                         f"first {k} outputs", AUDIO_TOL, AUDIO_MIN_SNR)
+    print(f"phase 12 audio check [{card}]: {len(pkts)} ADTS packets "
+          f"({clip_s:.3f} s, 48 kHz stereo AAC-LC) through decode_frames and "
+          f"SwrContext(48000 stereo -> 16000 mono fltp) on the card vs JAX "
+          f"golden: {'; '.join(notes)}; {counts}; tx.imdct on the card vs "
+          f"the port's CPU run: {', '.join(tx_notes)}; graph "
+          f"'{AUDIO_GRAPH_TEXT}' on the card over {AUDIO_GRAPH_PACKETS} "
+          f"packets vs golden: {gnote}", flush=True)
+
+    # x-realtime: median wall time of 5 passes after a warm one
+    walls = []
+    for _ in range(5):
+        t = time.perf_counter()
+        one_pass()
+        walls.append(time.perf_counter() - t)
+    pass_s = statistics.median(walls)
+
+    def split():
+        t = [time.perf_counter()]
+        p, ps = read_adts(data)
+        t.append(time.perf_counter())
+        dec = CodecContext.open_decoder(p, device=dev).codec
+        parsed = dec.parse_packets(ps)
+        t.append(time.perf_counter())
+        dec.batched_imdct(parsed)
+        t.append(time.perf_counter())
+        fr = dec.overlap_add(parsed)
+        t.append(time.perf_counter())
+        x = np.concatenate([f.audio_data for f in fr], axis=1)
+        swr = swresample.SwrContext(p.sample_rate, "stereo", "fltp", 16000,
+                                    "mono", "fltp", device=dev)
+        np.concatenate([swr.convert(x), swr.flush()], axis=1)
+        t.append(time.perf_counter())
+        return np.diff(t) * 1e3
+    demux_ms, parse_ms, imdct_stage_ms, ola_ms, swr_ms = \
+        np.median([split() for _ in range(3)], axis=0)
+
+    # the device stages at the main path's shapes
+    imdct, fir, st = _audio_device_stages(dev, par, pkts, pcm)
+    spec, r, host = st["spec"], st["resampler"], st["fir_host"]
+    imdct_ms = cuda_ms(imdct, 20)
+    imdct_h2d_ms = cuda_ms(lambda: torch.from_numpy(spec).to(dev), 10)
+    y = imdct()
+    imdct_d2h_ms = cuda_ms(lambda: y.cpu(), 10)
+    fo = fir()
+    want = swresample._fir_kernel(*[torch.from_numpy(a) for a in host],
+                                  r.bank.cpu(), r.taps)
+    fir_err = float((fo.cpu() - want).abs().max())
+    if fir_err > TX_REL * float(want.abs().max()):
+        raise RuntimeError(f"the FIR on the card differs from its CPU run by "
+                           f"{fir_err:.3g}")
+    fir_ms = cuda_ms(fir, 20)
+    fir_h2d_ms = cuda_ms(lambda: [torch.from_numpy(a).to(dev)
+                                  for a in host], 10)
+    fir_d2h_ms = cuda_ms(lambda: fo.cpu(), 10)
+    fir_h2d_b = sum(a.nbytes for a in host)
+    print(f"phase 12 audio timing [{card}]: {clip_s / pass_s:.2f}x realtime "
+          f"({clip_s:.3f} s of audio in a median {pass_s * 1e3:.1f} ms per "
+          f"pass, wall, passes {[round(w * 1e3, 1) for w in walls]} ms); "
+          f"split (median of 3 passes, ms): demux {demux_ms:.2f}, host parse "
+          f"{parse_ms:.1f}, IMDCT stage {imdct_stage_ms:.2f} (h2d "
+          f"{spec.nbytes} B {imdct_h2d_ms:.3f} ms, device {imdct_ms:.4f} ms "
+          f"for ({len(spec)}, 1024) -> ({len(spec)}, 2048) float32, "
+          f"{st['n_short']} short-window channels, d2h {y.numel() * 4} B "
+          f"{imdct_d2h_ms:.3f} ms), host window/overlap-add {ola_ms:.1f}, "
+          f"resample {swr_ms:.1f} (FIR device {fir_ms:.4f} ms for "
+          f"{fo.shape[1]} outputs x {r.taps} taps, within {fir_err:.3g} of "
+          f"its CPU run; h2d {fir_h2d_b} B {fir_h2d_ms:.3f} ms; d2h "
+          f"{fo.numel() * 4} B {fir_d2h_ms:.3f} ms; the rest, host rematrix "
+          f"in float64 and Python, "
+          f"{swr_ms - fir_ms - fir_h2d_ms - fir_d2h_ms:.1f})", flush=True)
+
+    # torch.profiler, in a process of its own: one pass, then the IMDCT
+    # and the FIR alone
+    prof = _audio_profile_in_child(pass_s * 1e3, dev)
+    if "not measured" not in prof["pass"] and not (prof["imdct"]
+                                                   and prof["fir"]):
+        raise RuntimeError("the profiler saw no CUDA kernel of the IMDCT or "
+                           "the FIR")
+    print(f"phase 12 audio profile [{card}]: one pass: {prof['pass']}; "
+          f"IMDCT kernels: {prof['imdct'] or 'not measured'}; FIR kernels: "
+          f"{prof['fir'] or 'not measured'}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,14 +1,17 @@
-"""Frame — the video frame container (the port's copy of the video half of
+"""Frame — the media frame container (the port's copy of
 ffmpeg_tpu/core/frame.py; analog of AVFrame, libavutil/frame.h:472).
 
-Planes are per component (Y, U, V[, A] or R, G, B[, A]), each (h_c, w_c),
-or (N, h_c, w_c) for a batch of frames.  Decoders and filters put torch
-tensors on their device there; a caller may hand in numpy planes, which
-the scaler and the filter graph move to their device once.  Nothing moves
-a plane to the host except where the caller asks: `numpy()` and
-`to_bytes()`.  The audio half (constructors, channel layouts) comes with
-the audio slice; `sample_rate`, `nb_samples` and `ch_layout` are carried
-so that `is_audio` and the filters' props read as the reference's do.
+Video planes are per component (Y, U, V[, A] or R, G, B[, A]), each
+(h_c, w_c), or (N, h_c, w_c) for a batch of frames.  Decoders and filters
+put torch tensors on their device there; a caller may hand in numpy
+planes, which the scaler and the filter graph move to their device once.
+Nothing moves a video plane to the host except where the caller asks:
+`numpy()` and `to_bytes()`.
+
+Audio planes are per channel, each (nb_samples,), host numpy arrays as
+the reference's are: its windowing, overlap-add, rematrix and dither all
+run on the host, and the device stages (the IMDCT, the resampler's FIR)
+copy their inputs to the card and their results back.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import numpy as np
 import torch
 
 from ..formats import pixfmt as _pf
+from ..formats import samplefmt as _sf
+from ..formats.channel_layout import ChannelLayout, default_layout
 from ..utils.error import InvalidData
 from ..utils.rational import NOPTS, Rational
 from . import imgutils
@@ -83,10 +88,10 @@ class Frame:
     interlaced: bool = False
     top_field_first: bool = False
 
-    # audio (read by is_audio and the filters' props; no constructor yet)
+    # audio
     sample_rate: int = 0
     nb_samples: int = 0
-    ch_layout: Optional[Any] = None
+    ch_layout: Optional[ChannelLayout] = None
 
     planes: List[Any] = field(default_factory=list)
 
@@ -122,6 +127,25 @@ class Frame:
         comps = [host_array(p) for p in self.planes]
         return imgutils.pack(comps, self.format, self.width, self.height)
 
+    @staticmethod
+    def audio(data, sample_rate: int, fmt: str = "fltp",
+              ch_layout: Optional[ChannelLayout] = None, **kw) -> "Frame":
+        """data: (channels, nb_samples), numpy or a tensor (copied to the
+        host); the planes are host numpy arrays."""
+        data = np.atleast_2d(host_array(data))
+        ch, n = data.shape
+        return Frame(
+            sample_rate=sample_rate, nb_samples=n,
+            ch_layout=ch_layout or default_layout(ch),
+            format=_sf.get(fmt).name,
+            planes=[data[c] for c in range(ch)], **kw)
+
+    @property
+    def audio_data(self) -> np.ndarray:
+        """(channels, nb_samples) host array of the audio planes; tensor
+        planes are copied to the host."""
+        return np.stack([host_array(p) for p in self.planes])
+
     @property
     def pix_desc(self) -> Optional[_pf.PixFmtDescriptor]:
         if self.is_video and self.format:
@@ -148,5 +172,8 @@ class Frame:
         return self.pts * self.time_base.num / self.time_base.den
 
     def __repr__(self) -> str:  # pragma: no cover
-        return (f"<Frame video {self.width}x{self.height} {self.format} "
-                f"pts={self.pts}>")
+        if self.is_video:
+            return (f"<Frame video {self.width}x{self.height} "
+                    f"{self.format} pts={self.pts}>")
+        return (f"<Frame audio {self.nb_samples}s@{self.sample_rate} "
+                f"{self.format} pts={self.pts}>")

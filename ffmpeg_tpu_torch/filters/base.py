@@ -14,7 +14,9 @@ Two filter species:
     rate-changing (fps, trim) and timestamp filters.
 
 A traceable filter runs on the device of the frame's planes and never
-moves them off it.  Options use the reference's string surface
+moves them off it.  A filter with device state of its own (the resampling
+audio filters) makes it on `device`, which the graph sets to its own.
+Options use the reference's string surface
 ("scale=640:480:flags=bicubic" / positional args in OPTIONS order).
 """
 
@@ -84,6 +86,7 @@ class Filter(OptionsMixin, LogMixin):
     n_inputs = 1
     n_outputs = 1
     media_type = MediaType.VIDEO
+    device = torch.device("cuda")
 
     def __init__(self, args: str = "", **opts):
         self.init_options()

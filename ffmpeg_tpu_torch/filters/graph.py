@@ -11,8 +11,10 @@ AVFilterGraph, libavfilter/avfiltergraph.c).
     (buffersink analog).  EOF propagates as a None sentinel so stateful
     filters (fps) can flush.
   * The graph has a device, the card unless the caller names another:
-    numpy planes fed to it are copied there once, tensor planes there go
-    in as they are, and tensor planes on another device raise.
+    numpy video planes fed to it are copied there once, tensor planes
+    there go in as they are, and tensor planes on another device raise.
+    Audio planes stay on the host; the filters that keep device state
+    (the resamplers) make it on the graph's device.
 """
 
 from __future__ import annotations
@@ -84,6 +86,7 @@ class FilterGraph:
 
     # --- construction --------------------------------------------------------
     def add(self, filt: Filter, name: Optional[str] = None) -> _Node:
+        filt.device = self.device
         node = _Node(filter=filt, name=name or filt.name)
         self.nodes.append(node)
         return node
@@ -137,9 +140,10 @@ class FilterGraph:
         if node is None:
             raise InvalidData(f"no graph input {label!r}")
         pad = getattr(node, "input_pads", {}).get(label, 0)
-        moved = frame.clone_props()
-        moved.planes = device_planes(frame.planes, self.device)
-        self._push(node, moved, pad)
+        if not frame.is_audio:
+            frame = frame.clone_props()
+            frame.planes = device_planes(frame.planes, self.device)
+        self._push(node, frame, pad)
 
     def feed_eof(self, label: str = "in") -> None:
         node = self.inputs.get(label)

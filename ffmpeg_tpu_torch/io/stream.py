@@ -2,8 +2,8 @@
 ffmpeg_tpu/io/stream.py; analog of AVStream / AVCodecParameters,
 libavformat/avformat.h + libavcodec/codec_par.h).
 
-The video fields are the reference's.  `ch_layout` is an opaque optional
-field until the audio slice brings the channel-layout type.
+The fields are the reference's; `ch_layout` holds a
+`formats.channel_layout.ChannelLayout`.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Builder and loader for the port's host C++ (`csrc/host/`): the MJPEG
-scan splitter that feeds K1 and the sequential host decoder K1 is held
-against (counterpart of ffmpeg_tpu/native.py, for the port's own copy of
-those two functions).
+scan splitter that feeds K1, the sequential host decoder K1 is held
+against, and the AAC spectral Huffman decoder (counterpart of
+ffmpeg_tpu/native.py, for the port's own copy of those three functions).
 
 At first use `g++` compiles `csrc/host/*.cpp` into one shared library
 under `build/ffmpeg_tpu_torch/` at the repository root, named by a
@@ -81,6 +81,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         c.POINTER(c.c_int), c.c_int,            # comp_spec, ncomp
         c.c_int, c.c_int, c.c_int, c.c_int,     # mcus_x, mcus_y, ri, limit
         c.POINTER(c.POINTER(c.c_int16)),        # out planes
+    ]
+    lib.aac_decode_spectral.restype = c.c_long
+    lib.aac_decode_spectral.argtypes = [
+        c.c_char_p, c.c_long, c.c_long,         # data, nbits, pos
+        c.POINTER(c.c_int32), c.POINTER(c.c_int32),  # band_cb, swb_offset
+        c.POINTER(c.c_int32), c.c_int, c.c_int, c.c_int,  # group_len, ng,
+        #                                         max_sfb, eight_short
+        c.POINTER(c.c_int32), c.POINTER(c.c_uint8),  # lut_sym, lut_len
+        c.POINTER(c.c_int32), c.POINTER(c.c_int32),  # lut_off, lut_maxlen
+        c.POINTER(c.c_int32),                   # out
     ]
 
 

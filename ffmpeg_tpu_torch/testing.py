@@ -16,6 +16,10 @@ both check the port against the JAX reference's committed answers:
   (`DECODE_SCALE_GOLDEN`, written by
   tools/gen_torch_decode_scale_fixture.py), and the host's coefficients
   for that path (`scan_coeffs`).
+- the audio frontend: the committed 20.03 s ADTS clip (48 kHz stereo
+  AAC-LC) and the reference's decode and resample of it to 16 kHz mono
+  (`AUDIO_GOLDEN`, written by tools/gen_torch_audio_fixture.py), and the
+  path itself (`audio_frontend`).
 
 They live here so that each check reads them from the package and not
 from the other.
@@ -46,6 +50,14 @@ ENCODE_GOLDEN = DATA / "mpeg2_1080p_ippp_golden.npz"
 ENC_FRAMES, ENC_QSCALE, ENC_GOP = 4, 8, 12
 ENC_OPTIONS = {"qscale": ENC_QSCALE, "gop_size": ENC_GOP}
 
+# The audio frontend: 48 kHz stereo AAC-LC → 16 kHz mono fltp
+# (benchrows.audio_frontend_row, `ffmpeg -ar 16000 -ac 1`).
+AAC_CLIP = DATA.parent / "bench" / "aac48k.adts"
+AUDIO_GOLDEN = DATA / "aac48k_frontend_golden.npz"
+AUDIO_GOLDEN_FRAMES = 32       # decoded frames of the golden
+AUDIO_GRAPH_TEXT = "aresample=16000,aformat=channel_layouts=mono"
+AUDIO_GRAPH_PACKETS = 200      # benchrows.audio_frontend_row's cut
+
 
 def packed_cap(pkts) -> int:
     """The tight cap bench.py uses: largest scan in the clip + header."""
@@ -75,6 +87,36 @@ def scan_coeffs(pkt: bytes, L: int):
     q = [sc.st.qtabs[sc.st.components[i].q_idx].astype(np.int32)
          for i in (0, 1)]
     return (*sc.coeffs, *q)
+
+
+def audio_frontend(par, pkts, device):
+    """The audio frontend through the port's entry points on `device`:
+    decode_frames over every packet, the planes concatenated, then
+    SwrContext(48000 stereo fltp → 16000 mono fltp) convert and flush.
+    Returns (decoded frames, (1, m) float32 output)."""
+    from .codecs import CodecContext
+    from .resample.swresample import SwrContext
+    frames = CodecContext.open_decoder(par, device=device) \
+        .decode_frames(pkts)
+    pcm = np.concatenate([f.audio_data for f in frames], axis=1)
+    swr = SwrContext(par.sample_rate, "stereo", "fltp", 16000, "mono",
+                     "fltp", device=device)
+    return frames, np.concatenate([swr.convert(pcm), swr.flush()], axis=1)
+
+
+def graph_prefix(n_packets: int) -> int:
+    """Outputs at 16 kHz of the first `n_packets` 48 kHz frames that no
+    later input reaches: output k reads inputs 3k-47 .. 3k+48 (96 taps,
+    center 47), so it is final once input 3k+48 exists."""
+    return (n_packets * 1024 - 49) // 3 + 1
+
+
+def snr_db(got, want) -> float:
+    """10 log10 of want's power over the power of got - want."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    err = float(((got - want) ** 2).mean())
+    return float(10 * np.log10(float((want ** 2).mean()) / max(err, 1e-30)))
 
 
 def mpeg2_clip(n: int, w: int, h: int, seed: int = 0) -> list:

@@ -1,7 +1,8 @@
 """The port's filter layer (ffmpeg_tpu_torch/filters/) against the
 reference's (ffmpeg_tpu/filters/), on the CPU: every filter of
 filters/video.py through parse_graph on both packages, on the same
-seeded 64x48 planes, alone and with a leading batch dim.
+seeded 64x48 planes, alone and with a leading batch dim; and every filter
+of filters/audio.py on the same seeded 48 kHz stereo frames.
 
 Tolerances:
 - exact for crop, pad, hflip, vflip, transpose, copy, null and lut (data
@@ -11,7 +12,11 @@ Tolerances:
   another order before floor(x + 0.5);
 - tensornorm within 1e-6 on the same uint8 input: (x/scale - mean)/std
   in float32 in the reference's order, outputs of magnitude < 3 where a
-  float32 ulp is 2.4e-7.
+  float32 ulp is 2.4e-7;
+- the audio filters exact (host numpy, the reference's code), except
+  where they resample: within 1e-6 on float samples (float32 FIR sums in
+  another order) and 1 LSB on integer samples; frame counts, pts, rates,
+  formats and layouts exact.
 """
 
 import numpy as np
@@ -21,6 +26,7 @@ import torch
 from ffmpeg_tpu.core.frame import Frame as RefFrame
 from ffmpeg_tpu.filters import filter_names as ref_filter_names
 from ffmpeg_tpu.filters import parse_graph as ref_parse_graph
+from ffmpeg_tpu.filters import audio as ref_audio
 from ffmpeg_tpu.filters import video as ref_video
 from ffmpeg_tpu.filters.base import Filter as RefFilter
 from ffmpeg_tpu.utils.rational import Rational as RefRational
@@ -200,14 +206,17 @@ def test_rate_and_timestamp_filters_match_reference(text):
 
 
 def test_registry_holds_video_py_only():
-    ref_video_names = sorted(
-        c.name for c in vars(ref_video).values()
-        if isinstance(c, type) and issubclass(c, RefFilter)
-        and c.__module__ == ref_video.__name__)
-    assert filter_names() == ref_video_names
-    assert len(filter_names()) == 14
+    """The registry holds the filters of video.py and, since the audio
+    slice, of audio.py; the reference's others raise FilterNotFound."""
+    def names(mod):
+        return sorted(c.name for c in vars(mod).values()
+                      if isinstance(c, type) and issubclass(c, RefFilter)
+                      and c.__module__ == mod.__name__
+                      and not c.__name__.startswith("_"))
+    assert len(names(ref_video)) == 14 and len(names(ref_audio)) == 10
+    assert filter_names() == sorted(names(ref_video) + names(ref_audio))
     others = sorted(set(ref_filter_names()) - set(filter_names()))
-    assert len(others) == 111 == len(ref_filter_names()) - 14
+    assert len(others) == 101 == len(ref_filter_names()) - 24
     for name in others:
         with pytest.raises(FilterNotFound):
             get_filter(name)
@@ -241,3 +250,108 @@ def test_graph_moves_numpy_planes_and_refuses_other_devices():
                 dst_h=24, dst_fmt="rgb24")
     with pytest.raises(InvalidData):
         sc.run(t_frame.planes)
+
+
+# --- the audio filters -----------------------------------------------------
+
+def _audio_frames(fmt="fltp", layout="stereo", n=4, size=480, rate=48000):
+    """Seeded audio frames for both packages: a sine per channel plus
+    noise, in `fmt`, pts counting samples in 1/rate."""
+    from ffmpeg_tpu.formats import samplefmt as ref_sf
+    from ffmpeg_tpu.formats.channel_layout import ChannelLayout as RefLayout
+    from ffmpeg_tpu_torch.formats.channel_layout import ChannelLayout
+    rng = np.random.default_rng(11)
+    nch = ChannelLayout.from_string(layout).nb_channels
+    t = np.arange(n * size) / rate
+    x = np.stack([0.4 * np.sin(2 * np.pi * (300 + 200 * c) * t)
+                  for c in range(nch)]) + rng.normal(0, 0.05, (nch, n * size))
+    data = ref_sf.from_float(x.astype(np.float32), fmt)
+    ref, port = [], []
+    for k in range(n):
+        chunk = data[:, k * size:(k + 1) * size]
+        kw = dict(pts=k * size)
+        ref.append(RefFrame.audio(chunk, rate, fmt,
+                                  RefLayout.from_string(layout),
+                                  time_base=RefRational(1, rate), **kw))
+        port.append(Frame.audio(chunk, rate, fmt,
+                                ChannelLayout.from_string(layout),
+                                time_base=Rational(1, rate), **kw))
+    return ref, port
+
+
+def _audio_run(g, frames, ins, outs):
+    """Feed `frames` to every input label in turn, then EOF; collect every
+    output label."""
+    got = {o: [] for o in outs}
+    for f in frames:
+        for i in ins:
+            g.feed(f.clone_props(), i)
+        for o in outs:
+            got[o].extend(g.pull(o))
+    for i in ins:
+        g.feed_eof(i)
+    for o in outs:
+        got[o].extend(g.pull(o))
+    return got
+
+
+AUDIO = [
+    # (graph, input format, input labels, output labels, resamples)
+    ("anull", "fltp", ["in"], ["out"], False),
+    ("volume=0.5", "fltp", ["in"], ["out"], False),
+    ("volume=6dB", "s16", ["in"], ["out"], False),
+    ("aresample=16000", "fltp", ["in"], ["out"], True),
+    ("aresample=44100", "s16", ["in"], ["out"], True),
+    ("aformat=channel_layouts=mono", "fltp", ["in"], ["out"], False),
+    ("aformat=sample_fmts=s16:sample_rates=8000", "fltp", ["in"], ["out"],
+     True),
+    ("aresample=16000,aformat=channel_layouts=mono", "fltp", ["in"],
+     ["out"], True),
+    ("atrim=start=0.005:end=0.025", "fltp", ["in"], ["out"], False),
+    ("atrim=end=0.02", "s16", ["in"], ["out"], False),
+    ("apad=pad_len=100", "s16", ["in"], ["out"], False),
+    ("asplit[a][b]", "fltp", ["in"], ["a", "b"], False),
+    ("[a][b]amix[out]", "s16", ["a", "b"], ["out"], False),
+    ("channelsplit", "fltp", ["in"], ["out"], False),
+    ("pan=1:0.5:0.5", "fltp", ["in"], ["out"], False),
+]
+
+
+@pytest.mark.parametrize("text,fmt,ins,outs,resamples", AUDIO,
+                         ids=[a[0] for a in AUDIO])
+def test_audio_filters_match_reference(text, fmt, ins, outs, resamples):
+    ref_in, port_in = _audio_frames(fmt)
+    ref_g, port_g = ref_parse_graph(text), parse_graph(text, device="cpu")
+    assert [nd.filter.name for nd in port_g.nodes] == \
+        [nd.filter.name for nd in ref_g.nodes]
+    want = _audio_run(ref_g, ref_in, ins, outs)
+    got = _audio_run(port_g, port_in, ins, outs)
+    for o in outs:
+        assert len(got[o]) == len(want[o]) > 0, o
+        for g, w in zip(got[o], want[o]):
+            assert (g.pts, g.sample_rate, g.nb_samples, g.format,
+                    g.side_data) == (w.pts, w.sample_rate, w.nb_samples,
+                                     w.format, w.side_data)
+            assert (g.ch_layout.mask, g.ch_layout.nb_channels) == \
+                (w.ch_layout.mask, w.ch_layout.nb_channels)
+            assert all(isinstance(p, np.ndarray) for p in g.planes)
+            a, b = g.audio_data, np.asarray(w.audio_data)
+            assert a.dtype == b.dtype and a.shape == b.shape
+            if not resamples:
+                np.testing.assert_array_equal(a, b)
+            elif a.dtype.kind == "f":
+                assert float(np.abs(a - b).max()) <= 1e-6
+            else:
+                assert int(np.abs(a.astype(np.int64) - b).max()) <= 1
+
+
+def test_resampling_filters_run_on_the_graphs_device():
+    """aresample's SwrContext takes the graph's device; the audio planes
+    stay on the host through the graph."""
+    _, frames = _audio_frames()
+    g = parse_graph("aresample=16000", device="meta")
+    assert g.nodes[0].filter.device == torch.device("meta")
+    with pytest.raises(NotImplementedError):    # no kernels on "meta"
+        g.run(frames)
+    out = parse_graph("aresample=16000", device="cpu").run(frames)
+    assert all(isinstance(p, np.ndarray) for f in out for p in f.planes)

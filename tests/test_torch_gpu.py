@@ -243,3 +243,61 @@ def test_decode_scale_entry_on_card_matches_cpu(cuda):
         *[torch.from_numpy(q).to(cuda) for q in c[3:]])
     _within_one_lsb(np.stack([o.cpu().numpy() for o in out]),
                     np.load(fx.DECODE_SCALE_GOLDEN)["decode_scale"][:, :1])
+
+
+# --- the audio frontend: tx, the resampler's FIR, decode_frames -----------
+
+@pytest.mark.parametrize("kind,n,inverse", [
+    ("mdct", 1024, True), ("mdct", 128, True), ("mdct", 1024, False),
+    ("fft", 256, False), ("fft", 4096, True), ("rdft", 256, False),
+    ("dct2", 64, False), ("dct4", 64, False)])
+def test_tx_on_card_matches_cpu(cuda, kind, n, inverse):
+    """Each transform on the card within 1e-5 of full scale of the same
+    transform on the CPU (tests/test_torch_tx.py's bound against the
+    reference; float32 sums in another order)."""
+    from ffmpeg_tpu_torch.ops import tx
+    rng = np.random.default_rng(n)
+    shape = {"fft": (6, n, 2), "mdct": (6, n if inverse else 2 * n)}.get(
+        kind, (6, n))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    want = tx.tx_init(kind, n, inverse, device="cpu")(x)
+    got = tx.tx_init(kind, n, inverse, device=cuda)(x.to(cuda))
+    assert got.is_cuda and got.dtype == torch.float32
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())
+    with pytest.raises(InvalidData):
+        tx.tx_init(kind, n, inverse, device=cuda)(x)
+
+
+@pytest.mark.parametrize("rates", [(48000, 16000), (44100, 48000),
+                                   (11025, 96000)])
+def test_resampler_on_card_matches_cpu(cuda, rates):
+    """The streaming resampler with its FIR on the card, in uneven chunks
+    and a flush, within 1e-6 of the same resampler on the CPU."""
+    from ffmpeg_tpu_torch.resample.swresample import Resampler
+    x = np.random.default_rng(3).uniform(-0.9, 0.9, (2, rates[0] // 2)) \
+        .astype(np.float32)
+    card, cpu = (Resampler(*rates, 2, device=d) for d in (cuda, "cpu"))
+    assert card.bank.is_cuda
+    outs = []
+    for r in (card, cpu):
+        chunks = [r.process(x[:, a:b]) for a, b in
+                  ((0, 1000), (1000, 1001), (1001, x.shape[1]))]
+        outs.append(np.concatenate(chunks + [r.flush()], axis=1))
+    assert isinstance(outs[0], np.ndarray) and outs[0].shape == outs[1].shape
+    assert float(np.abs(outs[0] - outs[1]).max()) <= 1e-6
+
+
+def test_aac_decode_frames_on_card_matches_cpu(cuda):
+    """decode_frames on the card (one IMDCT for the 96 long channels of
+    the committed clip's first 48 packets) within 1e-5 of the CPU run
+    (tests/test_torch_aac.py's bound: the IMDCT's float32 sums in
+    another order); host numpy planes."""
+    from ffmpeg_tpu_torch.io.adts import read_adts
+    par, pkts = read_adts(fx.AAC_CLIP.read_bytes())
+    got, want = (CodecContext.open_decoder(par, device=d).decode_frames(
+        pkts[:48]) for d in (cuda, "cpu"))
+    assert len(got) == len(want) == 48
+    for g, w in zip(got, want):
+        assert all(isinstance(p, np.ndarray) for p in g.planes)
+        assert float(np.abs(g.audio_data - w.audio_data).max()) <= 1e-5

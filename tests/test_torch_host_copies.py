@@ -5,7 +5,11 @@ arithmetic and timestamp rescaling, the exception classes, the host C++
 (scan split and sequential decode) on every frame of the 1080p fixture,
 byte-exact; and the host modules of the decode → filter graph slice:
 logging, the expression language, the option system, the stream
-containers, image packing and the frame's byte and host conversions."""
+containers, image packing and the frame's byte and host conversions; and
+the host modules of the audio frontend: sample formats, channel layouts,
+the FIR bank (bit-exact), the rematrix, the bit reader and writer, the
+AAC tables, the ADTS demuxer on the committed clip, and the C++ AAC
+spectral decoder against its Python walker and the reference's."""
 
 import ctypes
 import dataclasses
@@ -427,3 +431,251 @@ def test_frame_classification_equal_reference():
             (r.is_video, r.is_audio, r.pix_desc)
     assert Frame(pts=NOPTS).best_effort_pts_seconds() is None
     assert Frame(pts=3).best_effort_pts_seconds() is None
+
+
+# --- the host modules of the audio frontend --------------------------------
+
+def test_samplefmt_equal_reference():
+    from ffmpeg_tpu.formats import samplefmt as ref_sf
+    from ffmpeg_tpu_torch.formats import samplefmt as sf
+    assert sorted(sf.all_formats()) == sorted(ref_sf.all_formats())
+    x = np.random.default_rng(5).uniform(-1.2, 1.2, (2, 300)) \
+        .astype(np.float32)
+    for name, d in sf.all_formats().items():
+        r = ref_sf.get(name)
+        assert (d.name, d.dtype, d.planar, d.bits, d.bytes_per_sample,
+                d.packed_alt, d.planar_alt) == \
+            (r.name, r.dtype, r.planar, r.bits, r.bytes_per_sample,
+             r.packed_alt, r.planar_alt)
+        with np.errstate(invalid="ignore"):     # s64: 2**63 does not fit
+            y = sf.from_float(x, name)
+            want = ref_sf.from_float(x, name)
+        assert y.dtype == r.dtype
+        np.testing.assert_array_equal(y, want)
+        np.testing.assert_array_equal(sf.to_float(y, name),
+                                      ref_sf.to_float(y, name))
+    with pytest.raises(error.InvalidData):
+        sf.get("s24")
+
+
+def test_channel_layouts_equal_reference():
+    from ffmpeg_tpu.formats import channel_layout as ref_cl
+    from ffmpeg_tpu_torch.formats import channel_layout as cl
+    assert cl.CHANNELS == ref_cl.CHANNELS and cl._NAMED == ref_cl._NAMED
+
+    def same(a, b):
+        assert (a.mask, a.nb_channels, a.channel_names(), a.describe()) \
+            == (b.mask, b.nb_channels, b.channel_names(), b.describe())
+        for name in cl.CHANNELS[:12]:
+            assert (a.index_of(name), a.has(name)) == \
+                (b.index_of(name), b.has(name))
+    for n in range(10):
+        same(cl.default_layout(n), ref_cl.default_layout(n))
+        same(cl.ChannelLayout.unspec(n), ref_cl.ChannelLayout.unspec(n))
+    for s in [*cl._NAMED, "3c", "6", 2, "FL+FR+LFE", "FC", " stereo "]:
+        same(cl.ChannelLayout.from_string(s),
+             ref_cl.ChannelLayout.from_string(s))
+    for bad in ("FL+XX", "surround", "c"):
+        with pytest.raises(error.InvalidData):
+            cl.ChannelLayout.from_string(bad)
+
+
+@pytest.mark.parametrize("taps,phases,cutoff,window,beta", [
+    (96, 1, 0.97 / 3, "kaiser", 9.0), (32, 160, 0.97, "kaiser", 9.0),
+    (32, 1024, 0.97, "kaiser", 9.0), (64, 7, 0.5, "blackman_nuttall", 0.0),
+    (16, 3, 0.8, "rect", 0.0), (48, 147, 0.9, "kaiser", 6.0)])
+def test_fir_bank_bit_exact(taps, phases, cutoff, window, beta):
+    from ffmpeg_tpu.resample import fir as ref_fir
+    from ffmpeg_tpu_torch.resample import fir
+    got = fir.build_filter_bank(taps, phases, cutoff, window, beta)
+    assert got.dtype == np.float64 and got.shape == (phases, taps)
+    np.testing.assert_array_equal(
+        got, ref_fir.build_filter_bank(taps, phases, cutoff, window, beta))
+
+
+def test_rematrix_equal_reference():
+    from ffmpeg_tpu.formats.channel_layout import ChannelLayout as RefCL
+    from ffmpeg_tpu.resample import rematrix as ref_rm
+    from ffmpeg_tpu_torch.formats.channel_layout import ChannelLayout, _NAMED
+    from ffmpeg_tpu_torch.resample import rematrix
+    names = [*_NAMED, "FL+FR+LFE", "FC+LFE"]
+    for a in names:
+        for b in names:
+            for kw in ({}, {"lfe_mix": 0.5, "normalize": False}):
+                np.testing.assert_array_equal(
+                    rematrix.build_matrix(ChannelLayout.from_string(a),
+                                          ChannelLayout.from_string(b), **kw),
+                    ref_rm.build_matrix(RefCL.from_string(a),
+                                        RefCL.from_string(b), **kw))
+    np.testing.assert_array_equal(
+        rematrix.build_matrix(ChannelLayout.unspec(3), ChannelLayout.unspec(2)),
+        ref_rm.build_matrix(RefCL.unspec(3), RefCL.unspec(2)))
+
+
+def test_bitstream_equal_reference():
+    from ffmpeg_tpu.codecs import bitstream as ref_bs
+    from ffmpeg_tpu_torch.codecs import bitstream as bs
+    rng = np.random.default_rng(9)
+    ops = [(int(v), int(n)) for v, n in zip(rng.integers(-2 ** 20, 2 ** 20,
+                                                          400),
+                                            rng.integers(1, 24, 400))]
+    w, rw = bs.BitWriter(), ref_bs.BitWriter()
+    for i, (v, n) in enumerate(ops):
+        for x in (w, rw):
+            x.put_signed(v, n) if i % 3 else x.put(abs(v), n)
+        assert w.bit_length() == rw.bit_length()
+    w.align(1)
+    rw.align(1)
+    data = w.bytes()
+    assert data == rw.bytes()
+    r, rr = bs.BitReader(data, 5), ref_bs.BitReader(data, 5)
+    for i, (_, n) in enumerate(ops):
+        if r.bits_left() < 128:
+            break
+        for name, args in (("peek", (n,)), ("get_signed", (n,)),
+                           ("get", (n,)), ("unary", ()), ("rice", (i % 4,)),
+                           ("bits_left", ()), ("byte_position", ())):
+            assert getattr(r, name)(*args) == getattr(rr, name)(*args), name
+        if i % 50 == 0:
+            r.align()
+            rr.align()
+    r.pos = rr.pos = len(data) * 8 - 3
+    assert r.peek(12) == rr.peek(12)
+    with pytest.raises(error.InvalidData):
+        r.get(4)
+
+
+def test_aac_tables_equal_reference():
+    from ffmpeg_tpu.codecs import aac as ref_aac
+    from ffmpeg_tpu.codecs import aac_tables as ref_t
+    from ffmpeg_tpu_torch.codecs import aac, aac_tables
+    names = [n for n in vars(ref_t) if n.isupper()]
+    assert len(names) == 32 and sorted(names) == sorted(
+        n for n in vars(aac_tables) if n.isupper())
+    for n in names:
+        assert getattr(aac_tables, n) == getattr(ref_t, n), n
+    for n in ("SAMPLE_RATES", "_CB_INFO", "SCE", "CPE", "LFE", "FIL", "END",
+              "ZERO_BT", "NOISE_BT", "INTENSITY_BT", "INTENSITY_BT2",
+              "ESC_BT", "ONLY_LONG", "EIGHT_SHORT"):
+        assert getattr(aac, n) == getattr(ref_aac, n), n
+    for got, want in zip(aac._SPECTRAL_LUTS + [aac._SF_LUT],
+                         ref_aac._SPECTRAL_LUTS + [ref_aac._SF_LUT]):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_adts_demuxer_equals_reference(tmp_path):
+    """Every packet's bytes, pts and fields and the stream's parameters
+    on the committed clip; the same sync errors and the same end at a
+    truncated frame."""
+    from ffmpeg_tpu.io import open_input
+    from ffmpeg_tpu_torch.io.adts import read_adts
+    from ffmpeg_tpu_torch.testing import AAC_CLIP
+    data = AAC_CLIP.read_bytes()
+    par, pkts = read_adts(data)
+    d = open_input(str(AAC_CLIP))
+    ref = list(d.packets())
+    assert len(pkts) == len(ref) == 939
+    for a, b in zip(pkts, ref):
+        assert (a.data, a.pts, a.dts, a.duration, a.flags,
+                a.time_base.num, a.time_base.den) == \
+            (b.data, b.pts, b.dts, b.duration, b.flags, b.time_base.num,
+             b.time_base.den)
+    rp = d.streams[0].codecpar
+    assert (par.codec_type, par.codec_id, par.sample_rate, par.channels,
+            par.ch_layout.mask, par.frame_size) == \
+        (rp.codec_type, rp.codec_id, rp.sample_rate, rp.channels,
+         rp.ch_layout.mask, rp.frame_size) == ("audio", "aac", 48000, 2, 3,
+                                               1024)
+    cut = data[:len(data) - 100]
+    lost = bytearray(data)
+    lost[len(pkts[0].data)] = 0
+    for blob, name in ((cut, "cut.aac"), (bytes(lost), "lost.aac")):
+        (tmp_path / name).write_bytes(blob)
+    assert len(read_adts(cut)[1]) == len(list(
+        open_input(str(tmp_path / "cut.aac")).packets())) == 938
+    with pytest.raises(error.InvalidData, match="lost sync"):
+        read_adts(bytes(lost))
+    ref_it = open_input(str(tmp_path / "lost.aac")).packets()
+    next(ref_it)
+    with pytest.raises(ref_error.InvalidData, match="lost sync"):
+        next(ref_it)
+    with pytest.raises(error.InvalidData, match="bad sync"):
+        read_adts(b"\x00" + data[1:])
+
+
+def _spectral_cases(monkeypatch):
+    """(bytes, bit position, ICSInfo, band codebooks): every ICS of the
+    committed clip's first 16 packets as the port's decoder meets them,
+    then seeded random bytes under random long and short ICSs."""
+    from ffmpeg_tpu_torch.codecs import aac
+    from ffmpeg_tpu_torch.io.adts import read_adts
+    from ffmpeg_tpu_torch.testing import AAC_CLIP
+    cases = []
+    real = aac.decode_spectral
+
+    def record(br, ics, band_cb):
+        cases.append((bytes(br.data), br.pos, ics, band_cb))
+        return real(br, ics, band_cb)
+    monkeypatch.setattr(aac, "decode_spectral", record)
+    par, pkts = read_adts(AAC_CLIP.read_bytes())
+    aac.AacDecoder(par, device="cpu").parse_packets(pkts[:16])
+    monkeypatch.setattr(aac, "decode_spectral", real)
+    assert len(cases) == 32
+    rng = np.random.default_rng(21)
+    cbs = [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15]
+    for i in range(24):
+        ics = aac.ICSInfo()
+        if i % 2:
+            ics.window_sequence, ics.num_windows = aac.EIGHT_SHORT, 8
+            cuts = sorted(rng.choice(np.arange(1, 8), int(rng.integers(0, 4)),
+                                     replace=False).tolist())
+            ics.group_len = np.diff([0, *cuts, 8]).tolist()
+            ics.swb_offset = list(aac.T.SWB_OFFSET_128[3]) + [128]
+            ics.num_swb = aac.T.NUM_SWB_128[3]
+        else:
+            ics.swb_offset = list(aac.T.SWB_OFFSET_1024[3]) + [1024]
+            ics.num_swb = aac.T.NUM_SWB_1024[3]
+        ics.num_window_groups = len(ics.group_len)
+        ics.max_sfb = int(rng.integers(1, ics.num_swb + 1))
+        band_cb = [[int(c) for c in rng.choice(cbs, ics.max_sfb)]
+                   for _ in range(ics.num_window_groups)]
+        size = 40 if i % 3 == 2 else 1200     # short: reads past the end
+        data = rng.integers(0, 256, size, np.uint8).tobytes()
+        cases.append((data, int(rng.integers(0, 64)), ics, band_cb))
+    return cases
+
+
+def test_aac_spectral_cpp_equals_walker_and_reference(monkeypatch):
+    """The port's C++ aac_decode_spectral, its Python walker (the plain
+    version) and the reference's spectral decode (its C++, and its Python
+    walker with the native library set aside) give the same coefficients
+    and end position, or all refuse the bits (a bad code, or a read past
+    the end), on every case of _spectral_cases."""
+    from ffmpeg_tpu.codecs import aac as ref_aac
+    from ffmpeg_tpu.codecs.bitstream import BitReader as RefBitReader
+    from ffmpeg_tpu.io.stream import CodecParameters as RefCodecParameters
+    from ffmpeg_tpu_torch.codecs import aac
+    from ffmpeg_tpu_torch.codecs.bitstream import BitReader
+    ref_dec = ref_aac.AacDecoder(RefCodecParameters(
+        codec_type="audio", codec_id="aac", sample_rate=48000))
+
+    def run(fn, reader, data, pos, ics, band_cb):
+        br = reader(data)
+        br.pos = pos
+        try:
+            return fn(br, ics, band_cb).tolist(), br.pos
+        except (error.InvalidData, ref_error.InvalidData):
+            return "refused"
+    cases = _spectral_cases(monkeypatch)
+    outcomes = []
+    for case in cases:
+        got = [run(aac.decode_spectral, BitReader, *case),
+               run(aac.decode_spectral_plain, BitReader, *case),
+               run(ref_dec._decode_spectral, RefBitReader, *case)]
+        with monkeypatch.context() as m:
+            m.setattr(ref_aac._NativeSpectral, "_state", False)
+            got.append(run(ref_dec._decode_spectral, RefBitReader, *case))
+        assert got[1:] == got[:1] * 3
+        outcomes.append(got[0] == "refused")
+    assert sum(outcomes[:32]) == 0 and 0 < sum(outcomes) < len(cases) - 32

@@ -7,7 +7,9 @@ the port is imported, its pipeline built on a packet of the 1080p
 fixture, and its plain path run on the CPU; then three frames go through
 the MPEG-2 encoder's entry point on the CPU; then a fixture frame through
 the MJPEG decoder, a parsed filter graph and the one-shot scale_frame,
-and the entry() twin and build_decode_scale at the 1080p auto spec, all
+and the entry() twin and build_decode_scale at the 1080p auto spec; then
+the audio frontend: the committed ADTS clip's first packets through the
+demuxer, decode_frames, the resampler and the audio graph, and tx, all
 on the CPU."""
 
 import re
@@ -92,6 +94,19 @@ o = cached_decode_scale(spec)(*[torch.from_numpy(pack_coeffs(c[None]))
                                 for c in (cy_, cu_, cv_)],
                               torch.from_numpy(qy), torch.from_numpy(qc))
 assert [tuple(x.shape) for x in o] == [(1, 224, 224)] * 3
+from ffmpeg_tpu_torch.filters import filter_names
+from ffmpeg_tpu_torch.io.adts import read_adts
+from ffmpeg_tpu_torch.ops import tx
+from ffmpeg_tpu_torch.testing import AAC_CLIP, audio_frontend
+par, apk = read_adts(AAC_CLIP.read_bytes())
+afr, aout = audio_frontend(par, apk[:8], "cpu")
+assert len(afr) == 8 and afr[0].audio_data.shape == (2, 1024)
+assert aout.shape == (1, 2731) and aout.dtype == np.float32
+g = parse_graph("aresample=16000,aformat=channel_layouts=mono", device="cpu")
+assert sum(f.nb_samples for f in g.run(afr)) == 2731    # ceil(8192 / 3)
+assert {"aresample", "aformat", "amix", "pan"} <= set(filter_names())
+assert tuple(tx.imdct(torch.zeros(3, 128), 128).shape) == (3, 256)
+assert tuple(tx.fft(torch.zeros(2, 2048, 2)).shape) == (2, 2048, 2)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
              or m.startswith(("jax.", "ffmpeg_tpu.")))
