@@ -16,7 +16,9 @@ Drives the port's paths through their user entry points at full size:
 - the audio frontend: the committed 20.03 s ADTS clip (48 kHz stereo
   AAC-LC) through the ADTS demuxer, CodecContext.open_decoder(...)
   .decode_frames and SwrContext(48000 stereo -> 16000 mono fltp), and
-  the graph "aresample=16000,aformat=channel_layouts=mono".
+  the graph "aresample=16000,aformat=channel_layouts=mono";
+- the VP9 decoder: the committed 100-frame 1920x1080 stream through
+  CodecContext.open_decoder("vp9") on the card.
 
 Phases, one line each:
 
@@ -93,7 +95,21 @@ Phases, one line each:
    events, and the rest), with the bytes and times of the host-device
    copies; torch.profiler over one pass (kernels, copies, device busy
    share) and over the IMDCT and the FIR alone (their CUDA kernels).
-Phases 9-12 run PyTorch only: K1 and K2 are not on their paths, and
+13. the VP9 decoder through CodecContext.open_decoder("vp9") on the
+   card: all 100 frames of tests/data/bench/vp9_1080p_100.ivf (1920x1080;
+   C++ tile parse, reconstruction on the card, host loop filter) once,
+   each frame's planes against the reference's committed sha256, failing
+   at the first mismatch; frames/s over that pass, and the split of the
+   keyframe and of the median inter frame into C++ parse, argument
+   build, h2d, device reconstruction (CUDA events; MC, residual and
+   intra levels within it), d2h and host loop filter; frames 0 and 1
+   decoded on the card against the port's own CPU run, byte-exact; the
+   committed 1920x1080 loop-filter stream against its golden, and the
+   port's loopfilter_frame_tpu on the card against the host's
+   lf.loopfilter_frame on its keyframe; torch.profiler, in a child
+   process, over the keyframe and the first inter frame (kernels and
+   copies, the device's busy share).
+Phases 9-13 run PyTorch only: K1 and K2 are not on their paths, and
 each prints their launch counts over its run (0).
 
 Then a JSON line with each kernel's launches, error, time, plain time
@@ -307,6 +323,7 @@ def main() -> int:
     phase10_decoder_graph(dev, card)
     phase11_dataloader(dev, card)
     phase12_audio(dev, card)
+    phase13_vp9(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "jpeg_scan_decode_packed", "route": "cuda",
@@ -553,15 +570,22 @@ def read_counts() -> str:
     return f"K1/K2 launches {huffman.KERNEL_LAUNCHES}/{me.KERNEL_LAUNCHES}"
 
 
-def profile_device(fn) -> tuple[list, int]:
-    """torch.profiler over one warm call of fn(): ([(name, us)] of the
-    device's kernels and copies, the host's kernel-launch API calls)."""
+def profile_device(fn, warm: bool = True,
+                   cpu: bool = True) -> tuple[list, int]:
+    """torch.profiler over one call of fn(), after a warm one unless
+    `warm` is false: ([(name, us)] of the device's kernels and copies,
+    the host's kernel-launch API calls).  cpu=False leaves the host's
+    operator events out of the trace (a VP9 keyframe queues some 10^5
+    kernels, and each operator event costs the trace's post-processing
+    time); the launch calls are counted where the trace has the CUDA
+    runtime's events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     device, api = [], 0
@@ -579,7 +603,11 @@ def count_launches(fn, call_ms: float) -> str:
     and the device's busy time in that call (the sum of the kernels' and
     copies' durations) as a share of `call_ms`, the call's time by CUDA
     events in a loop, and the three longest kinds of device work."""
-    device, api = profile_device(fn)
+    return summarize_launches(*profile_device(fn), call_ms)
+
+
+def summarize_launches(device: list, api: int, call_ms: float) -> str:
+    """count_launches' description of a profile_device() result."""
     kernels = sum(1 for name, _ in device
                   if not name.startswith(("Memcpy", "Memset")))
     copies = len(device) - kernels
@@ -590,8 +618,10 @@ def count_launches(fn, call_ms: float) -> str:
     if kernels == 0 and api == 0:
         return "launches not measured (the profiler saw no CUDA activity)"
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return (f"{kernels} kernels + {copies} copies on the device, {api} "
-            f"launch calls on the host; device busy {busy_us / 1e3:.3f} ms "
+    calls = (f"{api} launch calls on the host" if api else
+             "the host's launch calls not in the trace")
+    return (f"{kernels} kernels + {copies} copies on the device, {calls}; "
+            f"device busy {busy_us / 1e3:.3f} ms "
             f"({busy_us / 1e3 / call_ms:.1%} of {call_ms:.3f} ms), longest: "
             + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us in top))
 
@@ -1062,6 +1092,193 @@ def phase12_audio(dev, card) -> None:
     print(f"phase 12 audio profile [{card}]: one pass: {prof['pass']}; "
           f"IMDCT kernels: {prof['imdct'] or 'not measured'}; FIR kernels: "
           f"{prof['fir'] or 'not measured'}", flush=True)
+
+
+def _vp9_split(st: dict) -> str:
+    """One frame's split from VP9Core.stats."""
+    d = st["device"]
+    dev_ms = d["mc"] + d["residual"] + d["intra"]
+    return (f"{st['total']:.2f} ms: C++ parse {st['parse']:.2f}, argument "
+            f"build {st['build']:.2f}, h2d {st['h2d']:.3f} "
+            f"({st['h2d_bytes'] / 1e6:.2f} MB), device "
+            f"reconstruction {dev_ms:.2f} (MC {d['mc']:.3f}, residual "
+            f"{d['residual']:.3f}, intra levels {d['intra']:.2f}; the "
+            f"host queued it in {st['queue']:.2f}), d2h {d['d2h']:.3f} "
+            f"(the host's wait and copy {st['d2h']:.2f}), host loop filter "
+            f"{st['lf']:.2f}")
+
+
+def vp9_profile(kf_ms: float, inter_ms: float, device: str = "cuda:0"):
+    """Phase 13's torch.profiler sessions, run in a process of their own
+    (see audio_profile): a warm decode of frames 0-1, then a fresh
+    decoder's keyframe and first inter frame, each profiled alone.
+    Prints one JSON line of count_launches' descriptions against the
+    frames' wall times in the main pass."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    from ffmpeg_tpu_torch.testing import VP9_BENCH, vp9_decode
+    dev = torch.device(device)
+    par, _tb, pkts = read_ivf(VP9_BENCH.read_bytes())
+    vp9_decode(pkts[:2], dev)
+    dec = CodecContext.open_decoder(par, device=dev)
+
+    def one(p):
+        def fn():
+            dec.send_packet(p)
+            dec.receive_frame()
+        return fn
+    out = {}
+    for name, p, ms in (("keyframe", pkts[0], kf_ms),
+                        ("inter", pkts[1], inter_ms)):
+        out[name] = summarize_launches(
+            *profile_device(one(p), warm=False, cpu=False), ms)
+    print(json.dumps(out), flush=True)
+
+
+def _vp9_profile_in_child(kf_ms: float, inter_ms: float, dev) -> dict:
+    r = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.vp9_profile("
+         f"{kf_ms!r}, {inter_ms!r}, {str(dev)!r})"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"phase 13's profile exited {r.returncode}: "
+                           f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def phase13_vp9(dev, card) -> None:
+    """The VP9 decoder at full width on the card: the 100-frame bench
+    stream against the reference's hashes, timed and split; frames 0-1
+    against the port's CPU run; the loop-filter stream against its
+    golden and loopfilter_frame_tpu against the host filter; launches
+    by torch.profiler in a child process."""
+    import copy
+    import statistics
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.codecs.vp9 import VP9Core, lf, recon_tpu
+    from ffmpeg_tpu_torch.codecs.vp9.lf_tpu import loopfilter_frame_tpu
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    from ffmpeg_tpu_torch.testing import (VP9_BENCH, VP9_GOLDEN, VP9_LF,
+                                          VP9_LF_GOLDEN, plane_sha256,
+                                          vp9_decode)
+    from ffmpeg_tpu_torch.utils.error import TryAgain
+    t_phase = time.monotonic()
+    par, _tb, pkts = read_ivf(VP9_BENCH.read_bytes())
+    gold = np.load(VP9_GOLDEN)["hashes"]
+    if len(pkts) != 100 or (par.width, par.height) != (1920, 1080):
+        raise RuntimeError(f"bench stream: {len(pkts)} packets at "
+                           f"{par.width}x{par.height}")
+    vp9_decode(pkts[:2], dev)                     # warm: not in the pass
+
+    # the main path: all 100 frames once, each checked
+    dec = CodecContext.open_decoder(par, device=dev)
+    core = dec.codec.core
+    core.stats = []
+    zero_counts()
+    walls = []
+    for i, p in enumerate(pkts):
+        t = time.perf_counter()
+        dec.send_packet(p)
+        f = dec.receive_frame()
+        walls.append((time.perf_counter() - t) * 1e3)
+        try:
+            dec.receive_frame()
+            raise RuntimeError(f"packet {i} gave more than one frame")
+        except TryAgain:
+            pass
+        if any(pl.device != dev for pl in f.planes):
+            raise RuntimeError(f"frame {i}'s planes are not on the card")
+        got = [plane_sha256(pl) for pl in f.planes]
+        if got != list(gold[i]):
+            bad = [n for n, g, w in zip("yuv", got, gold[i]) if g != w]
+            raise RuntimeError(f"frame {i} differs from the reference's "
+                               f"hashes in {bad}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    stats = core.stats
+    if len(stats) != 100 or not stats[0]["keyframe"] or any(
+            s["keyframe"] for s in stats[1:]):
+        raise RuntimeError("expected one keyframe then 99 inter frames")
+    fps = len(walls) * 1e3 / sum(walls)
+    inter = sorted(range(1, 100), key=lambda k: stats[k]["total"])
+    med = inter[len(inter) // 2]
+    dev_inter = [sum(stats[k]["device"][n] for n in ("mc", "residual",
+                                                     "intra"))
+                 for k in range(1, 100)]
+    print(f"phase 13 vp9 decode [{card}]: 100 frames of 1920x1080 "
+          f"through open_decoder('vp9') on the card, every frame's y/u/v "
+          f"equal to the reference's sha256; {counts}; {fps:.3f} frames/s "
+          f"({sum(walls):.1f} ms for the pass, wall, after a warm decode "
+          f"of frames 0-1; the keyframe {walls[0]:.1f} ms, inter frames "
+          f"median {statistics.median(walls[1:]):.2f} ms, min "
+          f"{min(walls[1:]):.2f}, max {max(walls[1:]):.2f}); keyframe "
+          f"({stats[0]['levels']} intra levels) "
+          f"{_vp9_split(stats[0])}; median inter frame (frame {med}, "
+          f"{stats[med]['levels']} levels) "
+          f"{_vp9_split(stats[med])}; "
+          f"device reconstruction of the 99 inter frames: median "
+          f"{statistics.median(dev_inter):.2f} ms, sum "
+          f"{sum(dev_inter):.1f} ms", flush=True)
+
+    # frames 0 and 1 on the card against the port's CPU run
+    cpu = vp9_decode(pkts[:2], "cpu")
+    card_frames = vp9_decode(pkts[:2], dev)
+    for i, (a, b) in enumerate(zip(cpu, card_frames)):
+        for pl, (x, y) in enumerate(zip(a.planes, b.planes)):
+            if not torch.equal(x, y.cpu()):
+                raise RuntimeError(f"frame {i} plane {pl}: the card differs "
+                                   f"from the CPU run")
+
+    # the loop-filter stream, and loopfilter_frame_tpu on its keyframe
+    lpar, _ltb, lpkts = read_ivf(VP9_LF.read_bytes())
+    lgold = np.load(VP9_LF_GOLDEN)["lf"]
+    t = time.perf_counter()
+    lframes = vp9_decode(lpkts, dev)
+    lf_wall = (time.perf_counter() - t) * 1e3
+    if len(lframes) != len(lgold):
+        raise RuntimeError(f"lf stream: {len(lframes)} frames")
+    for i, f in enumerate(lframes):
+        if [plane_sha256(pl) for pl in f.planes] != list(lgold[i]):
+            raise RuntimeError(f"lf stream frame {i} differs from its "
+                               f"golden")
+    cap = VP9Core(native=True, device=dev)
+    cap.capture = []
+    cap.decode_frame(lpkts[0].data)
+    h, fs, rec = cap.capture[0]
+    recon_tpu.reconstruct(fs, rec, dev)
+    host = copy.copy(fs)
+    host.y, host.u, host.v = fs.y.copy(), fs.u.copy(), fs.v.copy()
+    t = time.perf_counter()
+    lf.loopfilter_frame(host)
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = loopfilter_frame_tpu(fs, dev)
+    torch.cuda.synchronize()
+    tpu_ms = (time.perf_counter() - t) * 1e3
+    for name, a, b, o in zip("yuv", (host.y, host.u, host.v),
+                             (fs.y, fs.u, fs.v), out):
+        if not (np.array_equal(a, b) and o.device.type == dev.type):
+            raise RuntimeError(f"loopfilter_frame_tpu on the card differs "
+                               f"from lf.loopfilter_frame ({name})")
+    print(f"phase 13 vp9 checks [{card}]: frames 0-1 on the card "
+          f"byte-exact against the port's CPU run; loop-filter stream "
+          f"({len(lpkts)} frames 1920x1080, filter_level "
+          f"{h.filter_level} then 48) equal to its golden in "
+          f"{lf_wall:.1f} ms, wall; loopfilter_frame_tpu on the card "
+          f"equal to lf.loopfilter_frame on its keyframe (level "
+          f"{h.filter_level}, sharpness {h.sharpness}): {tpu_ms:.1f} ms on "
+          f"the card against {host_ms:.1f} ms on the host", flush=True)
+
+    prof = _vp9_profile_in_child(walls[0], walls[1], dev)
+    print(f"phase 13 vp9 profile [{card}]: keyframe: {prof['keyframe']}; "
+          f"inter frame 1: {prof['inter']}", flush=True)
+    print(f"phase 13 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,13 @@ Ported so far:
 - the MPEG-2 encoder's I/P path (`codecs.CodecContext.open_encoder`,
   `codecs.mpeg12_enc.Mpeg2Encoder`) with motion search by K2
   (`ops.me`), the 8x8 transforms (`ops.idct`) and motion compensation
-  (`ops.mc`).
+  (`ops.mc`);
+- the MJPEG decoder, the filter graph and the decode→scale twin
+  (`entry.entry`); the audio frontend (`codecs.aac`, `ops.tx`,
+  `resample`);
+- the VP9 decoder's per-frame path (`codecs.vp9.VP9Decoder`: the C++
+  tile parse, `codecs.vp9.recon_tpu` on the device, the host loop
+  filter), with `codecs.vp9.lf_tpu` as the device loop filter.
 """
 
 __version__ = "0.1.0"

@@ -6,3 +6,4 @@ from .codec import (CodecContext, EncoderParameters, Rational,  # noqa: F401
 from . import aac  # noqa: F401  (registers the aac decoder)
 from . import mjpeg  # noqa: F401  (registers the mjpeg decoder)
 from . import mpeg12_enc  # noqa: F401  (registers mpeg2video)
+from . import vp9  # noqa: F401  (registers the vp9 decoder)

@@ -1,7 +1,8 @@
 """Builder and loader for the port's host C++ (`csrc/host/`): the MJPEG
 scan splitter that feeds K1, the sequential host decoder K1 is held
-against, and the AAC spectral Huffman decoder (counterpart of
-ffmpeg_tpu/native.py, for the port's own copy of those three functions).
+against, the AAC spectral Huffman decoder and the VP9 tile parse
+(counterpart of ffmpeg_tpu/native.py, for the port's own copy of those
+four functions).
 
 At first use `g++` compiles `csrc/host/*.cpp` into one shared library
 under `build/ffmpeg_tpu_torch/` at the repository root, named by a
@@ -91,6 +92,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         c.POINTER(c.c_int32), c.POINTER(c.c_uint8),  # lut_sym, lut_len
         c.POINTER(c.c_int32), c.POINTER(c.c_int32),  # lut_off, lut_maxlen
         c.POINTER(c.c_int32),                   # out
+    ]
+    lib.vp9_parse_frame.restype = c.c_long
+    lib.vp9_parse_frame.argtypes = [
+        c.c_char_p, c.c_long,                   # tile region, size
+        c.POINTER(c.c_int32),                   # hdr32
+        c.POINTER(c.c_void_p),                  # slot table
     ]
 
 

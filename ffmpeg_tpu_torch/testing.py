@@ -19,7 +19,13 @@ both check the port against the JAX reference's committed answers:
 - the audio frontend: the committed 20.03 s ADTS clip (48 kHz stereo
   AAC-LC) and the reference's decode and resample of it to 16 kHz mono
   (`AUDIO_GOLDEN`, written by tools/gen_torch_audio_fixture.py), and the
-  path itself (`audio_frontend`).
+  path itself (`audio_frontend`);
+- the VP9 decoder: the committed 100-frame 1920x1080 stream and the
+  reference's per-frame sha256 of its planes and full planes of frames
+  0-2 (`VP9_GOLDEN`), a committed 1920x1080 stream with the loop filter
+  on and a small crafted one, with the reference's hashes
+  (`VP9_LF_GOLDEN`; all written by tools/gen_torch_vp9_fixture.py), and
+  the decode itself (`vp9_decode`).
 
 They live here so that each check reads them from the package and not
 from the other.
@@ -57,6 +63,14 @@ AUDIO_GOLDEN = DATA / "aac48k_frontend_golden.npz"
 AUDIO_GOLDEN_FRAMES = 32       # decoded frames of the golden
 AUDIO_GRAPH_TEXT = "aresample=16000,aformat=channel_layouts=mono"
 AUDIO_GRAPH_PACKETS = 200      # benchrows.audio_frontend_row's cut
+
+# The VP9 decoder (benchrows.recon_row_vp9's stream, and two with the
+# loop filter on).
+VP9_BENCH = DATA.parent / "bench" / "vp9_1080p_100.ivf"
+VP9_GOLDEN = DATA / "vp9_1080p_100_golden.npz"
+VP9_LF = DATA / "vp9_1080p_lf.ivf"
+VP9_SMALL = DATA / "vp9_crafted_96x72.ivf"
+VP9_LF_GOLDEN = DATA / "vp9_lf_golden.npz"
 
 
 def packed_cap(pkts) -> int:
@@ -158,3 +172,40 @@ def recon_psnr(recon, frame) -> float:
         for r, p in zip(recon, frame.planes[:3])])
     mse = float((d * d).mean())
     return float(10 * np.log10(255 * 255 / max(mse, 1e-12)))
+
+
+def plane_sha256(plane) -> str:
+    """sha256 of a plane's bytes (a tensor is copied to the host)."""
+    from .core.frame import host_array
+    return hashlib.sha256(np.ascontiguousarray(host_array(plane))
+                          .tobytes()).hexdigest()
+
+
+def vp9_decode(packets, device, options=None):
+    """Decode IVF packets through CodecContext.open_decoder("vp9") on
+    `device`, one packet at a time; returns the frames."""
+    from .codecs import CodecContext
+    from .io.stream import CodecParameters, MediaType
+    from .utils.error import TryAgain
+    dec = CodecContext.open_decoder(
+        CodecParameters(codec_type=MediaType.VIDEO, codec_id="vp9"),
+        options, device=device)
+    out = []
+    for p in packets:
+        dec.send_packet(p)
+        while True:
+            try:
+                out.append(dec.receive_frame())
+            except TryAgain:
+                break
+    return out
+
+
+def vp9_golden_planes(gold, i: int) -> list:
+    """The reference's full y/u/v planes of bench frame i from
+    VP9_GOLDEN, whose frames after the first are stored as differences
+    from the frame before (modulo 256)."""
+    planes = [gold[f"{n}0"] for n in "yuv"]
+    for k in range(1, i + 1):
+        planes = [p + gold[f"{n}{k}"] for n, p in zip("yuv", planes)]
+    return planes

@@ -3,8 +3,11 @@ versions, bit-exact: K1 (ffmpeg_tpu_torch/csrc/jpeg_huffman.cu) and K2
 (ffmpeg_tpu_torch/csrc/sad_cost_volume.cu); and the PyTorch-only paths
 (the MJPEG decoder, the filter graph, build_decode_scale and entry())
 against the same code on the CPU and the reference's committed output,
-within 1 LSB.  Marked `gpu`: they need a CUDA device (and nvcc for the
-kernels), and skip without one.  They use no jax, so on a machine with a
+within 1 LSB; the audio frontend's stages against their CPU runs; and
+the VP9 decoder and its device loop filter, byte-exact against the CPU
+run, the host filter and the reference's committed hashes.  Marked
+`gpu`: they need a CUDA device (and nvcc for the kernels), and skip
+without one.  They use no jax, so on a machine with a
 card and without jax they run without tests/conftest.py (which imports
 jax):
 
@@ -301,3 +304,61 @@ def test_aac_decode_frames_on_card_matches_cpu(cuda):
     for g, w in zip(got, want):
         assert all(isinstance(p, np.ndarray) for p in g.planes)
         assert float(np.abs(g.audio_data - w.audio_data).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("opts", [None, {"native": False,
+                                         "device_recon": True}])
+def test_vp9_decoder_on_card_matches_cpu_and_golden(cuda, opts):
+    """The committed small crafted VP9 stream (keyframe, three inter
+    frames, compound prediction, loop filter on) through
+    open_decoder("vp9") on the card, on the C++-parse path and on the
+    walker's replay: planes on the card, equal to the port's CPU run and
+    to the reference's hashes."""
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    _par, _tb, pkts = read_ivf(fx.VP9_SMALL.read_bytes())
+    gold = np.load(fx.VP9_LF_GOLDEN)["small"]
+    got = fx.vp9_decode(pkts, cuda, opts)
+    want = fx.vp9_decode(pkts, "cpu", opts)
+    assert len(got) == len(want) == len(gold)
+    for g, w, h in zip(got, want, gold):
+        assert all(p.is_cuda for p in g.planes)
+        for a, b in zip(g.planes, w.planes):
+            assert torch.equal(a.cpu(), b)
+        assert [fx.plane_sha256(p) for p in g.planes] == list(h)
+
+
+def test_vp9_bench_first_frames_on_card_match_golden(cuda):
+    """Frames 0-2 of the committed 1920x1080 stream on the card against
+    the reference's golden planes."""
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    gold = np.load(fx.VP9_GOLDEN)
+    _par, _tb, pkts = read_ivf(fx.VP9_BENCH.read_bytes())
+    for i, f in enumerate(fx.vp9_decode(pkts[:3], cuda)):
+        for p, w in zip(f.planes, fx.vp9_golden_planes(gold, i)):
+            assert p.is_cuda
+            np.testing.assert_array_equal(p.cpu().numpy(), w)
+
+
+def test_vp9_loop_filter_on_card_matches_host(cuda):
+    """loopfilter_frame_tpu on the card against the host's
+    lf.loopfilter_frame on the pre-filter state of each frame of the
+    small crafted stream."""
+    import copy
+    from ffmpeg_tpu_torch.codecs.vp9 import VP9Core, lf, recon_tpu
+    from ffmpeg_tpu_torch.codecs.vp9.lf_tpu import loopfilter_frame_tpu
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    _par, _tb, pkts = read_ivf(fx.VP9_SMALL.read_bytes())
+    core = VP9Core(native=True, device=cuda)
+    core.capture = []
+    for p in pkts:
+        core.decode_frame(p.data)
+        _h, fs, rec = core.capture[-1]
+        recon_tpu.reconstruct(fs, rec, cuda)
+        host = copy.copy(fs)
+        host.y, host.u, host.v = fs.y.copy(), fs.u.copy(), fs.v.copy()
+        lf.loopfilter_frame(host)
+        out = loopfilter_frame_tpu(fs, cuda)
+        for a, b, t in zip((host.y, host.u, host.v), (fs.y, fs.u, fs.v),
+                           out):
+            np.testing.assert_array_equal(b, a)
+            assert t.is_cuda and np.array_equal(t.cpu().numpy(), a)

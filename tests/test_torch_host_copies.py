@@ -9,7 +9,12 @@ containers, image packing and the frame's byte and host conversions; and
 the host modules of the audio frontend: sample formats, channel layouts,
 the FIR bank (bit-exact), the rematrix, the bit reader and writer, the
 AAC tables, the ADTS demuxer on the committed clip, and the C++ AAC
-spectral decoder against its Python walker and the reference's."""
+spectral decoder against its Python walker and the reference's; and the
+host half of the VP9 decoder: its tables and the H.264 bit reader, the
+bool coder, the frame headers, the 1-D inverse transforms (on torch
+int32 tensors too), the intra and inter predictors, the loop filter's
+tables, the C++ tile walk's records on all 100 frames of the bench
+stream, and the IVF reader."""
 
 import ctypes
 import dataclasses
@@ -679,3 +684,251 @@ def test_aac_spectral_cpp_equals_walker_and_reference(monkeypatch):
         assert got[1:] == got[:1] * 3
         outcomes.append(got[0] == "refused")
     assert sum(outcomes[:32]) == 0 and 0 < sum(outcomes) < len(cases) - 32
+
+
+# -- VP9: the port's copies of the host half of codecs/vp9/ ----------------
+
+def _vp9_streams():
+    """Crafted streams (as tests/test_vp9_recon_tpu.py builds them) and
+    the bench stream's first five packets: [(name, [frame bytes])]."""
+    import test_vp9 as K
+    import test_vp9_inter as I
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    from ffmpeg_tpu_torch.testing import VP9_BENCH
+    out = [("kf", [K.craft_frame(K.Plan(np.random.default_rng(0)))]),
+           ("tiles", [K.craft_frame(K.Plan(np.random.default_rng(4)),
+                                    width=512, height=128,
+                                    tile_cols_log2=1, filter_level=30,
+                                    sharpness=3)])]
+    rng = np.random.default_rng(7)
+    s = I.CraftSession()
+    s.key(K.Plan(rng))
+    s.inter(I.InterPlan(rng, comp_p=0.5), signbias=(0, 0, 1), hp=True)
+    s.inter(I.InterPlan(rng), filtermode=2, filter_level=20)
+    out.append(("inter", s.frames))
+    _par, _tb, pkts = read_ivf(VP9_BENCH.read_bytes())
+    out.append(("bench", [p.data for p in pkts[:5]]))
+    return out
+
+
+def test_vp9_tables_and_h264_bits_equal_reference():
+    from ffmpeg_tpu.codecs.h264 import bits as ref_bits
+    from ffmpeg_tpu.codecs.vp9 import tables_gen as ref_T
+    from ffmpeg_tpu_torch.codecs.h264 import bits
+    from ffmpeg_tpu_torch.codecs.vp9 import tables_gen as T
+    names = [n for n in dir(ref_T) if n.isupper()]
+    assert len(names) > 40 and names == [n for n in dir(T) if n.isupper()]
+    for n in names:
+        a, b = getattr(T, n), getattr(ref_T, n)
+        assert a.dtype == b.dtype, n
+        np.testing.assert_array_equal(a, b, err_msg=n)
+    data = np.random.default_rng(3).integers(0, 256, 64, np.uint8).tobytes()
+    x, y = bits.Bits(data), ref_bits.Bits(data)
+    for k in range(40):
+        if k % 3 == 0:
+            assert x.ue() == y.ue()
+        elif k % 3 == 1:
+            assert x.se() == y.se()
+        else:
+            assert x.get(k % 17) == y.get(k % 17)
+        assert x.pos == y.pos and x.more_rbsp() == y.more_rbsp()
+
+
+def test_vp9_bool_decoder_equals_reference():
+    from ffmpeg_tpu.codecs.vp9 import bool as ref_bool
+    from ffmpeg_tpu.codecs.vp9 import tables_gen as ref_T
+    from ffmpeg_tpu_torch.codecs.vp9 import bool as vbool
+    rng = np.random.default_rng(8)
+    for size in (1, 7, 300):
+        data = rng.integers(0, 256, size, np.uint8).tobytes()
+        a, b = vbool.BoolDecoder(data), ref_bool.BoolDecoder(data)
+        for k in range(600):
+            p = int(rng.integers(1, 256))
+            if k % 7 == 0:
+                assert a.literal(5) == b.literal(5)
+            elif k % 11 == 0:
+                probs = rng.integers(1, 256, 9)
+                assert a.tree(ref_T.INTRAMODE_TREE, probs) == \
+                    b.tree(ref_T.INTRAMODE_TREE, probs)
+            else:
+                assert a.get(p) == b.get(p)
+    enc, ref_enc = vbool.BoolEncoder(), ref_bool.BoolEncoder()
+    for k in range(500):
+        bit, p = int(rng.integers(0, 2)), int(rng.integers(1, 256))
+        enc.put(bit, p)
+        ref_enc.put(bit, p)
+    assert enc.finish() == ref_enc.finish()
+
+
+def _vp9_header_fields(h):
+    out = {}
+    for k, v in dataclasses.asdict(h).items():
+        out[k] = np.asarray(v).tolist() if v is not None else None
+    return out
+
+
+def test_vp9_headers_equal_reference():
+    """parse_uncompressed and parse_compressed (every probability table,
+    the expanded coefficient model included) on the crafted streams and
+    the bench stream's first frames, from the same saved context."""
+    from ffmpeg_tpu.codecs.vp9 import header as ref_header
+    from ffmpeg_tpu_torch.codecs.vp9 import header
+    n = 0
+    for name, frames in _vp9_streams():
+        k = ref_header.parse_uncompressed(frames[0])      # the keyframe
+        dims = [(k.width, k.height)] * 8
+        for data in frames:
+            h = header.parse_uncompressed(data, False, None, dims)
+            rh = ref_header.parse_uncompressed(data, False, None, dims)
+            assert _vp9_header_fields(h) == _vp9_header_fields(rh), name
+            pos = (h.uncompressed_bits + 7) // 8
+            comp = data[pos:pos + h.compressed_size]
+            p = header.parse_compressed(h, comp, header.ProbContext())
+            rp = ref_header.parse_compressed(rh, comp,
+                                             ref_header.ProbContext())
+            for f, _ in ref_header.ProbContext.FIELDS + [("coef3", 0),
+                                                         ("coef", 0)]:
+                np.testing.assert_array_equal(getattr(p, f), getattr(rp, f),
+                                              err_msg=f"{name} {f}")
+            assert _vp9_header_fields(h) == _vp9_header_fields(rh)
+            n += 1
+    assert n == 10
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_vp9_itxfm_kernels_equal_reference(n):
+    """Each 1-D kernel on random int32 columns: the port's copy on torch
+    int32 tensors (stack=torch.stack, as recon_tpu calls it) and on
+    numpy int64 (the host path) against the reference's on numpy int32
+    and int64; then itxfm_add on random blocks of every type."""
+    from ffmpeg_tpu.codecs.vp9 import itxfm as ref_tx
+    from ffmpeg_tpu_torch.codecs.vp9 import itxfm as tx
+    rng = np.random.default_rng(n)
+    x = rng.integers(-(1 << 15), 1 << 15, (n, 96)).astype(np.int32)
+    for kind in ("dct", "adst"):
+        if (n, kind) not in ref_tx._KERNELS:
+            continue
+        want32 = ref_tx._KERNELS[(n, kind)](x)
+        got32 = tx._KERNELS[(n, kind)](torch.from_numpy(x),
+                                       stack=torch.stack)
+        assert got32.dtype == torch.int32
+        np.testing.assert_array_equal(got32.numpy(), want32)
+        np.testing.assert_array_equal(
+            tx._KERNELS[(n, kind)](x.astype(np.int64)),
+            ref_tx._KERNELS[(n, kind)](x.astype(np.int64)))
+    for txtp in range(4):
+        block = (rng.integers(-600, 600, (n, n))
+                 * (rng.random((n, n)) < 0.2)).astype(np.int32)
+        dst = rng.integers(0, 256, (n, n)).astype(np.uint8)
+        a, b = dst.copy(), dst.copy()
+        eob = int((block != 0).sum()) or 1
+        tx.itxfm_add(a, block, txtp if n < 32 else 0, eob)
+        ref_tx.itxfm_add(b, block, txtp if n < 32 else 0, eob)
+        np.testing.assert_array_equal(a, b)
+
+
+def test_vp9_intra_and_inter_predictors_equal_reference():
+    from ffmpeg_tpu.codecs.vp9 import inter as ref_inter
+    from ffmpeg_tpu.codecs.vp9 import intra as ref_intra
+    from ffmpeg_tpu_torch.codecs.vp9 import inter, intra
+    rng = np.random.default_rng(12)
+    for n in (4, 8, 16, 32):
+        for mode in range(15):
+            left = rng.integers(0, 256, n).astype(np.int32)
+            top = rng.integers(0, 256, 2 * n).astype(np.int32)
+            tl = int(rng.integers(0, 256))
+            np.testing.assert_array_equal(
+                intra.predict(mode, n, left, top, tl),
+                ref_intra.predict(mode, n, left, top, tl))
+    np.testing.assert_array_equal(inter.FILTERS, ref_inter.FILTERS)
+    ref = rng.integers(0, 256, (72, 96)).astype(np.uint8)
+    for k in range(40):
+        bh, bw = (4, 8, 16)[k % 3], (8, 4, 16, 32)[k % 4]
+        y, x = int(rng.integers(0, 72 - bh)), int(rng.integers(0, 96 - bw))
+        mvx, mvy = (int(v) for v in rng.integers(-200, 200, 2))
+        shift, filt, avg = 3 + k % 2, k % 4, bool(k % 5 == 0)
+        pre = rng.integers(0, 256, (bh, bw)).astype(np.uint8)
+        a, b = pre.copy(), pre.copy()
+        inter.mc_block(a, 0, 0, bh, bw, ref, y, x, mvx, mvy, shift, filt,
+                       96, 72, avg)
+        ref_inter.mc_block(b, 0, 0, bh, bw, ref, y, x, mvx, mvy, shift,
+                           filt, 96, 72, avg)
+        np.testing.assert_array_equal(a, b)
+
+
+def test_vp9_lf_luts_equal_reference():
+    from ffmpeg_tpu.codecs.vp9 import lf as ref_lf
+    from ffmpeg_tpu_torch.codecs.vp9 import lf
+    from ffmpeg_tpu_torch.codecs.vp9.lf_tpu import _luts
+    for sharp in range(8):
+        for a, b, c in zip(lf._luts(sharp), _luts(sharp),
+                           ref_lf._luts(sharp)):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(b, c)
+
+
+def test_vp9_native_record_equals_reference():
+    """The port's C++ tile walk (csrc/host/vp9_parse.cpp, built by the
+    port's native.py) against the reference's on all 100 frames of the
+    bench stream: every record array, the level count, the grids the
+    next frame and the loop filter read, and the adaptation counts."""
+    from ffmpeg_tpu.codecs.vp9 import VP9Core as RefCore
+    from ffmpeg_tpu_torch.codecs.vp9 import VP9Core
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    from ffmpeg_tpu_torch.testing import VP9_BENCH
+    _par, _tb, pkts = read_ivf(VP9_BENCH.read_bytes())
+    port, ref = VP9Core(native=True, device="cpu"), RefCore(native=True)
+    port.capture, ref.capture = [], []
+    for p in pkts:
+        port.decode_frame(p.data)
+        ref.decode_frame(p.data)
+        (_h, fs, rec), (_rh, rfs, rrec) = port.capture[-1], ref.capture[-1]
+        assert rec.max_level == rrec.max_level
+        for cls in rrec.mc_arr:
+            np.testing.assert_array_equal(rec.mc_arr[cls], rrec.mc_arr[cls])
+        for arrs, rarrs in ((rec.tu_arr, rrec.tu_arr),
+                            (rec.in_arr, rrec.in_arr)):
+            assert list(arrs) == list(rarrs)
+            for cls in rarrs:
+                for a, b in zip(arrs[cls], rarrs[cls]):
+                    np.testing.assert_array_equal(a, b)
+        for g in ("mv_ref", "mv_xy", "lf_lvl", "wd_v", "wd_h", "wd_v_uv",
+                  "wd_h_uv"):
+            np.testing.assert_array_equal(getattr(fs, g), getattr(rfs, g))
+        for k, v in rfs.counts.items():
+            if isinstance(v, dict):
+                for kk, vv in v.items():
+                    np.testing.assert_array_equal(fs.counts[k][kk], vv)
+            else:
+                np.testing.assert_array_equal(fs.counts[k], v)
+    assert len(port.capture) == 100
+    assert port.capture[0][2].max_level == 579
+
+
+def test_ivf_reader_equals_reference(tmp_path):
+    """Every packet's bytes, pts and flags and the stream's parameters on
+    the committed streams; the same end at a truncated frame."""
+    from ffmpeg_tpu.io import open_input
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    from ffmpeg_tpu_torch.testing import VP9_BENCH, VP9_LF
+    for path in (VP9_BENCH, VP9_LF):
+        data = path.read_bytes()
+        par, tb, pkts = read_ivf(data)
+        d = open_input(str(path))
+        ref = list(d.packets())
+        assert len(pkts) == len(ref) > 0
+        for a, b in zip(pkts, ref):
+            assert (a.data, a.pts, a.dts, a.flags, a.time_base.num,
+                    a.time_base.den) == (b.data, b.pts, b.dts, b.flags,
+                                         b.time_base.num, b.time_base.den)
+        rp = d.streams[0].codecpar
+        assert (par.codec_type, par.codec_id, par.width, par.height) == \
+            (rp.codec_type, rp.codec_id, rp.width, rp.height)
+        assert (tb.num, tb.den) == (d.streams[0].time_base.num,
+                                    d.streams[0].time_base.den)
+    cut = VP9_LF.read_bytes()[:-100]
+    (tmp_path / "cut.ivf").write_bytes(cut)
+    assert len(read_ivf(cut)[2]) == len(list(
+        open_input(str(tmp_path / "cut.ivf")).packets())) == 2
+    with pytest.raises(error.InvalidData, match="bad magic"):
+        read_ivf(b"XKIF" + cut[4:])

@@ -9,8 +9,10 @@ the MPEG-2 encoder's entry point on the CPU; then a fixture frame through
 the MJPEG decoder, a parsed filter graph and the one-shot scale_frame,
 and the entry() twin and build_decode_scale at the 1080p auto spec; then
 the audio frontend: the committed ADTS clip's first packets through the
-demuxer, decode_frames, the resampler and the audio graph, and tx, all
-on the CPU."""
+demuxer, decode_frames, the resampler and the audio graph, and tx; then
+the VP9 decoder: the committed small crafted stream through the IVF
+reader and open_decoder("vp9") on both of its device paths, against the
+reference's hashes, and the device loop filter; all on the CPU."""
 
 import re
 import subprocess
@@ -107,6 +109,25 @@ assert sum(f.nb_samples for f in g.run(afr)) == 2731    # ceil(8192 / 3)
 assert {"aresample", "aformat", "amix", "pan"} <= set(filter_names())
 assert tuple(tx.imdct(torch.zeros(3, 128), 128).shape) == (3, 256)
 assert tuple(tx.fft(torch.zeros(2, 2048, 2)).shape) == (2, 2048, 2)
+from ffmpeg_tpu_torch.codecs import decoder_names
+from ffmpeg_tpu_torch.codecs.vp9 import VP9Core, recon_tpu
+from ffmpeg_tpu_torch.codecs.vp9.lf_tpu import loopfilter_frame_tpu
+from ffmpeg_tpu_torch.io.ivf import read_ivf
+from ffmpeg_tpu_torch.testing import (VP9_LF_GOLDEN, VP9_SMALL, plane_sha256,
+                                      vp9_decode)
+assert "vp9" in decoder_names()
+vpar, _tb, vpk = read_ivf(VP9_SMALL.read_bytes())
+vgold = np.load(VP9_LF_GOLDEN)["small"]
+for opts in (None, {"native": False, "device_recon": True}):
+    vfr = vp9_decode(vpk, "cpu", opts)
+    assert [[plane_sha256(p) for p in f.planes] for f in vfr] == \
+        vgold.tolist()
+vcore = VP9Core(native=True, device="cpu")
+vcore.capture = []
+vcore.decode_frame(vpk[0].data)
+_h, vfs, vrec = vcore.capture[0]
+recon_tpu.reconstruct(vfs, vrec, "cpu")
+assert loopfilter_frame_tpu(vfs, "cpu")[0].shape == (128, 128)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
              or m.startswith(("jax.", "ffmpeg_tpu.")))
