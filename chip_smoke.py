@@ -18,7 +18,9 @@ Drives the port's paths through their user entry points at full size:
   .decode_frames and SwrContext(48000 stereo -> 16000 mono fltp), and
   the graph "aresample=16000,aformat=channel_layouts=mono";
 - the VP9 decoder: the committed 100-frame 1920x1080 stream through
-  CodecContext.open_decoder("vp9") on the card.
+  CodecContext.open_decoder("vp9") on the card, and through the windowed
+  decoder Vp9TpuDecoder (models/vp9_tpu.py: the DPB on the card, the
+  wavefront loop filter).
 
 Phases, one line each:
 
@@ -109,7 +111,18 @@ Phases, one line each:
    lf.loopfilter_frame on its keyframe; torch.profiler, in a child
    process, over the keyframe and the first inter frame (kernels and
    copies, the device's busy share).
-Phases 9-13 run PyTorch only: K1 and K2 are not on their paths, and
+14. the windowed VP9 decoder, Vp9TpuDecoder(device).decode: all 100
+   frames of the bench stream as one window with emit_planes=True (after
+   a warm decode of frames 0-1), every frame's planes on the card and
+   against the reference's sha256 after the window; full_decode_fps and
+   the host_parse/build/device ms per frame that benchrows.recon_row_vp9
+   reports; the checksum path (emit_planes=False) on frames 0-2 against
+   the emitted planes; the loop-filter stream through the windowed
+   decoder against its golden; loopfilter_wavefront on its keyframe
+   against the host filter's planes of phase 13, timed; torch.profiler,
+   in a child process, over one inter frame as a window and over the
+   wavefront on that keyframe (kernels, launch calls, busy share).
+Phases 9-14 run PyTorch only: K1 and K2 are not on their paths, and
 each prints their launch counts over its run (0).
 
 Then a JSON line with each kernel's launches, error, time, plain time
@@ -323,7 +336,8 @@ def main() -> int:
     phase10_decoder_graph(dev, card)
     phase11_dataloader(dev, card)
     phase12_audio(dev, card)
-    phase13_vp9(dev, card)
+    lf_key = phase13_vp9(dev, card)
+    phase14_vp9_window(dev, card, lf_key)
 
     print(json.dumps({"kernels": [{
         "name": "jpeg_scan_decode_packed", "route": "cuda",
@@ -1148,12 +1162,14 @@ def _vp9_profile_in_child(kf_ms: float, inter_ms: float, dev) -> dict:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def phase13_vp9(dev, card) -> None:
+def phase13_vp9(dev, card) -> dict:
     """The VP9 decoder at full width on the card: the 100-frame bench
     stream against the reference's hashes, timed and split; frames 0-1
     against the port's CPU run; the loop-filter stream against its
     golden and loopfilter_frame_tpu against the host filter; launches
-    by torch.profiler in a child process."""
+    by torch.profiler in a child process.  Returns the loop-filter
+    stream's keyframe for phase 14: its FrameState, pre-filter planes,
+    the host filter's planes and times."""
     import copy
     import statistics
     import numpy as np
@@ -1252,6 +1268,7 @@ def phase13_vp9(dev, card) -> None:
     recon_tpu.reconstruct(fs, rec, dev)
     host = copy.copy(fs)
     host.y, host.u, host.v = fs.y.copy(), fs.u.copy(), fs.v.copy()
+    pre = (fs.y.copy(), fs.u.copy(), fs.v.copy())
     t = time.perf_counter()
     lf.loopfilter_frame(host)
     host_ms = (time.perf_counter() - t) * 1e3
@@ -1279,7 +1296,186 @@ def phase13_vp9(dev, card) -> None:
           f"inter frame 1: {prof['inter']}", flush=True)
     print(f"phase 13 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
+    return {"fs": fs, "pre": pre, "host": (host.y, host.u, host.v),
+            "host_ms": host_ms, "tpu_ms": tpu_ms}
 
+
+def _wave_args(fs):
+    """loopfilter_wavefront's arguments after the planes for a
+    FrameState, with the 4px edge limits of its MI dims."""
+    import numpy as np
+    from ffmpeg_tpu_torch.codecs.vp9.lf_tpu import _luts
+    lvl8 = np.zeros((fs.sb_rows * 8, fs.sb_cols * 8), np.int32)
+    lvl8[:fs.rows, :fs.cols] = fs.lf_lvl
+    pw, ph = fs.cols * 8, fs.rows * 8
+    return (fs.wd_v, fs.wd_h, fs.wd_v_uv, fs.wd_h_uv, lvl8,
+            *_luts(fs.h.sharpness), fs.sb_rows, fs.sb_cols,
+            (pw >> 2, ph >> 2, pw >> 3, ph >> 3))
+
+
+def vp9_window_profile(device: str = "cuda:0"):
+    """Phase 14's torch.profiler sessions, in a process of their own (see
+    audio_profile): one inter frame of the windowed decoder (a decoder
+    that has decoded frames 0-2 of the bench stream decodes frame 3 as a
+    window of one; frame 2's wall time is the call's time), and
+    loopfilter_wavefront on the loop-filter stream's keyframe (an
+    unprofiled call's wall time is the call's time).  Prints one JSON
+    line of summarize_launches' descriptions."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from ffmpeg_tpu_torch.codecs.vp9 import VP9Core, recon_tpu
+    from ffmpeg_tpu_torch.codecs.vp9.lf_wave import loopfilter_wavefront
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    from ffmpeg_tpu_torch.models.vp9_tpu import Vp9TpuDecoder
+    from ffmpeg_tpu_torch.testing import VP9_BENCH, VP9_LF
+    dev = torch.device(device)
+    _par, _tb, pkts = read_ivf(VP9_BENCH.read_bytes())
+    data = [p.data for p in pkts]
+    dec = Vp9TpuDecoder(device=dev)
+    dec.decode(data[:2])
+    t = time.perf_counter()
+    dec.decode(data[2:3])
+    inter_ms = (time.perf_counter() - t) * 1e3
+    out = {"inter": summarize_launches(*profile_device(
+        lambda: dec.decode(data[3:4]), warm=False, cpu=False), inter_ms)}
+    _lpar, _ltb, lpkts = read_ivf(VP9_LF.read_bytes())
+    cap = VP9Core(native=True, device=dev)
+    cap.capture = []
+    cap.decode_frame(lpkts[0].data)
+    _h, fs, rec = cap.capture[0]
+    planes = recon_tpu.reconstruct(fs, rec, dev)
+    args = _wave_args(fs)
+
+    def wave():
+        return loopfilter_wavefront(*planes, *args)
+    wave()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    wave()
+    torch.cuda.synchronize()
+    wave_ms = (time.perf_counter() - t) * 1e3
+    out["wavefront"] = summarize_launches(*profile_device(
+        wave, warm=False, cpu=False), wave_ms)
+    print(json.dumps(out), flush=True)
+
+
+def _vp9_window_profile_in_child(dev) -> dict:
+    r = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.vp9_window_profile({str(dev)!r})"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"phase 14's profile exited {r.returncode}: "
+                           f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def phase14_vp9_window(dev, card, lf_key) -> None:
+    """The windowed VP9 decoder (models/vp9_tpu.py) at full width on the
+    card: the 100-frame bench stream against the reference's hashes,
+    timed with the reference row's split; the checksum path; the
+    loop-filter stream against its golden; loopfilter_wavefront against
+    the host filter on that stream's keyframe (phase 13's); launches by
+    torch.profiler in a child process."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs.vp9.lf_wave import loopfilter_wavefront
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    from ffmpeg_tpu_torch.models.vp9_tpu import Vp9TpuDecoder, checksum
+    from ffmpeg_tpu_torch.testing import (VP9_BENCH, VP9_GOLDEN, VP9_LF,
+                                          VP9_LF_GOLDEN, plane_sha256)
+    t_phase = time.monotonic()
+    _par, _tb, pkts = read_ivf(VP9_BENCH.read_bytes())
+    data = [p.data for p in pkts]
+    gold = np.load(VP9_GOLDEN)["hashes"]
+    Vp9TpuDecoder(device=dev).decode(data[:2])      # warm: not in the pass
+
+    # the main path: one window of all 100 frames
+    dec = Vp9TpuDecoder(device=dev)
+    st = {}
+    zero_counts()
+    t = time.perf_counter()
+    frames = dec.decode(data, emit_planes=True, stats=st)
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    if len(frames) != 100 or st["frames"] != 100:
+        raise RuntimeError(f"the window gave {len(frames)} frames")
+    for i, f in enumerate(frames):
+        if any(pl.device != dev for pl in f):
+            raise RuntimeError(f"frame {i}'s planes are not on the card")
+        got = [plane_sha256(pl) for pl in f]
+        if got != list(gold[i]):
+            bad = [n for n, g, w in zip("yuv", got, gold[i]) if g != w]
+            raise RuntimeError(f"window frame {i} differs from the "
+                               f"reference's hashes in {bad}")
+    n = st["frames"]
+    print(f"phase 14 vp9 window [{card}]: 100 frames of 1920x1080 through "
+          f"Vp9TpuDecoder(device).decode(emit_planes=True) as one window, "
+          f"the DPB on the card, every frame's y/u/v equal to the "
+          f"reference's sha256 (checked after the window); {counts}; "
+          f"full_decode_fps {n / wall:.3f} ({wall * 1e3:.1f} ms for the "
+          f"window, wall, after a warm decode of frames 0-1); "
+          f"host_parse_ms_per_frame {st['parse_s'] / n * 1e3:.2f}, "
+          f"build_ms_per_frame {st['build_s'] / n * 1e3:.2f}, "
+          f"device_ms_per_frame {st['device_s'] / n * 1e3:.2f} (the "
+          f"host's launches included)", flush=True)
+
+    # the checksum path on frames 0-2
+    sums = Vp9TpuDecoder(device=dev).decode(data[:3])
+    want = [int(checksum(y, u)) for y, u, _v in frames[:3]]
+    if [int(c) for c in sums] != want:
+        raise RuntimeError(f"checksum path {[int(c) for c in sums]} != "
+                           f"{want} from the emitted planes")
+
+    # the loop-filter stream through the windowed decoder
+    _lpar, _ltb, lpkts = read_ivf(VP9_LF.read_bytes())
+    lgold = np.load(VP9_LF_GOLDEN)["lf"]
+    lst = {}
+    t = time.perf_counter()
+    lframes = Vp9TpuDecoder(device=dev).decode([p.data for p in lpkts],
+                                               emit_planes=True, stats=lst)
+    lf_wall = (time.perf_counter() - t) * 1e3
+    if len(lframes) != len(lgold):
+        raise RuntimeError(f"lf stream: {len(lframes)} frames")
+    for i, f in enumerate(lframes):
+        if [plane_sha256(pl) for pl in f] != list(lgold[i]):
+            raise RuntimeError(f"lf stream frame {i} differs from its "
+                               f"golden (windowed decoder)")
+
+    # the wavefront alone on the loop-filter stream's keyframe
+    fs = lf_key["fs"]
+    planes = [torch.from_numpy(p).to(dev) for p in lf_key["pre"]]
+    args = _wave_args(fs)
+    loopfilter_wavefront(*planes, *args)            # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = loopfilter_wavefront(*planes, *args)
+    torch.cuda.synchronize()
+    wave_ms = (time.perf_counter() - t) * 1e3
+    for name, o, a in zip("yuv", out, lf_key["host"]):
+        if not (o.device == dev
+                and np.array_equal(o.cpu().numpy().astype(np.uint8), a)):
+            raise RuntimeError(f"loopfilter_wavefront on the card differs "
+                               f"from lf.loopfilter_frame ({name})")
+    print(f"phase 14 vp9 window checks [{card}]: the checksum path "
+          f"(emit_planes=False) on frames 0-2 equal to the emitted planes' "
+          f"checksums; the loop-filter stream ({len(lpkts)} frames "
+          f"1920x1080) through the windowed decoder equal to its golden "
+          f"in {lf_wall:.1f} ms, wall (parse "
+          f"{lst['parse_s'] * 1e3:.1f}, build {lst['build_s'] * 1e3:.1f}, "
+          f"device {lst['device_s'] * 1e3:.1f}); loopfilter_wavefront on "
+          f"the card equal to lf.loopfilter_frame on its keyframe (level "
+          f"{fs.h.filter_level}, sharpness {fs.h.sharpness}): "
+          f"{wave_ms:.1f} ms, wall, against the host filter's "
+          f"{lf_key['host_ms']:.1f} ms and loopfilter_frame_tpu's "
+          f"{lf_key['tpu_ms']:.1f} ms (phase 13)", flush=True)
+
+    prof = _vp9_window_profile_in_child(dev)
+    print(f"phase 14 vp9 window profile [{card}]: inter frame 3 as a window "
+          f"of one: {prof['inter']}; loopfilter_wavefront on the "
+          f"loop-filter keyframe: {prof['wavefront']}", flush=True)
+    print(f"phase 14 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -125,15 +125,17 @@ def _params(wd, lvl, lim_lut, mblim_lut):
     return (mblim_lut[lvl], lim_lut[lvl], lvl >> 4, wd, (wd > 0) & (lvl > 0))
 
 
-def _plane_params(fs, lvl8, lim_lut, mblim_lut, device):
+def _plane_params(maps, lvl8, lim_lut, mblim_lut, device):
     """For each plane kind and direction, the per-lane parameter maps:
     rows of pixels x 4px edge columns for vertical edges, 4px edge rows x
     columns of pixels for horizontal ones (the reference's sb_body reads
-    the same values per edge: wd4 via _rep, lvl via y_v_lvl & co.)."""
-    t = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    the same values per edge: wd4 via _rep, lvl via y_v_lvl & co.).
+    maps = (wd_v, wd_h, wd_v_uv, wd_h_uv), FrameState's width maps."""
+    def t(a):
+        # widened on the device: the windowed decoder ships int8 maps
+        return torch.as_tensor(a, device=device).to(torch.int32)
     L = t(lvl8)
-    wd_v, wd_h = t(fs.wd_v), t(fs.wd_h)
-    wd_v_uv, wd_h_uv = t(fs.wd_v_uv), t(fs.wd_h_uv)
+    wd_v, wd_h, wd_v_uv, wd_h_uv = (t(m) for m in maps)
     luma_v = _params(wd_v.repeat_interleave(4, 0),
                      L.repeat_interleave(8, 0).repeat_interleave(2, 1),
                      lim_lut, mblim_lut)
@@ -147,13 +149,15 @@ def _plane_params(fs, lvl8, lim_lut, mblim_lut, device):
     return luma_v, luma_h, chroma_v, chroma_h
 
 
-def _alive(fs, lvl8):
+def _alive(maps, lvl8):
     """Host maps of the edges whose filter is on for some lane: luma and
-    chroma, vertical and horizontal, at 4px edge granularity."""
+    chroma, vertical and horizontal, at 4px edge granularity, from the
+    host width maps (wd_v, wd_h, wd_v_uv, wd_h_uv) and levels."""
+    wd_v, wd_h, wd_v_uv, wd_h_uv = maps
     lv = lvl8 > 0
     luma = np.repeat(np.repeat(lv, 2, 0), 2, 1)
-    return ((fs.wd_v > 0) & luma, (fs.wd_h > 0) & luma,
-            (fs.wd_v_uv > 0) & lv, (fs.wd_h_uv > 0) & lv)
+    return ((wd_v > 0) & luma, (wd_h > 0) & luma,
+            (wd_v_uv > 0) & lv, (wd_h_uv > 0) & lv)
 
 
 def sb_body(r, c, planes, params, alive, dims):
@@ -215,9 +219,10 @@ def loopfilter_frame_tpu(fs, device="cuda"):
     lvl8[:fs.rows, :fs.cols] = fs.lf_lvl
     pw, ph = fs.cols * 8, fs.rows * 8
     dims = (pw >> 2, ph >> 2, pw >> 3, ph >> 3)
-    params = _plane_params(fs, lvl8, torch.as_tensor(lim, device=device),
+    maps = (fs.wd_v, fs.wd_h, fs.wd_v_uv, fs.wd_h_uv)
+    params = _plane_params(maps, lvl8, torch.as_tensor(lim, device=device),
                            torch.as_tensor(mblim, device=device), device)
-    alive = _alive(fs, lvl8)
+    alive = _alive(maps, lvl8)
     for r in range(fs.sb_rows):
         for c in range(fs.sb_cols):
             sb_body(r, c, planes, params, alive, dims)

@@ -37,8 +37,13 @@ the port runs eagerly:
    int32 and one int16 buffer), and the decoder's planes come back in
    three.
 
-The reference's slice-gather MC (`_mc_tiles_sliced`, :125) serves only
-its windowed decoder (models/vp9_tpu.py), which is not ported here.
+The reference's slice-gather MC (`_mc_tiles_sliced`, :125, and the
+edge-padded DPB of `_recon_frame`'s mc_pad branch, :380-410) is not
+ported: it exists because dynamic_slice beats an element gather on a
+TPU, and here both are one index gather.  The windowed decoder
+(models/vp9_tpu.py) runs `_mc_tiles` on the DPB it keeps on the device,
+as the per-frame path runs it on the uploaded one
+(tools/vp9_mc_ab_torch.py times the two forms).
 """
 
 from __future__ import annotations

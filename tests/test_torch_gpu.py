@@ -362,3 +362,59 @@ def test_vp9_loop_filter_on_card_matches_host(cuda):
                            out):
             np.testing.assert_array_equal(b, a)
             assert t.is_cuda and np.array_equal(t.cpu().numpy(), a)
+
+
+def test_vp9_wavefront_on_card_matches_cpu_and_host(cuda):
+    """loopfilter_wavefront on the card against its CPU run and the
+    host's lf.loopfilter_frame, on the pre-filter state of each frame of
+    the small crafted stream (loop filter on)."""
+    import copy
+    from ffmpeg_tpu_torch.codecs.vp9 import VP9Core, lf, recon_tpu
+    from ffmpeg_tpu_torch.codecs.vp9.lf_tpu import _luts
+    from ffmpeg_tpu_torch.codecs.vp9.lf_wave import loopfilter_wavefront
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    _par, _tb, pkts = read_ivf(fx.VP9_SMALL.read_bytes())
+    core = VP9Core(native=True, device=cuda)
+    core.capture = []
+    for p in pkts:
+        core.decode_frame(p.data)
+        h, fs, rec = core.capture[-1]
+        recon_tpu.reconstruct(fs, rec, cuda)
+        lvl8 = np.zeros((fs.sb_rows * 8, fs.sb_cols * 8), np.int32)
+        lvl8[:fs.rows, :fs.cols] = fs.lf_lvl
+        pw, ph = fs.cols * 8, fs.rows * 8
+        args = (fs.wd_v, fs.wd_h, fs.wd_v_uv, fs.wd_h_uv, lvl8,
+                *_luts(h.sharpness), fs.sb_rows, fs.sb_cols,
+                (pw >> 2, ph >> 2, pw >> 3, ph >> 3))
+        planes = [torch.from_numpy(a.copy()) for a in (fs.y, fs.u, fs.v)]
+        got = loopfilter_wavefront(*(a.to(cuda) for a in planes), *args)
+        want = loopfilter_wavefront(*planes, *args)
+        host = copy.copy(fs)
+        host.y, host.u, host.v = fs.y.copy(), fs.u.copy(), fs.v.copy()
+        lf.loopfilter_frame(host)
+        for g, w, a in zip(got, want, (host.y, host.u, host.v)):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+            np.testing.assert_array_equal(w.numpy().astype(np.uint8), a)
+        fs.y[:], fs.u[:], fs.v[:] = host.y, host.u, host.v
+
+
+def test_vp9_windowed_decoder_on_card_matches_cpu_and_golden(cuda):
+    """Vp9TpuDecoder on the card over the small crafted stream: planes on
+    the card, equal to its CPU run and to the reference's hashes; the
+    checksum path equal to the CPU's."""
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    from ffmpeg_tpu_torch.models.vp9_tpu import Vp9TpuDecoder
+    _par, _tb, pkts = read_ivf(fx.VP9_SMALL.read_bytes())
+    data = [p.data for p in pkts]
+    gold = np.load(fx.VP9_LF_GOLDEN)["small"]
+    got = Vp9TpuDecoder(device=cuda).decode(data, emit_planes=True)
+    want = Vp9TpuDecoder(device="cpu").decode(data, emit_planes=True)
+    assert len(got) == len(want) == len(gold)
+    for g, w, h in zip(got, want, gold):
+        assert all(p.is_cuda for p in g)
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)
+        assert [fx.plane_sha256(p) for p in g] == list(h)
+    sums = Vp9TpuDecoder(device=cuda).decode(data)
+    assert [int(s) for s in sums] == [
+        int(s) for s in Vp9TpuDecoder(device="cpu").decode(data)]

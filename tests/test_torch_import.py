@@ -12,7 +12,9 @@ the audio frontend: the committed ADTS clip's first packets through the
 demuxer, decode_frames, the resampler and the audio graph, and tx; then
 the VP9 decoder: the committed small crafted stream through the IVF
 reader and open_decoder("vp9") on both of its device paths, against the
-reference's hashes, and the device loop filter; all on the CPU."""
+reference's hashes, and the device loop filter; then the windowed VP9
+decoder on the same stream against the same hashes, and the wavefront
+loop filter; all on the CPU."""
 
 import re
 import subprocess
@@ -128,6 +130,19 @@ vcore.decode_frame(vpk[0].data)
 _h, vfs, vrec = vcore.capture[0]
 recon_tpu.reconstruct(vfs, vrec, "cpu")
 assert loopfilter_frame_tpu(vfs, "cpu")[0].shape == (128, 128)
+from ffmpeg_tpu_torch.codecs.vp9.lf_tpu import _luts
+from ffmpeg_tpu_torch.codecs.vp9.lf_wave import loopfilter_wavefront
+from ffmpeg_tpu_torch.models.vp9_tpu import Vp9TpuDecoder
+wfr = Vp9TpuDecoder(device="cpu").decode([p.data for p in vpk],
+                                         emit_planes=True)
+assert [[plane_sha256(p) for p in f] for f in wfr] == vgold.tolist()
+lvl8 = np.zeros((vfs.sb_rows * 8, vfs.sb_cols * 8), np.int32)
+lvl8[:vfs.rows, :vfs.cols] = vfs.lf_lvl
+wy, _wu, _wv = loopfilter_wavefront(
+    *(torch.from_numpy(p) for p in (vfs.y, vfs.u, vfs.v)), vfs.wd_v,
+    vfs.wd_h, vfs.wd_v_uv, vfs.wd_h_uv, lvl8, *_luts(_h.sharpness), vfs.sb_rows, vfs.sb_cols,
+    (32, 32, 16, 16))
+assert wy.shape == (128, 128) and wy.dtype == torch.int32
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
              or m.startswith(("jax.", "ffmpeg_tpu.")))
@@ -153,7 +168,9 @@ def test_port_sources_never_import_jax():
              REPO / "chip_smoke.py",
              *(REPO / "tools" / n for n in ("profile_torch_flagship.py",
                                             "k1_breakdown_torch.py",
-                                            "kernel_ab_torch.py"))]
+                                            "kernel_ab_torch.py",
+                                            "vp9_window_ab_torch.py",
+                                            "vp9_mc_ab_torch.py"))]
     hits = [str(p.relative_to(REPO)) for p in files
             if pat.search(p.read_text())]
     assert not hits, hits
