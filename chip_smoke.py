@@ -17,10 +17,14 @@ Drives the port's paths through their user entry points at full size:
   AAC-LC) through the ADTS demuxer, CodecContext.open_decoder(...)
   .decode_frames and SwrContext(48000 stereo -> 16000 mono fltp), and
   the graph "aresample=16000,aformat=channel_layouts=mono";
-- the VP9 decoder: the committed 100-frame 1920x1080 stream through
-  CodecContext.open_decoder("vp9") on the card, and through the windowed
-  decoder Vp9TpuDecoder (models/vp9_tpu.py: the DPB on the card, the
-  wavefront loop filter).
+- the VP9 decoder: the first 30 frames of the committed 100-frame
+  1920x1080 stream through CodecContext.open_decoder("vp9") on the card,
+  and through the windowed decoder Vp9TpuDecoder (models/vp9_tpu.py: the
+  DPB on the card, the wavefront loop filter);
+- the HEVC decoder: the committed 3-frame 1920x1080 bench stream and a
+  1920x1080 stream with SAO and deblocking on through
+  CodecContext.open_decoder("hevc") on the card (the CABAC parse on the
+  host, recon_tpu and filter_tpu on the card, the DPB on the card).
 
 Phases, one line each:
 
@@ -98,7 +102,8 @@ Phases, one line each:
    copies; torch.profiler over one pass (kernels, copies, device busy
    share) and over the IMDCT and the FIR alone (their CUDA kernels).
 13. the VP9 decoder through CodecContext.open_decoder("vp9") on the
-   card: all 100 frames of tests/data/bench/vp9_1080p_100.ivf (1920x1080;
+   card: the first VP9_FRAMES (30) frames of
+   tests/data/bench/vp9_1080p_100.ivf (1920x1080;
    C++ tile parse, reconstruction on the card, host loop filter) once,
    each frame's planes against the reference's committed sha256, failing
    at the first mismatch; frames/s over that pass, and the split of the
@@ -111,9 +116,9 @@ Phases, one line each:
    lf.loopfilter_frame on its keyframe; torch.profiler, in a child
    process, over the keyframe and the first inter frame (kernels and
    copies, the device's busy share).
-14. the windowed VP9 decoder, Vp9TpuDecoder(device).decode: all 100
-   frames of the bench stream as one window with emit_planes=True (after
-   a warm decode of frames 0-1), every frame's planes on the card and
+14. the windowed VP9 decoder, Vp9TpuDecoder(device).decode: the same
+   VP9_FRAMES frames of the bench stream as one window with
+   emit_planes=True (after a warm decode of frames 0-1), every frame's planes on the card and
    against the reference's sha256 after the window; full_decode_fps and
    the host_parse/build/device ms per frame that benchrows.recon_row_vp9
    reports; the checksum path (emit_planes=False) on frames 0-2 against
@@ -122,7 +127,22 @@ Phases, one line each:
    against the host filter's planes of phase 13, timed; torch.profiler,
    in a child process, over one inter frame as a window and over the
    wavefront on that keyframe (kernels, launch calls, busy share).
-Phases 9-14 run PyTorch only: K1 and K2 are not on their paths, and
+15. the HEVC decoder, CodecContext.open_decoder("hevc") on the card: the
+   3 pictures (I P P) of tests/data/bench/hevc_1080p.hevc (1920x1080,
+   deblock and SAO off), one packet each, against the reference's
+   committed sha256 (tests/data/port/hevc_1080p_golden.npz), after a warm
+   decode of the small crafted stream; full-decode frames/s and each
+   picture's split into host parse, argument build, h2d and the device
+   stages (residual, inter, intra levels, deblock, SAO; CUDA events);
+   the device replay of the 3 recorded pictures with their references
+   staged (recon_tpu.prepare, as benchrows.recon_row_hevc replays the
+   reference's): device_recon_fps, each replay equal to its picture; the
+   crafted 1920x1080 IDR + P stream with SAO and deblocking against its
+   golden, and filters_tpu on its keyframe against the host filter.py,
+   both timed; torch.profiler, in a child process, over the keyframe
+   and the first P frame (kernels, launch calls, the device's busy
+   share of the picture's wall time and of its device stage).
+Phases 9-15 run PyTorch only: K1 and K2 are not on their paths, and
 each prints their launch counts over its run (0).
 
 Then a JSON line with each kernel's launches, error, time, plain time
@@ -157,6 +177,10 @@ K1_REPLACES = "ffmpeg_tpu/ops/huffman.py:446"
 K2_SOURCE = "ffmpeg_tpu_torch/csrc/sad_cost_volume.cu"
 K2_REPLACES = "ffmpeg_tpu/ops/me.py:79"
 ENC_W, ENC_H = 1920, 1080
+# phases 13-14 decode the VP9 bench stream's first 30 of its 100 frames
+# (the keyframe and 29 inter frames), which keeps the whole script
+# within half of its time limit with phase 15
+VP9_FRAMES = 30
 HBM_BYTES_PER_S = 3.35e12
 INT32_INSTR_PER_S = 132 * 64 * 1.98e9
 # phase 7 bounds against the reference's committed encode
@@ -338,6 +362,7 @@ def main() -> int:
     phase12_audio(dev, card)
     lf_key = phase13_vp9(dev, card)
     phase14_vp9_window(dev, card, lf_key)
+    phase15_hevc(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "jpeg_scan_decode_packed", "route": "cuda",
@@ -1163,9 +1188,10 @@ def _vp9_profile_in_child(kf_ms: float, inter_ms: float, dev) -> dict:
 
 
 def phase13_vp9(dev, card) -> dict:
-    """The VP9 decoder at full width on the card: the 100-frame bench
-    stream against the reference's hashes, timed and split; frames 0-1
-    against the port's CPU run; the loop-filter stream against its
+    """The VP9 decoder at full width on the card: the bench stream's
+    first VP9_FRAMES frames against the reference's hashes, timed and
+    split; frames 0-1 against the port's CPU run; the loop-filter
+    stream against its
     golden and loopfilter_frame_tpu against the host filter; launches
     by torch.profiler in a child process.  Returns the loop-filter
     stream's keyframe for phase 14: its FrameState, pre-filter planes,
@@ -1190,13 +1216,13 @@ def phase13_vp9(dev, card) -> dict:
                            f"{par.width}x{par.height}")
     vp9_decode(pkts[:2], dev)                     # warm: not in the pass
 
-    # the main path: all 100 frames once, each checked
+    # the main path: the first VP9_FRAMES frames once, each checked
     dec = CodecContext.open_decoder(par, device=dev)
     core = dec.codec.core
     core.stats = []
     zero_counts()
     walls = []
-    for i, p in enumerate(pkts):
+    for i, p in enumerate(pkts[:VP9_FRAMES]):
         t = time.perf_counter()
         dec.send_packet(p)
         f = dec.receive_frame()
@@ -1216,16 +1242,18 @@ def phase13_vp9(dev, card) -> dict:
     torch.cuda.synchronize()
     counts = read_counts()
     stats = core.stats
-    if len(stats) != 100 or not stats[0]["keyframe"] or any(
+    nf = VP9_FRAMES
+    if len(stats) != nf or not stats[0]["keyframe"] or any(
             s["keyframe"] for s in stats[1:]):
-        raise RuntimeError("expected one keyframe then 99 inter frames")
+        raise RuntimeError(f"expected one keyframe then {nf - 1} inter "
+                           f"frames")
     fps = len(walls) * 1e3 / sum(walls)
-    inter = sorted(range(1, 100), key=lambda k: stats[k]["total"])
+    inter = sorted(range(1, nf), key=lambda k: stats[k]["total"])
     med = inter[len(inter) // 2]
     dev_inter = [sum(stats[k]["device"][n] for n in ("mc", "residual",
                                                      "intra"))
-                 for k in range(1, 100)]
-    print(f"phase 13 vp9 decode [{card}]: 100 frames of 1920x1080 "
+                 for k in range(1, nf)]
+    print(f"phase 13 vp9 decode [{card}]: the first {nf} frames of 1920x1080 "
           f"through open_decoder('vp9') on the card, every frame's y/u/v "
           f"equal to the reference's sha256; {counts}; {fps:.3f} frames/s "
           f"({sum(walls):.1f} ms for the pass, wall, after a warm decode "
@@ -1236,7 +1264,7 @@ def phase13_vp9(dev, card) -> dict:
           f"{_vp9_split(stats[0])}; median inter frame (frame {med}, "
           f"{stats[med]['levels']} levels) "
           f"{_vp9_split(stats[med])}; "
-          f"device reconstruction of the 99 inter frames: median "
+          f"device reconstruction of the {nf - 1} inter frames: median "
           f"{statistics.median(dev_inter):.2f} ms, sum "
           f"{sum(dev_inter):.1f} ms", flush=True)
 
@@ -1372,7 +1400,8 @@ def _vp9_window_profile_in_child(dev) -> dict:
 
 def phase14_vp9_window(dev, card, lf_key) -> None:
     """The windowed VP9 decoder (models/vp9_tpu.py) at full width on the
-    card: the 100-frame bench stream against the reference's hashes,
+    card: the bench stream's first VP9_FRAMES frames against the
+    reference's hashes,
     timed with the reference row's split; the checksum path; the
     loop-filter stream against its golden; loopfilter_wavefront against
     the host filter on that stream's keyframe (phase 13's); launches by
@@ -1390,15 +1419,15 @@ def phase14_vp9_window(dev, card, lf_key) -> None:
     gold = np.load(VP9_GOLDEN)["hashes"]
     Vp9TpuDecoder(device=dev).decode(data[:2])      # warm: not in the pass
 
-    # the main path: one window of all 100 frames
+    # the main path: one window of the first VP9_FRAMES frames
     dec = Vp9TpuDecoder(device=dev)
     st = {}
     zero_counts()
     t = time.perf_counter()
-    frames = dec.decode(data, emit_planes=True, stats=st)
+    frames = dec.decode(data[:VP9_FRAMES], emit_planes=True, stats=st)
     wall = time.perf_counter() - t
     counts = read_counts()
-    if len(frames) != 100 or st["frames"] != 100:
+    if len(frames) != VP9_FRAMES or st["frames"] != VP9_FRAMES:
         raise RuntimeError(f"the window gave {len(frames)} frames")
     for i, f in enumerate(frames):
         if any(pl.device != dev for pl in f):
@@ -1409,7 +1438,8 @@ def phase14_vp9_window(dev, card, lf_key) -> None:
             raise RuntimeError(f"window frame {i} differs from the "
                                f"reference's hashes in {bad}")
     n = st["frames"]
-    print(f"phase 14 vp9 window [{card}]: 100 frames of 1920x1080 through "
+    print(f"phase 14 vp9 window [{card}]: the first {VP9_FRAMES} frames of "
+          f"1920x1080 through "
           f"Vp9TpuDecoder(device).decode(emit_planes=True) as one window, "
           f"the DPB on the card, every frame's y/u/v equal to the "
           f"reference's sha256 (checked after the window); {counts}; "
@@ -1476,6 +1506,202 @@ def phase14_vp9_window(dev, card, lf_key) -> None:
           f"loop-filter keyframe: {prof['wavefront']}", flush=True)
     print(f"phase 14 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
+
+def _hevc_split(st: dict) -> str:
+    """One picture's split from HevcDecoder.stats."""
+    h, d = st["host"], st["device"]
+    return (f"host parse {h['parse']:.1f} ms, argument build "
+            f"{h['build']:.2f}, h2d {h['h2d']:.3f} "
+            f"({st['h2d_bytes'] / 1e6:.2f} MB), device "
+            f"{sum(d.values()):.2f} (residual {d['residual']:.3f}, inter "
+            f"{d['inter']:.3f}, intra levels {d['intra']:.2f}, deblock "
+            f"{d['deblock']:.3f}, SAO {d['sao']:.3f}; the host queued it in "
+            f"{h['queue']:.2f} and waited {h['wait']:.2f})")
+
+
+def _hevc_frame_ms(st: dict) -> float:
+    """A picture's wall time on the device path: its host stages (the
+    parse, the build, the copies, the launches) and the wait for the
+    device."""
+    return sum(st["host"].values())
+
+
+def hevc_profile(walls: list, device_ms: list, device: str = "cuda:0"):
+    """Phase 15's torch.profiler sessions, in a process of their own (see
+    audio_profile): after a warm decode of the small crafted stream, a
+    fresh decoder's bench keyframe and first P frame, each profiled
+    alone, the host's CABAC parse included.  Prints one JSON line of
+    summarize_launches' descriptions against the pictures' wall times
+    in the main pass (`walls`), with the device's busy time as a share
+    of each picture's device stage there (`device_ms`)."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.core.packet import Packet
+    from ffmpeg_tpu_torch.io.stream import CodecParameters
+    from ffmpeg_tpu_torch.testing import (HEVC_BENCH, HEVC_SMALL,
+                                          hevc_decode, hevc_pictures)
+    dev = torch.device(device)
+    hevc_decode(HEVC_SMALL.read_bytes(), dev)
+    pics = hevc_pictures(HEVC_BENCH.read_bytes())
+    dec = CodecContext.open_decoder(CodecParameters(codec_id="hevc"),
+                                    device=dev).codec
+    out = {}
+    for name, p, ms, dms in zip(("keyframe", "p"), pics, walls, device_ms):
+        device, api = profile_device(lambda p=p: dec.decode(Packet(data=p)),
+                                     warm=False, cpu=False)
+        busy = sum(us for _, us in device) / 1e3
+        out[name] = (f"{summarize_launches(device, api, ms)}; busy "
+                     f"{busy / dms:.1%} of its device stage ({dms:.2f} ms)")
+    print(json.dumps(out), flush=True)
+
+
+def _hevc_profile_in_child(walls: list, device_ms: list, dev) -> dict:
+    r = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.hevc_profile("
+         f"{walls!r}, {device_ms!r}, {str(dev)!r})"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"phase 15's profile exited {r.returncode}: "
+                           f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _hevc_open(dev):
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.io.stream import CodecParameters
+    ctx = CodecContext.open_decoder(CodecParameters(codec_id="hevc"),
+                                    device=dev)
+    ctx.codec.stats, ctx.codec.capture = [], []
+    return ctx
+
+
+def _hevc_check(frames, gold, dev, what):
+    from ffmpeg_tpu_torch.testing import plane_sha256
+    if len(frames) != len(gold):
+        raise RuntimeError(f"{what}: {len(frames)} frames, not {len(gold)}")
+    for i, f in enumerate(frames):
+        if (f.width, f.height) != (1920, 1080) or any(
+                pl.device != dev for pl in f.planes):
+            where = [str(p.device) for p in f.planes]
+            raise RuntimeError(f"{what} frame {i}: {f.width}x{f.height}, "
+                               f"planes on {where}")
+        got = [plane_sha256(pl) for pl in f.planes]
+        if got != list(gold[i]):
+            bad = [n for n, g, w in zip("yuv", got, gold[i]) if g != w]
+            raise RuntimeError(f"{what} frame {i} differs from the "
+                               f"reference's hashes in {bad}")
+
+
+def phase15_hevc(dev, card) -> None:
+    """The HEVC decoder at full width on the card: the 3-frame bench
+    stream through open_decoder("hevc") against the reference's hashes,
+    timed with each picture's split into host parse and device; the
+    device replay of its 3 recorded pictures (benchrows.recon_row_hevc's
+    device_recon_fps); the crafted SAO + deblock stream against its
+    golden, and filters_tpu on its keyframe against the host filter.py,
+    timed; launches by torch.profiler in a child process."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs.hevc import filter as host_filter
+    from ffmpeg_tpu_torch.codecs.hevc import filter_tpu, recon_tpu
+    from ffmpeg_tpu_torch.core.packet import Packet
+    from ffmpeg_tpu_torch.testing import (HEVC_BENCH, HEVC_GOLDEN, HEVC_SAO,
+                                          HEVC_SMALL, hevc_decode,
+                                          hevc_pictures)
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    t_phase = time.monotonic()
+    gold = np.load(HEVC_GOLDEN)
+    hevc_decode(HEVC_SMALL.read_bytes(), dev)      # warm: not in the pass
+
+    # the main path: the bench stream's 3 pictures, one packet each
+    pics = hevc_pictures(HEVC_BENCH.read_bytes())
+    ctx = _hevc_open(dev)
+    zero_counts()
+    t = time.perf_counter()
+    frames = ctx.decode_all([Packet(data=p, pts=i)
+                             for i, p in enumerate(pics)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    _hevc_check(frames, gold["bench"], dev, "bench stream")
+    stats = ctx.codec.stats
+    if [s["slice_type"] for s in stats] != [2, 1, 1]:
+        raise RuntimeError(f"expected I P P, got slice types "
+                           f"{[s['slice_type'] for s in stats]}")
+    parse = [s["host"]["parse"] for s in stats]
+    devms = [sum(s["device"].values()) for s in stats]
+    print(f"phase 15 hevc decode [{card}]: 3 pictures of 1920x1080 "
+          f"through open_decoder('hevc') on the card (CABAC parse on the "
+          f"host, reconstruction and filters on the card, the DPB on the "
+          f"card), every picture's y/u/v equal to the reference's sha256; "
+          f"{counts}; full decode {3 / wall:.3f} frames/s ({wall * 1e3:.1f} "
+          f"ms, wall, after a warm decode of the small crafted stream): "
+          f"host parse {sum(parse) / 3:.1f} ms/frame, device "
+          f"{sum(devms) / 3:.1f} ms/frame; keyframe "
+          f"({stats[0]['levels']} intra levels) {_hevc_split(stats[0])}; P "
+          f"frame 1 ({stats[1]['levels']} levels) {_hevc_split(stats[1])}; "
+          f"P frame 2 ({stats[2]['levels']} levels) "
+          f"{_hevc_split(stats[2])}", flush=True)
+
+    # the device replay of the recorded pictures, references staged
+    # (benchrows.recon_row_hevc): the DPB's tensors are on the card
+    prepared = [recon_tpu.prepare(d, r, dev) for d, r in ctx.codec.capture]
+
+    def replay():
+        return [fn(a) for fn, a in prepared]
+    for i, planes in enumerate(replay()):
+        # deblock and SAO are off in this stream: the reconstruction is
+        # the picture
+        if not all(torch.equal(p.to(torch.uint8), q)
+                   for p, q in zip(planes, frames[i].planes)):
+            raise RuntimeError(f"replay of picture {i} differs from the "
+                               f"decoded picture")
+    replay_ms = cuda_ms(replay, 2)
+    print(f"phase 15 hevc replay [{card}]: device_recon_fps "
+          f"{3e3 / replay_ms:.3f} ({replay_ms:.1f} ms per replay of the 3 "
+          f"recorded pictures, CUDA events, mean of 2 after a warm one; "
+          f"equal to the decoded pictures)", flush=True)
+
+    # the crafted SAO + deblock stream, and filters_tpu on its keyframe
+    sctx = _hevc_open(dev)
+    t = time.perf_counter()
+    spics = hevc_pictures(HEVC_SAO.read_bytes())
+    sframes = sctx.decode_all([Packet(data=p, pts=i)
+                               for i, p in enumerate(spics)])
+    torch.cuda.synchronize()
+    swall = (time.perf_counter() - t) * 1e3
+    _hevc_check(sframes, gold["sao_deblock"], dev, "SAO + deblock stream")
+    sst = sctx.codec.stats
+    dec0, rec0 = sctx.codec.capture[0]
+    pre = recon_tpu.reconstruct(dec0, rec0, dev)
+    filt_ms = cuda_ms(lambda: filter_tpu.filters_tpu(dec0, *pre), 3)
+    out = filter_tpu.filters_tpu(dec0, *pre)
+    dec0.y[:], dec0.u[:], dec0.v[:] = (p.cpu().numpy() for p in pre)
+    t = time.perf_counter()
+    host_filter.deblock_frame(dec0)
+    host_filter.sao_frame(dec0)
+    host_ms = (time.perf_counter() - t) * 1e3
+    for name, o, a, f in zip("yuv", out, (dec0.y, dec0.u, dec0.v),
+                             sframes[0].planes):
+        if not (np.array_equal(o.cpu().numpy(), a) and torch.equal(o, f)):
+            raise RuntimeError(f"filters_tpu on the card differs from the "
+                               f"host filter.py ({name})")
+    print(f"phase 15 hevc filters [{card}]: the crafted SAO + deblock "
+          f"stream (IDR + P, 1920x1080) equal to its golden in "
+          f"{swall:.1f} ms, wall (keyframe {_hevc_split(sst[0])}; P frame "
+          f"{_hevc_split(sst[1])}); filters_tpu on the card equal to the "
+          f"host deblock_frame + sao_frame on its keyframe: {filt_ms:.3f} "
+          f"ms (CUDA events, mean of 3) against {host_ms:.1f} ms on the "
+          f"host", flush=True)
+
+    prof = _hevc_profile_in_child([_hevc_frame_ms(st) for st in stats[:2]],
+                                  devms[:2], dev)
+    print(f"phase 15 hevc profile [{card}]: keyframe: {prof['keyframe']}; "
+          f"P frame 1: {prof['p']}", flush=True)
+    print(f"phase 15 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+
 
 if __name__ == "__main__":
     sys.exit(main())

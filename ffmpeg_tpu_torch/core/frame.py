@@ -157,6 +157,12 @@ class Frame:
         numpy."""
         f = self.clone_props()
         f.planes = [host_array(p) for p in self.planes]
+        desc = self.pix_desc
+        if desc is not None and desc.component_dtype() == np.uint16:
+            # 10-16 bit planes live on the device as int16 (torch has no
+            # general uint16); the host gets the format's type
+            f.planes = [a.astype(np.uint16) if a.dtype == np.int16 else a
+                        for a in f.planes]
         return f
 
     def clone_props(self) -> "Frame":

@@ -27,9 +27,9 @@ step eagerly (`_step`):
    recon_tpu), and only after the loop filter are the flagged slots
    overwritten, in stream order, so a frame that refreshes the slot its
    own MC reads (LAST, often) reads the old picture;
- * the DPB lives on the instance, not on one decode() call: a stream cut
-   into windows decodes as it does whole.  The reference starts each
-   call from a zero DPB while its parse state carries on.
+ * as the reference's, each decode() call starts from a zero DPB while
+   the parse state (probability contexts, the previous frame's MVs)
+   carries on: a window should open with a keyframe.
 
 The output is one entry per parsed frame, shown or not, and none for a
 show-existing frame, as the reference's.  Vp9TpuDecoder is not an
@@ -105,11 +105,6 @@ class Vp9TpuDecoder:
             geom = RT._geom(fs)
             if self.geom is None:
                 self.geom = geom
-                H, W, Hc, Wc, _dw, _dh = geom
-                self.dpb_y = torch.zeros((8, H, W), dtype=torch.uint8,
-                                         device=self.device)
-                self.dpb_c = torch.zeros((8, 2, Hc, Wc), dtype=torch.uint8,
-                                         device=self.device)
             elif geom != self.geom:
                 raise NotSupported(
                     f"vp9 windowed decoder: a {h.width}x{h.height} frame "
@@ -143,6 +138,12 @@ class Vp9TpuDecoder:
         if not caps:
             return []
         self._check_geometry(caps)
+        # a zero 8-slot DPB for each call, as the reference's (:208-209)
+        H, W, Hc, Wc, _dw, _dh = self.geom
+        self.dpb_y = torch.zeros((8, H, W), dtype=torch.uint8,
+                                 device=self.device)
+        self.dpb_c = torch.zeros((8, 2, Hc, Wc), dtype=torch.uint8,
+                                 device=self.device)
 
         # exact lists per frame: no window_shapes (:102) and no shape
         # groups (:180), which exist so that one compiled program serves

@@ -25,7 +25,12 @@ both check the port against the JAX reference's committed answers:
   0-2 (`VP9_GOLDEN`), a committed 1920x1080 stream with the loop filter
   on and a small crafted one, with the reference's hashes
   (`VP9_LF_GOLDEN`; all written by tools/gen_torch_vp9_fixture.py), and
-  the decode itself (`vp9_decode`).
+  the decode itself (`vp9_decode`);
+- the HEVC decoder: the committed 3-frame 1920x1080 bench stream, a
+  committed 1920x1080 stream with SAO and deblocking on and a small
+  crafted one, with the sha256 of every plane of the reference's host
+  decode (`HEVC_GOLDEN`, written by tools/gen_torch_hevc_fixture.py),
+  and the decode itself (`hevc_decode`, `hevc_pictures`).
 
 They live here so that each check reads them from the package and not
 from the other.
@@ -71,6 +76,13 @@ VP9_GOLDEN = DATA / "vp9_1080p_100_golden.npz"
 VP9_LF = DATA / "vp9_1080p_lf.ivf"
 VP9_SMALL = DATA / "vp9_crafted_96x72.ivf"
 VP9_LF_GOLDEN = DATA / "vp9_lf_golden.npz"
+
+# The HEVC decoder (benchrows.recon_row_hevc's stream, deblock and SAO
+# off; a crafted 1080p IDR + P with both on; a small crafted I P B GOP).
+HEVC_BENCH = DATA.parent / "bench" / "hevc_1080p.hevc"
+HEVC_SAO = DATA / "hevc_1080p_sao_deblock.hevc"
+HEVC_SMALL = DATA / "hevc_crafted_64x64.hevc"
+HEVC_GOLDEN = DATA / "hevc_1080p_golden.npz"
 
 
 def packed_cap(pkts) -> int:
@@ -209,3 +221,34 @@ def vp9_golden_planes(gold, i: int) -> list:
     for k in range(1, i + 1):
         planes = [p + gold[f"{n}{k}"] for n, p in zip("yuv", planes)]
     return planes
+
+
+def hevc_decode(data: bytes, device, options=None, stats=None):
+    """Decode an Annex B HEVC stream through
+    CodecContext.open_decoder("hevc") on `device`, drained; returns the
+    frames in output order.  stats: a list that gets the decoder's
+    per-picture split (device path)."""
+    from .codecs import CodecContext
+    from .core.packet import Packet
+    from .io.stream import CodecParameters, MediaType
+    dec = CodecContext.open_decoder(
+        CodecParameters(codec_type=MediaType.VIDEO, codec_id="hevc"),
+        options, device=device)
+    dec.codec.stats = stats
+    return dec.decode_all([Packet(data=data, pts=0)])
+
+
+def hevc_pictures(data: bytes) -> list:
+    """An Annex B HEVC stream as one packet per picture (one slice per
+    picture, as the decoder takes them): the parameter sets and other
+    non-slice NAL units go with the next slice."""
+    from .codecs.h264.nal import split_annexb
+    pkts, head = [], b""
+    for u in split_annexb(data):
+        nal = b"\x00\x00\x00\x01" + u
+        if (u[0] >> 1) & 0x3F < 32:          # VCL NAL unit types
+            pkts.append(head + nal)
+            head = b""
+        else:
+            head += nal
+    return pkts

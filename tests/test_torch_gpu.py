@@ -418,3 +418,50 @@ def test_vp9_windowed_decoder_on_card_matches_cpu_and_golden(cuda):
     sums = Vp9TpuDecoder(device=cuda).decode(data)
     assert [int(s) for s in sums] == [
         int(s) for s in Vp9TpuDecoder(device="cpu").decode(data)]
+
+
+@pytest.mark.parametrize("bd", [8, 10, 12])
+def test_hevc_residual_transform_on_card_matches_cpu(cuda, bd):
+    """recon_tpu's float64 transform products on the card, at every TU
+    class and transform kind, extreme coefficients included, equal to
+    the CPU's (the reference's int32 matmul has no CUDA counterpart)."""
+    from ffmpeg_tpu_torch.codecs.hevc import recon_tpu
+    from ffmpeg_tpu_torch.codecs.hevc.recorder import K_DST, K_IDCT, K_TSKIP
+    rng = np.random.default_rng(bd)
+    for is_luma, n in recon_tpu._CLASSES:
+        coef = rng.integers(-32768, 32768, (64, n, n)).astype(np.int32)
+        coef[0], coef[1] = 32767, -32768
+        kinds = [K_IDCT] + ([K_DST] if is_luma and n == 4 else []) \
+            + ([K_TSKIP] if n == 4 else [])
+        kind = rng.choice(kinds, 64).astype(np.int32)
+        args = (n, is_luma, bd, frozenset(kinds))
+        want = recon_tpu._residual_blocks(torch.from_numpy(coef),
+                                          torch.from_numpy(kind), *args)
+        got = recon_tpu._residual_blocks(torch.from_numpy(coef).to(cuda),
+                                         torch.from_numpy(kind).to(cuda),
+                                         *args)
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_hevc_decoder_on_card_matches_cpu_and_golden(cuda):
+    """The small crafted I P B stream (SAO, deblocking, reordering) on
+    both paths, and frames 0-1 of the 1920x1080 bench stream, through
+    open_decoder("hevc") on the card: planes on the card, equal to the
+    CPU run and to the reference's hashes."""
+    gold = np.load(fx.HEVC_GOLDEN)
+    data = fx.HEVC_SMALL.read_bytes()
+    want = fx.hevc_decode(data, "cpu")
+    for opts in (None, {"device_recon": False}):
+        got = fx.hevc_decode(data, cuda, opts)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert all(p.is_cuda for p in g.planes)
+            assert all(torch.equal(a.cpu(), b)
+                       for a, b in zip(g.planes, w.planes))
+        assert [[fx.plane_sha256(p) for p in f.planes] for f in got] == \
+            gold["small"].tolist()
+    # frames 0-1 of the bench stream
+    pics = fx.hevc_pictures(fx.HEVC_BENCH.read_bytes())
+    got = fx.hevc_decode(b"".join(pics[:2]), cuda)
+    assert [[fx.plane_sha256(p) for p in f.planes] for f in got] == \
+        gold["bench"][:2].tolist()

@@ -14,7 +14,9 @@ the VP9 decoder: the committed small crafted stream through the IVF
 reader and open_decoder("vp9") on both of its device paths, against the
 reference's hashes, and the device loop filter; then the windowed VP9
 decoder on the same stream against the same hashes, and the wavefront
-loop filter; all on the CPU."""
+loop filter; then the HEVC decoder, on its device path and its host
+path (device_recon=False), over the committed small crafted stream
+against the reference's hashes; all on the CPU."""
 
 import re
 import subprocess
@@ -143,6 +145,13 @@ wy, _wu, _wv = loopfilter_wavefront(
     vfs.wd_h, vfs.wd_v_uv, vfs.wd_h_uv, lvl8, *_luts(_h.sharpness), vfs.sb_rows, vfs.sb_cols,
     (32, 32, 16, 16))
 assert wy.shape == (128, 128) and wy.dtype == torch.int32
+from ffmpeg_tpu_torch.codecs.hevc import HevcDecoder, filter_tpu, recon_tpu
+from ffmpeg_tpu_torch.testing import HEVC_GOLDEN, HEVC_SMALL, hevc_decode
+assert "hevc" in decoder_names()
+hgold = np.load(HEVC_GOLDEN)["small"].tolist()
+for opts in (None, {"device_recon": False}):
+    hfr = hevc_decode(HEVC_SMALL.read_bytes(), "cpu", opts)
+    assert [[plane_sha256(p) for p in f.planes] for f in hfr] == hgold
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
              or m.startswith(("jax.", "ffmpeg_tpu.")))
@@ -170,7 +179,8 @@ def test_port_sources_never_import_jax():
                                             "k1_breakdown_torch.py",
                                             "kernel_ab_torch.py",
                                             "vp9_window_ab_torch.py",
-                                            "vp9_mc_ab_torch.py"))]
+                                            "vp9_mc_ab_torch.py",
+                                            "hevc_dispatch_count_torch.py"))]
     hits = [str(p.relative_to(REPO)) for p in files
             if pat.search(p.read_text())]
     assert not hits, hits

@@ -3,12 +3,15 @@ against the reference's host decoder, byte-exact, on the CPU.
 
 Vp9TpuDecoder(device="cpu").decode(frames, emit_planes=True) runs the C++
 parse of the whole window, then per frame the reconstruction against the
-8-slot DPB kept on the device (MC reads it in place), the wavefront
-loop filter and the refresh of the flagged slots.  Every frame is checked only after the whole window has decoded, as
-tests/test_vp9_tpu.py checks the reference's: a plane emitted as a view of
-a DPB slot that a later frame overwrites would fail here.  The streams
-are tests/test_vp9_tpu.py's three windows, one whose inter frames refresh
-the slots they read, and the committed 96x72 crafted stream against the
+8-slot DPB on the device (zero at the start of each call, as the
+reference's; MC reads it in place), the wavefront loop filter and the
+refresh of the flagged slots.  Every frame is checked only after the
+whole window has decoded, as tests/test_vp9_tpu.py checks the
+reference's: a plane emitted as a view of a DPB slot that a later frame
+overwrites would fail here.  The streams are tests/test_vp9_tpu.py's
+three windows, one whose inter frames refresh the slots they read, one
+cut into two windows that each open with a keyframe, and the committed
+96x72 crafted stream against the
 reference's hashes; the reference's jitted windowed decoder is not run
 (XLA compiles a program per window shape).  `_mc_tiles` on a DPB laid
 out as the decoder keeps it is held equal to the reference's, with
@@ -87,11 +90,47 @@ def test_refresh_of_a_read_slot():
     _check(_refreshing_stream())
 
 
+def _keyframe_windows():
+    """Two windows, each opening with a keyframe, the second's inter
+    frames refreshing and reading partial slots."""
+    rng = np.random.default_rng(9)
+    s = I.CraftSession(width=128, height=64)
+    s.key(K.Plan(rng), filter_level=16)
+    s.inter(I.InterPlan(rng), refresh=0x01, refidx=(0, 1, 2),
+            filter_level=30)
+    s.key(K.Plan(rng), filter_level=8)
+    s.inter(I.InterPlan(rng), refresh=0x02, refidx=(0, 0, 2))
+    s.inter(I.InterPlan(rng), refresh=0x01, refidx=(1, 0, 2),
+            filter_level=22)
+    return s.frames
+
+
 def test_windows_share_the_dpb():
-    """The DPB stays on the instance: the stream cut into three windows
-    decodes as it does whole."""
-    _check(_refreshing_stream(), windows=(slice(0, 2), slice(2, 3),
-                                          slice(3, None)))
+    """Each decode() call starts from a zero DPB, as the reference's
+    (ffmpeg_tpu/models/vp9_tpu.py:208-209), while the parse state
+    carries on: a stream cut into windows that each open with a keyframe
+    decodes as the reference's host decoder decodes it whole."""
+    _check(_keyframe_windows(), windows=(slice(0, 2), slice(2, None)))
+
+
+def test_each_decode_starts_from_a_zero_dpb():
+    """The DPB seen by the first frame of a second decode() call on the
+    same instance is all zero, though the first call filled slots."""
+    frames = _keyframe_windows()
+    dec = Vp9TpuDecoder(device="cpu")
+    dec.decode(frames[:2], emit_planes=True)
+    assert int(dec.dpb_y.count_nonzero()) > 0
+    seen = []
+    step = dec._step
+
+    def first_step(*a):
+        if not seen:
+            seen.append((int(dec.dpb_y.count_nonzero()),
+                         int(dec.dpb_c.count_nonzero())))
+        return step(*a)
+    dec._step = first_step
+    dec.decode(frames[2:], emit_planes=True)
+    assert seen == [(0, 0)]
 
 
 def test_checksum_path():
