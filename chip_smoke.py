@@ -24,7 +24,11 @@ Drives the port's paths through their user entry points at full size:
 - the HEVC decoder: the committed 3-frame 1920x1080 bench stream and a
   1920x1080 stream with SAO and deblocking on through
   CodecContext.open_decoder("hevc") on the card (the CABAC parse on the
-  host, recon_tpu and filter_tpu on the card, the DPB on the card).
+  host, recon_tpu and filter_tpu on the card, the DPB on the card);
+- the H.264 decoder: a crafted 1920x1088 I P B CABAC stream with
+  deblocking through CodecContext.open_decoder("h264") on the card (the
+  CABAC parse on the host, recon_tpu's reconstruction and intra and
+  deblock wavefronts on the card, the DPB on the card).
 
 Phases, one line each:
 
@@ -141,8 +145,20 @@ Phases, one line each:
    golden, and filters_tpu on its keyframe against the host filter.py,
    both timed; torch.profiler, in a child process, over the keyframe
    and the first P frame (kernels, launch calls, the device's busy
-   share of the picture's wall time and of its device stage).
-Phases 9-15 run PyTorch only: K1 and K2 are not on their paths, and
+   share of the picture's wall time and of its device stage);
+16. the H.264 decoder, CodecContext.open_decoder("h264") on the card:
+   after a warm decode of the small crafted stream (against its
+   golden), the 3 pictures (I P B) of tests/data/port/
+   h264_1080p_cabac.h264 (1920x1088, CABAC, deblocking on) as one
+   packet, each plane against the reference's committed sha256
+   (tests/data/port/h264_1080p_golden.npz); full-decode frames/s and
+   each picture's split into host parse, argument build (with
+   deblock_params), h2d bytes and ms, and the device stages (residual,
+   inter, intra wavefront, deblock wavefront; CUDA events); the
+   truncated-slice stream (concealment on host copies) against its
+   golden; torch.profiler, in a child process, over the I and the P
+   picture (kernels, launch calls, the device's busy share).
+Phases 9-16 run PyTorch only: K1 and K2 are not on their paths, and
 each prints their launch counts over its run (0).
 
 Then a JSON line with each kernel's launches, error, time, plain time
@@ -363,6 +379,7 @@ def main() -> int:
     lf_key = phase13_vp9(dev, card)
     phase14_vp9_window(dev, card, lf_key)
     phase15_hevc(dev, card)
+    phase16_h264(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "jpeg_scan_decode_packed", "route": "cuda",
@@ -1700,6 +1717,151 @@ def phase15_hevc(dev, card) -> None:
     print(f"phase 15 hevc profile [{card}]: keyframe: {prof['keyframe']}; "
           f"P frame 1: {prof['p']}", flush=True)
     print(f"phase 15 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+
+
+def _h264_split(st: dict) -> str:
+    """One picture's split from H264Decoder.stats."""
+    h, d = st["host"], st["device"]
+    return (f"host parse {h['parse']:.1f} ms, argument build "
+            f"{h['build']:.2f} + deblock_params {h['deblock_build']:.2f}, "
+            f"h2d {h['h2d']:.3f} ({st['h2d_bytes'] / 1e6:.2f} MB), device "
+            f"{sum(d.values()):.2f} (residual {d['residual']:.3f}, inter "
+            f"{d['inter']:.3f}, intra wavefront {d['intra']:.2f} over "
+            f"{st['intra_steps']} steps, deblock wavefront "
+            f"{d.get('deblock', 0.0):.2f} over {st['deblock_steps']} steps; "
+            f"the host queued it in {h['queue']:.2f} and waited "
+            f"{h['wait']:.2f})")
+
+
+def h264_profile(walls: list, device_ms: list, device: str = "cuda:0"):
+    """Phase 16's torch.profiler sessions, in a process of their own (see
+    audio_profile): after a warm decode of the small crafted stream, a
+    fresh decoder's 1080p I picture and P picture, each one packet and
+    profiled alone, the host's CABAC parse included.  Prints one JSON
+    line of summarize_launches' descriptions against the pictures' wall
+    times in the main pass (`walls`), with the device's busy time as a
+    share of each picture's device stage there (`device_ms`)."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.core.packet import Packet
+    from ffmpeg_tpu_torch.io.stream import CodecParameters
+    from ffmpeg_tpu_torch.testing import (H264_CABAC, H264_SMALL,
+                                          h264_decode, h264_pictures)
+    dev = torch.device(device)
+    h264_decode(H264_SMALL.read_bytes(), dev)
+    pics = h264_pictures(H264_CABAC.read_bytes())
+    dec = CodecContext.open_decoder(CodecParameters(codec_id="h264"),
+                                    device=dev).codec
+    out = {}
+    for name, p, ms, dms in zip(("i", "p"), pics, walls, device_ms):
+        device, api = profile_device(lambda p=p: dec.decode(Packet(data=p)),
+                                     warm=False, cpu=False)
+        busy = sum(us for _, us in device) / 1e3
+        out[name] = (f"{summarize_launches(device, api, ms)}; busy "
+                     f"{busy / dms:.1%} of its device stage ({dms:.2f} ms)")
+    print(json.dumps(out), flush=True)
+
+
+def _h264_profile_in_child(walls: list, device_ms: list, dev) -> dict:
+    r = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.h264_profile("
+         f"{walls!r}, {device_ms!r}, {str(dev)!r})"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"phase 16's profile exited {r.returncode}: "
+                           f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _h264_check(frames, gold, dev, what, size):
+    """Every frame's planes on `dev`, `size`, and equal to the golden's
+    sha256; raises at the first mismatch."""
+    from ffmpeg_tpu_torch.testing import plane_sha256
+    if len(frames) != len(gold):
+        raise RuntimeError(f"{what}: {len(frames)} frames, not {len(gold)}")
+    for i, f in enumerate(frames):
+        if (f.width, f.height) != size or any(
+                pl.device != dev for pl in f.planes):
+            where = [str(p.device) for p in f.planes]
+            raise RuntimeError(f"{what} frame {i}: {f.width}x{f.height}, "
+                               f"planes on {where}")
+        for n, pl, want in zip("yuv", f.planes, gold[i]):
+            if plane_sha256(pl) != want:
+                raise RuntimeError(f"{what} frame {i} plane {n} differs "
+                                   f"from the reference's hash")
+
+
+def phase16_h264(dev, card) -> None:
+    """The H.264 decoder at full width on the card: the crafted 1920x1088
+    I P B CABAC stream (deblocking on) as one packet through
+    open_decoder("h264") against the reference's hashes, timed with
+    each picture's split into host parse, argument build, h2d and the
+    device stages; the truncated-slice stream (concealment) against its
+    golden; launches by torch.profiler in a child process."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.testing import (H264_CABAC, H264_GOLDEN,
+                                          H264_SMALL, h264_decode)
+    t_phase = time.monotonic()
+    gold = np.load(H264_GOLDEN)
+    zero_counts()
+    _h264_check(h264_decode(H264_SMALL.read_bytes(), dev), gold["small"],
+                dev, "small crafted stream", (64, 48))   # warm
+
+    # the main path: the 3 pictures of the 1080p stream, one packet
+    stats = []
+    t = time.perf_counter()
+    frames = h264_decode(H264_CABAC.read_bytes(), dev, None, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    _h264_check(frames, gold["cabac_1080p"], dev, "1080p CABAC stream",
+                (1920, 1088))
+    if [s["slice_type"] for s in stats] != [2, 0, 1]:
+        raise RuntimeError(f"expected I P B, got slice types "
+                           f"{[s['slice_type'] for s in stats]}")
+    parse = [s["host"]["parse"] for s in stats]
+    devms = [sum(s["device"].values()) for s in stats]
+    print(f"phase 16 h264 decode [{card}]: 3 pictures of 1920x1088 (no "
+          f"cropping in the crafted stream) through open_decoder('h264') "
+          f"on the card (CABAC parse on the host, reconstruction and the "
+          f"intra and deblock wavefronts on the card, the DPB on the "
+          f"card), every picture's y/u/v equal to the reference's sha256; "
+          f"full decode {3 / wall:.3f} frames/s ({wall * 1e3:.1f} ms, wall, "
+          f"after a warm decode of the small crafted stream): host parse "
+          f"{sum(parse) / 3:.1f} ms/frame, device {sum(devms) / 3:.1f} "
+          f"ms/frame; I picture {_h264_split(stats[0])}; P picture "
+          f"{_h264_split(stats[1])}; B picture {_h264_split(stats[2])}",
+          flush=True)
+
+    # the truncated-slice stream: concealment on host copies
+    tstats = []
+    t = time.perf_counter()
+    tframes = h264_decode(gold["truncated_stream"].tobytes(), dev, None,
+                          tstats)
+    torch.cuda.synchronize()
+    twall = (time.perf_counter() - t) * 1e3
+    _h264_check(tframes, gold["truncated"], dev, "truncated-slice stream",
+                (64, 48))
+    dmg = [s for s in tstats if s["damaged"]]
+    if len(dmg) != 1 or "conceal_d2h_bytes" not in dmg[0]:
+        raise RuntimeError(f"expected one concealed picture, got "
+                           f"{[s['damaged'] for s in tstats]}")
+    print(f"phase 16 h264 concealment [{card}]: the truncated-slice stream "
+          f"(an I_16x16 IDR and a P picture cut to 60%, 64x48) equal to the "
+          f"reference's default decode in {twall:.1f} ms, wall; the damaged "
+          f"picture's planes and reference went to the host "
+          f"({dmg[0]['conceal_d2h_bytes']} B) and back "
+          f"({dmg[0]['conceal_h2d_bytes']} B) around conceal_missing",
+          flush=True)
+
+    walls = [sum(st["host"].values()) for st in stats[:2]]
+    prof = _h264_profile_in_child(walls, devms[:2], dev)
+    print(f"phase 16 h264 profile [{card}]: I picture: {prof['i']}; P "
+          f"picture: {prof['p']}; {read_counts()} over the phase",
+          flush=True)
+    print(f"phase 16 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
 
 

@@ -4,6 +4,7 @@ encoders, as the reference's codec registry does."""
 from .codec import (CodecContext, EncoderParameters, Rational,  # noqa: F401
                     decoder_names, encoder_names)
 from . import aac  # noqa: F401  (registers the aac decoder)
+from . import h264  # noqa: F401  (registers the h264 decoder)
 from . import hevc  # noqa: F401  (registers the hevc decoder)
 from . import mjpeg  # noqa: F401  (registers the mjpeg decoder)
 from . import mpeg12_enc  # noqa: F401  (registers mpeg2video)

@@ -30,7 +30,13 @@ both check the port against the JAX reference's committed answers:
   committed 1920x1080 stream with SAO and deblocking on and a small
   crafted one, with the sha256 of every plane of the reference's host
   decode (`HEVC_GOLDEN`, written by tools/gen_torch_hevc_fixture.py),
-  and the decode itself (`hevc_decode`, `hevc_pictures`).
+  and the decode itself (`hevc_decode`, `hevc_pictures`);
+- the H.264 decoder: a committed crafted 1920x1088 I P B CABAC stream
+  with deblocking, a small crafted stream and the truncated-slice
+  stream, with the sha256 of every plane of the reference's default
+  decode (`H264_GOLDEN`, written by tools/gen_torch_h264_fixture.py),
+  the decode itself (`h264_decode`, `h264_pictures`), and the
+  reference's parse as the port's input (`h264_slice_from_reference`).
 
 They live here so that each check reads them from the package and not
 from the other.
@@ -83,6 +89,13 @@ HEVC_BENCH = DATA.parent / "bench" / "hevc_1080p.hevc"
 HEVC_SAO = DATA / "hevc_1080p_sao_deblock.hevc"
 HEVC_SMALL = DATA / "hevc_crafted_64x64.hevc"
 HEVC_GOLDEN = DATA / "hevc_1080p_golden.npz"
+
+# The H.264 decoder (an I P B CABAC GOP crafted at 1920x1088 with the
+# deblocking filter on; a small crafted stream; the golden also holds
+# the truncated-slice stream's bytes and hashes).
+H264_CABAC = DATA / "h264_1080p_cabac.h264"
+H264_SMALL = DATA / "h264_crafted_small.h264"
+H264_GOLDEN = DATA / "h264_1080p_golden.npz"
 
 
 def packed_cap(pkts) -> int:
@@ -247,6 +260,78 @@ def hevc_pictures(data: bytes) -> list:
     for u in split_annexb(data):
         nal = b"\x00\x00\x00\x01" + u
         if (u[0] >> 1) & 0x3F < 32:          # VCL NAL unit types
+            pkts.append(head + nal)
+            head = b""
+        else:
+            head += nal
+    return pkts
+
+
+def h264_decode(data: bytes, device, options=None, stats=None):
+    """Decode an Annex B H.264 stream through
+    CodecContext.open_decoder("h264") on `device` as one packet,
+    drained; returns the frames in output order.  stats: a list that
+    gets the decoder's per-picture split (device path)."""
+    from .codecs import CodecContext
+    from .core.packet import Packet
+    from .io.stream import CodecParameters, MediaType
+    dec = CodecContext.open_decoder(
+        CodecParameters(codec_type=MediaType.VIDEO, codec_id="h264"),
+        options, device=device)
+    dec.codec.stats = stats
+    return dec.decode_all([Packet(data=data, pts=0,
+                                  time_base=Rational(1, 25))])
+
+
+def h264_slice_from_reference(ref):
+    """The port's SliceDecoder holding a copy of a parsed picture of the
+    reference's (ffmpeg_tpu's SliceDecoder, duck-typed: no import of
+    the reference): its SPS and PPS rebuilt as the port's, every array
+    copied, the reference lists' entries copied with their planes as
+    host arrays.  Both reconstructions then compute from one parse."""
+    import dataclasses
+    from .codecs.h264.params import PPS, SPS
+    from .codecs.h264.slice_dec import SliceDecoder
+
+    memo: dict = {}
+
+    def conv(v):
+        # one copy per object: two list entries naming one DPB picture
+        # stay one picture (the deblock compares picture identities)
+        if id(v) in memo:
+            return memo[id(v)]
+        if isinstance(v, np.ndarray):
+            out = v.copy()
+        elif isinstance(v, dict):
+            out = {k: conv(x) for k, x in v.items()}
+        elif isinstance(v, (list, tuple)):
+            out = type(v)(conv(x) for x in v)
+        else:
+            return v
+        memo[id(v)] = out
+        return out
+
+    sps = SPS(**{f.name: conv(getattr(ref.sps, f.name))
+                 for f in dataclasses.fields(SPS)})
+    pps = PPS(**{f.name: conv(getattr(ref.pps, f.name))
+                 for f in dataclasses.fields(PPS)})
+    dec = SliceDecoder(sps, pps)
+    for k, v in vars(ref).items():
+        if k in ("sps", "pps"):
+            continue
+        setattr(dec, k, conv(v))
+    return dec
+
+
+def h264_pictures(data: bytes) -> list:
+    """An Annex B H.264 stream as one packet per slice NAL unit (one
+    slice per picture in the committed streams): the parameter sets and
+    other non-slice units go with the next slice."""
+    from .codecs.h264.nal import split_annexb
+    pkts, head = [], b""
+    for u in split_annexb(data):
+        nal = b"\x00\x00\x00\x01" + u
+        if u[0] & 0x1F in (1, 5):            # coded slices
             pkts.append(head + nal)
             head = b""
         else:

@@ -5,7 +5,9 @@ versions, bit-exact: K1 (ffmpeg_tpu_torch/csrc/jpeg_huffman.cu) and K2
 against the same code on the CPU and the reference's committed output,
 within 1 LSB; the audio frontend's stages against their CPU runs; and
 the VP9 decoder and its device loop filter, byte-exact against the CPU
-run, the host filter and the reference's committed hashes.  Marked
+run, the host filter and the reference's committed hashes; the H.264
+decoder's transforms, inter prediction and wavefronts against the CPU
+run, and its streams against the reference's committed hashes.  Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
 card and without jax they run without tests/conftest.py (which imports
@@ -465,3 +467,73 @@ def test_hevc_decoder_on_card_matches_cpu_and_golden(cuda):
     got = fx.hevc_decode(b"".join(pics[:2]), cuda)
     assert [[fx.plane_sha256(p) for p in f.planes] for f in got] == \
         gold["bench"][:2].tolist()
+
+
+def test_h264_transforms_on_card_match_cpu(cuda):
+    """The 4x4 and 8x8 residual butterflies at the int16 extremes."""
+    from ffmpeg_tpu_torch.codecs.h264 import recon_tpu
+    rng = np.random.default_rng(5)
+    ext = np.array([-32768, 32767, -32767, 0, 1, -1], np.int32)
+    for fn, n in ((recon_tpu._idct_blocks, 16),
+                  (recon_tpu._idct8_blocks, 64)):
+        c = torch.from_numpy(rng.choice(ext, (512, n)).astype(np.int32))
+        got = fn(c.to(cuda))
+        assert got.is_cuda and torch.equal(got.cpu(), fn(c))
+
+
+def test_h264_inter_on_card_matches_cpu(cuda):
+    """The half-pel planes and the luma and chroma gathers over two
+    references, every quarter-pel phase, MVs reaching past the edges."""
+    from ffmpeg_tpu_torch.codecs.h264 import recon_tpu as R
+    rng = np.random.default_rng(11)
+    n4y, n4x = 12, 16
+    g = torch.from_numpy(rng.integers(0, 256, (2, 48, 64)).astype(
+        np.int32))
+    c = torch.from_numpy(rng.integers(0, 256, (2, 24, 32)).astype(
+        np.int32))
+    mv = torch.from_numpy(rng.integers(-160, 160, (2, n4y, n4x, 2))
+                          .astype(np.int32))
+    slot = torch.from_numpy(rng.integers(-1, 2, (2, n4y, n4x)).astype(
+        np.int32))
+
+    def run(dev):
+        st = R._halfpel_planes(R._pad_replicate(g.to(dev), R._PAD))
+        cp = R._pad_replicate(c.to(dev), R._PAD_C)
+        return [R._inter_luma(st, mv.to(dev), slot.to(dev), 0),
+                R._inter_luma(st, mv.to(dev), slot.to(dev), 1),
+                R._inter_chroma(cp, mv.to(dev), slot.to(dev), 1)]
+    for a, b in zip(run(cuda), run("cpu")):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("key", ["small", "truncated"])
+def test_h264_decoder_on_card_matches_cpu_and_golden(cuda, key):
+    """The small crafted stream (I_4x4, I_PCM, I_16x16, P, B, two
+    references, deblocking: both wavefronts) and the truncated-slice
+    stream (concealment) through open_decoder("h264") on the card, both
+    paths: planes on the card, equal to the CPU run and the golden."""
+    gold = np.load(fx.H264_GOLDEN)
+    data = fx.H264_SMALL.read_bytes() if key == "small" else \
+        gold["truncated_stream"].tobytes()
+    want = fx.h264_decode(data, "cpu")
+    for opts in (None, {"recon": "host"}):
+        got = fx.h264_decode(data, cuda, opts)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert all(p.is_cuda for p in g.planes)
+            assert all(torch.equal(a.cpu(), b)
+                       for a, b in zip(g.planes, w.planes))
+        assert [[fx.plane_sha256(p) for p in f.planes] for f in got] == \
+            gold[key].tolist()
+
+
+def test_h264_1080p_on_card_matches_golden(cuda):
+    """The crafted 1920x1088 I P B CABAC stream with deblocking on the
+    card against the reference's hashes."""
+    gold = np.load(fx.H264_GOLDEN)
+    stats = []
+    got = fx.h264_decode(fx.H264_CABAC.read_bytes(), cuda, None, stats)
+    assert all(p.is_cuda for f in got for p in f.planes)
+    assert [[fx.plane_sha256(p) for p in f.planes] for f in got] == \
+        gold["cabac_1080p"].tolist()
+    assert [s["slice_type"] for s in stats] == [2, 0, 1]

@@ -16,7 +16,9 @@ reference's hashes, and the device loop filter; then the windowed VP9
 decoder on the same stream against the same hashes, and the wavefront
 loop filter; then the HEVC decoder, on its device path and its host
 path (device_recon=False), over the committed small crafted stream
-against the reference's hashes; all on the CPU."""
+against the reference's hashes; then the H.264 decoder, on its device
+path and its host path (recon="host"), over its committed small
+crafted stream against the reference's hashes; all on the CPU."""
 
 import re
 import subprocess
@@ -152,6 +154,13 @@ hgold = np.load(HEVC_GOLDEN)["small"].tolist()
 for opts in (None, {"device_recon": False}):
     hfr = hevc_decode(HEVC_SMALL.read_bytes(), "cpu", opts)
     assert [[plane_sha256(p) for p in f.planes] for f in hfr] == hgold
+from ffmpeg_tpu_torch.codecs.h264 import H264Decoder, recon_tpu
+from ffmpeg_tpu_torch.testing import H264_GOLDEN, H264_SMALL, h264_decode
+assert "h264" in decoder_names()
+agold = np.load(H264_GOLDEN)["small"].tolist()
+for opts in (None, {"recon": "host"}):
+    afr = h264_decode(H264_SMALL.read_bytes(), "cpu", opts)
+    assert [[plane_sha256(p) for p in f.planes] for f in afr] == agold
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
              or m.startswith(("jax.", "ffmpeg_tpu.")))
@@ -180,7 +189,8 @@ def test_port_sources_never_import_jax():
                                             "kernel_ab_torch.py",
                                             "vp9_window_ab_torch.py",
                                             "vp9_mc_ab_torch.py",
-                                            "hevc_dispatch_count_torch.py"))]
+                                            "hevc_dispatch_count_torch.py",
+                                            "h264_dispatch_count_torch.py"))]
     hits = [str(p.relative_to(REPO)) for p in files
             if pat.search(p.read_text())]
     assert not hits, hits

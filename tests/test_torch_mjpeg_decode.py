@@ -88,7 +88,7 @@ def test_decoder_on_a_fixture_frame():
 def test_decoder_registry_and_params():
     assert {"mjpeg", "jpeg", "jpegls_off"} <= set(decoder_names())
     with pytest.raises(DecoderNotFound):
-        CodecContext.open_decoder(CodecParameters(codec_id="h264"),
+        CodecContext.open_decoder(CodecParameters(codec_id="no-such-codec"),
                                   device="cpu")
     ctx = CodecContext.open_decoder(
         CodecParameters(codec_type=MediaType.VIDEO, codec_id="jpeg",
