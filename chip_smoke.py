@@ -17,7 +17,7 @@ Drives the port's paths through their user entry points at full size:
   AAC-LC) through the ADTS demuxer, CodecContext.open_decoder(...)
   .decode_frames and SwrContext(48000 stereo -> 16000 mono fltp), and
   the graph "aresample=16000,aformat=channel_layouts=mono";
-- the VP9 decoder: the first 30 frames of the committed 100-frame
+- the VP9 decoder: the first 10 frames of the committed 100-frame
   1920x1080 stream through CodecContext.open_decoder("vp9") on the card,
   and through the windowed decoder Vp9TpuDecoder (models/vp9_tpu.py: the
   DPB on the card, the wavefront loop filter);
@@ -28,7 +28,13 @@ Drives the port's paths through their user entry points at full size:
 - the H.264 decoder: a crafted 1920x1088 I P B CABAC stream with
   deblocking through CodecContext.open_decoder("h264") on the card (the
   CABAC parse on the host, recon_tpu's reconstruction and intra and
-  deblock wavefronts on the card, the DPB on the card).
+  deblock wavefronts on the card, the DPB on the card);
+- the encoders' round trips at 1920x1080 on the seeded clip: the H.264
+  encoder (CodecContext.open_encoder("h264"), K2 for its P frame) into
+  the H.264 decoder; the MPEG-2 encoder's packets of phase 7 into the
+  MPEG-1/2 decoder (open_decoder("mpeg2video")); the MJPEG encoder
+  (open_encoder("mjpeg"), the flagship's options) into the flagship
+  pipeline (K1).
 
 Phases, one line each:
 
@@ -106,7 +112,7 @@ Phases, one line each:
    copies; torch.profiler over one pass (kernels, copies, device busy
    share) and over the IMDCT and the FIR alone (their CUDA kernels).
 13. the VP9 decoder through CodecContext.open_decoder("vp9") on the
-   card: the first VP9_FRAMES (30) frames of
+   card: the first VP9_FRAMES (10) frames of
    tests/data/bench/vp9_1080p_100.ivf (1920x1080;
    C++ tile parse, reconstruction on the card, host loop filter) once,
    each frame's planes against the reference's committed sha256, failing
@@ -158,8 +164,38 @@ Phases, one line each:
    truncated-slice stream (concealment on host copies) against its
    golden; torch.profiler, in a child process, over the I and the P
    picture (kernels, launch calls, the device's busy share).
-Phases 9-16 run PyTorch only: K1 and K2 are not on their paths, and
-each prints their launch counts over its run (0).
+17. the H.264 encoder, CodecContext.open_encoder("h264") on the card with
+   its defaults (qp 26, gop 25, me_range 8, subpel 2): the first 2
+   frames of testing.mpeg2_clip at 1920x1080, I then P, both packets
+   equal to the reference's committed sha256
+   (tests/data/port/roundtrip_1080p_golden.npz), K2 launched once (the
+   P frame's motion search); each frame's wall split into the host
+   macroblock loop, the subpel refinement and the motion search's h2d,
+   K2 + argmin and d2h; then both packets through
+   open_decoder("h264") on the card, the cropped 1920x1080 planes equal
+   to the sha256 of the reference's decode of its own packets, with
+   full-decode frames/s and phase 16's per-picture split.
+18. the MPEG-1/2 decoder, open_decoder("mpeg2video") on the card: phase
+   7's own 1920x1080 I P P P packets, after a warm decode at 64x48,
+   against the port's CPU decode of the same packets (I pictures within
+   1 LSB on <= 1% of samples, every picture >= 60 dB), each frame's PSNR
+   against the source within 0.1 dB of the reference decoder's PSNR on
+   the reference's packets (committed); frames/s and each picture's
+   split into host parse, h2d bytes and ms, device residual and MC.
+19. the MJPEG encoder, open_encoder("mjpeg") on the card with the
+   flagship's options (quality 88, restart_interval 1, optimal Huffman
+   tables of <= 8 bits): 8 frames of the same clip; the coefficients
+   within one quantiser step of the port's CPU transform on <= 1e-3 of
+   positions, packet sizes within 0.1% of the reference's (committed);
+   the packets through the flagship pipeline (MjpegTpuEntropyPipeline,
+   K1) as one batch, each frame's 224x224 rgb24 PSNR against the source
+   through the same scale within 0.05 dB of the reference's decode of
+   its own packets (committed); encode frames/s split into the device
+   transform and the host packing.
+Phases 9-16 and 18 run PyTorch only: K1 and K2 are not on their paths,
+and each prints their launch counts over its run (0).  K2's launches
+in the JSON line count phases 7 and 17, K1's phases 4 and 19.  Phases
+13-19 print their wall times, and the script its own.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -193,10 +229,10 @@ K1_REPLACES = "ffmpeg_tpu/ops/huffman.py:446"
 K2_SOURCE = "ffmpeg_tpu_torch/csrc/sad_cost_volume.cu"
 K2_REPLACES = "ffmpeg_tpu/ops/me.py:79"
 ENC_W, ENC_H = 1920, 1080
-# phases 13-14 decode the VP9 bench stream's first 30 of its 100 frames
-# (the keyframe and 29 inter frames), which keeps the whole script
-# within half of its time limit with phase 15
-VP9_FRAMES = 30
+# phases 13-14 decode the VP9 bench stream's first 10 of its 100 frames
+# (the keyframe and 9 inter frames): cut from 30 when phases 17-19
+# joined, so that the whole script stays near 700 s of its 1200 s limit
+VP9_FRAMES = 10
 HBM_BYTES_PER_S = 3.35e12
 INT32_INSTR_PER_S = 132 * 64 * 1.98e9
 # phase 7 bounds against the reference's committed encode
@@ -248,6 +284,9 @@ def k2_bound(cur, B: int, R: int, is_u8: bool) -> tuple[float, str]:
     nbytes = 2 * h * w * cur.element_size() + by * bx * D * D * 4
     diffs = by * bx * B * B * D * D
     return bound(nbytes, diffs / 4 if is_u8 else 2 * diffs)
+
+
+T0 = time.monotonic()
 
 
 def main() -> int:
@@ -370,7 +409,7 @@ def main() -> int:
           f"ms/frame (one CPU thread, not in frames/s)", flush=True)
 
     k2 = phase6_k2(dev)
-    frames, k2_launches = phase7_encoder(dev)
+    frames, k2_launches, mpeg2_pkts = phase7_encoder(dev)
     phase8_timing(dev, card, frames)
     phase9_decode_scale(dev, card)
     phase10_decoder_graph(dev, card)
@@ -380,6 +419,12 @@ def main() -> int:
     phase14_vp9_window(dev, card, lf_key)
     phase15_hevc(dev, card)
     phase16_h264(dev, card)
+    clip, k2_enc = phase17_h264_encode(dev, card)
+    phase18_mpeg2_decode(dev, card, mpeg2_pkts)
+    k1_enc = phase19_mjpeg_encode(dev, card, clip)
+    launches += k1_enc
+    k2_launches += k2_enc
+    print(f"whole script: {time.monotonic() - T0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "jpeg_scan_decode_packed", "route": "cuda",
@@ -497,14 +542,16 @@ def _encode(dev, frames):
         t = time.perf_counter()
         ctx.send_frame(f)
         pkt = ctx.receive_packet()
-        out.append({"bytes": len(pkt.data), "s": time.perf_counter() - t,
+        out.append({"data": pkt.data, "bytes": len(pkt.data),
+                    "s": time.perf_counter() - t,
                     "mvs": ctx.codec.last_mv_grid,
                     "psnr": recon_psnr(ctx.codec._recon, f)})
     return out
 
 
 def phase7_encoder(dev):
-    """The encoder's path on the card against the reference's golden."""
+    """The encoder's path on the card against the reference's golden.
+    Returns the clip, K2's launches and the packets (for phase 18)."""
     import numpy as np
     import torch
     from ffmpeg_tpu_torch.ops import huffman, me
@@ -535,7 +582,7 @@ def phase7_encoder(dev):
                            f"{n_p}, MVs >= {MV_MIN_AGREE:.1%}, sizes within "
                            f"{SIZE_REL_TOL:.1%}, PSNR within {PSNR_TOL_DB} "
                            f"dB)")
-    return frames, launches
+    return frames, launches, [r["data"] for r in res]
 
 
 def phase8_timing(dev, card, frames):
@@ -1724,7 +1771,8 @@ def _h264_split(st: dict) -> str:
     """One picture's split from H264Decoder.stats."""
     h, d = st["host"], st["device"]
     return (f"host parse {h['parse']:.1f} ms, argument build "
-            f"{h['build']:.2f} + deblock_params {h['deblock_build']:.2f}, "
+            f"{h['build']:.2f} + deblock_params "
+            f"{h.get('deblock_build', 0.0):.2f}, "
             f"h2d {h['h2d']:.3f} ({st['h2d_bytes'] / 1e6:.2f} MB), device "
             f"{sum(d.values()):.2f} (residual {d['residual']:.3f}, inter "
             f"{d['inter']:.3f}, intra wavefront {d['intra']:.2f} over "
@@ -1864,6 +1912,265 @@ def phase16_h264(dev, card) -> None:
     print(f"phase 16 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
 
+
+
+def _enc_split(st: dict) -> str:
+    """One frame's split from H264Encoder.stats."""
+    if st["type"] == "I":
+        return (f"{st['wall']:.1f} ms (host macroblock loop "
+                f"{st['mb_loop']:.1f})")
+    return (f"{st['wall']:.1f} ms (host macroblock loop {st['mb_loop']:.1f}, "
+            f"subpel refinement {st['subpel']:.1f}; motion search h2d "
+            f"{st['h2d']:.3f}, K2 + argmin {st['search']:.3f}, d2h "
+            f"{st['d2h']:.3f})")
+
+
+def phase17_h264_encode(dev, card):
+    """The H.264 encoder at 1920x1080 on the card: the clip's first 2
+    frames (I, P) through open_encoder("h264") with its defaults, K2 once
+    for the P frame, both packets equal to the reference's sha256; then
+    both packets through open_decoder("h264") on the card, the cropped
+    1920x1080 planes equal to the sha256 of the reference's decode.
+    Returns the 8-frame clip (for phase 19) and K2's launches."""
+    import hashlib
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext, EncoderParameters
+    from ffmpeg_tpu_torch.ops import me
+    from ffmpeg_tpu_torch.testing import (H264_ENC_FRAMES, ROUNDTRIP_GOLDEN,
+                                          RT_FRAMES, clip_checksum,
+                                          h264_decode, mpeg2_clip)
+    t_phase = time.monotonic()
+    g = np.load(ROUNDTRIP_GOLDEN)
+    clip = mpeg2_clip(RT_FRAMES, ENC_W, ENC_H)
+    if clip_checksum(clip) != str(g["clip_sha256"]):
+        raise RuntimeError("the seeded clip differs from the golden's")
+
+    # the main path: encode I then P, then decode both, on the card
+    zero_counts()
+    ctx = CodecContext.open_encoder(EncoderParameters("h264", ENC_W, ENC_H),
+                                    device=dev)
+    ctx.codec.stats = []
+    pkts = []
+    t = time.perf_counter()
+    for f in clip[:H264_ENC_FRAMES]:
+        ctx.send_frame(f)
+        pkts.append(ctx.receive_packet().data)
+    enc_s = time.perf_counter() - t
+    enc_launches = me.KERNEL_LAUNCHES
+    sha = [hashlib.sha256(p).hexdigest() for p in pkts]
+    if sha != g["h264_packet_sha256"].tolist():
+        raise RuntimeError(f"H.264 packets {[len(p) for p in pkts]} B differ "
+                           f"from the reference's "
+                           f"{g['h264_packet_bytes'].tolist()} B")
+    if enc_launches != 1:
+        raise RuntimeError(f"K2 launched {enc_launches} times for one P "
+                           f"frame")
+    st = ctx.codec.stats
+    print(f"phase 17 h264 encode [{card}]: 1920x1080 I P through "
+          f"open_encoder('h264') on the card (qp 26, me_range 8, subpel 2), "
+          f"packets {[len(p) for p in pkts]} B equal to the reference's "
+          f"sha256; K2 launches {enc_launches}; {enc_s:.1f} s, "
+          f"{H264_ENC_FRAMES / enc_s:.4f} frames/s; I frame "
+          f"{_enc_split(st[0])}; P frame {_enc_split(st[1])}", flush=True)
+
+    stats = []
+    data = b"".join(pkts)
+    t = time.perf_counter()
+    frames = h264_decode(data, dev, None, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = me.KERNEL_LAUNCHES
+    _h264_check(frames, g["h264_plane_sha256"], dev,
+                "the encoder's 1080p stream", (1920, 1080))
+    print(f"phase 17 h264 decode [{card}]: the encoder's 2 packets (CAVLC, "
+          f"deblocking off, SPS crop to 1080 rows) through "
+          f"open_decoder('h264') on the card, every cropped 1920x1080 "
+          f"plane equal to the reference's sha256; full decode "
+          f"{2 / wall:.3f} frames/s ({wall * 1e3:.1f} ms, wall, no warm "
+          f"decode: phase 16 ran the decoder); I picture "
+          f"{_h264_split(stats[0])}; P picture {_h264_split(stats[1])}; "
+          f"{read_counts()} over the encode and decode", flush=True)
+    print(f"phase 17 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    return clip, launches
+
+
+def _mpeg2_split(st: dict) -> str:
+    """One picture's split from Mpeg12Decoder.stats."""
+    h, d = st["host"], st["device"]
+    return (f"{st['type']}: host parse {h['parse']:.1f} ms, queue "
+            f"{h['queue']:.2f}, h2d {d['h2d']:.3f} ms "
+            f"({st['h2d_bytes'] / 1e6:.2f} MB), device residual "
+            f"{d['residual']:.3f}, MC {d.get('mc', 0.0):.3f}")
+
+
+def phase18_mpeg2_decode(dev, card, pkts) -> None:
+    """The MPEG-1/2 decoder on the card: phase 7's own 1920x1080 I P P P
+    packets through open_decoder("mpeg2video"), against the port's CPU
+    decode of the same packets (I pictures within 1 LSB on <= 1% of
+    samples, every picture >= 60 dB), and each frame's PSNR against the
+    source within 0.1 dB of the reference decoder's PSNR on the
+    reference's packets (committed)."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext, EncoderParameters
+    from ffmpeg_tpu_torch.core.packet import Packet
+    from ffmpeg_tpu_torch.io.stream import CodecParameters
+    from ffmpeg_tpu_torch.testing import (ENC_FRAMES, ROUNDTRIP_GOLDEN,
+                                          mpeg2_clip, recon_psnr)
+    t_phase = time.monotonic()
+    g = np.load(ROUNDTRIP_GOLDEN)
+    src = mpeg2_clip(ENC_FRAMES, ENC_W, ENC_H)
+
+    def decode(device, stats=None):
+        dec = CodecContext.open_decoder(
+            CodecParameters(codec_id="mpeg2video"), device=device)
+        dec.codec.stats = stats
+        return dec.decode_all([Packet(data=p, pts=i)
+                               for i, p in enumerate(pkts)])
+
+    small = CodecContext.open_encoder(EncoderParameters("mpeg2video", 64,
+                                                        48),
+                                      {"qscale": 6}, device="cpu")
+    warm = []
+    for f in mpeg2_clip(2, 64, 48):
+        small.send_frame(f)
+        warm.append(Packet(data=small.receive_packet().data))
+    CodecContext.open_decoder(CodecParameters(codec_id="mpeg2video"),
+                              device=dev).decode_all(warm)
+
+    zero_counts()
+    stats = []
+    t = time.perf_counter()
+    got = decode(dev, stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = read_counts()
+    want = decode("cpu")
+    if [f.pict_type for f in got] != ["I", "P", "P", "P"]:
+        raise RuntimeError(f"expected I P P P, got "
+                           f"{[f.pict_type for f in got]}")
+    worst, notes = np.inf, []
+    for f, w in zip(got, want):
+        if any(p.device != dev for p in f.planes):
+            raise RuntimeError("decoded planes not on the card")
+        dmax = 0
+        for a, b in zip(f.planes, w.planes):
+            d = np.abs(a.cpu().numpy().astype(np.int32)
+                       - b.numpy().astype(np.int32))
+            mse = float((d.astype(np.float64) ** 2).mean())
+            worst = min(worst, 10 * np.log10(255 ** 2 / max(mse, 1e-12)))
+            dmax = max(dmax, int(d.max()))
+            if f.pict_type == "I" and (d.max() > 1 or
+                                       (d > 0).mean() > 0.01):
+                raise RuntimeError(f"I picture: max |diff| {d.max()}, "
+                                   f"{(d > 0).mean():.4%} differ from the "
+                                   f"CPU decode")
+        notes.append(f"{f.pict_type} {dmax}")
+    if worst < 60:
+        raise RuntimeError(f"a picture at {worst:.2f} dB of the CPU decode")
+    psnr = [recon_psnr([p.cpu().numpy() for p in f.planes], s)
+            for f, s in zip(got, src)]
+    dpsnr = [a - float(b) for a, b in zip(psnr, g["mpeg2_psnr"])]
+    if max(map(abs, dpsnr)) > 0.1:
+        raise RuntimeError(f"PSNR {psnr} differs from the reference's "
+                           f"{g['mpeg2_psnr'].tolist()} by more than 0.1 dB")
+    parse = sum(s["host"]["parse"] for s in stats)
+    print(f"phase 18 mpeg2 decode [{card}]: phase 7's 1920x1080 I P P P "
+          f"packets through open_decoder('mpeg2video') on the card (host "
+          f"parse, IDCT and MC on the card, the reference pictures on the "
+          f"card); against the CPU decode: max |diff| per picture "
+          f"{', '.join(notes)}, worst PSNR {worst:.2f} dB; PSNR against "
+          f"the source {[round(x, 4) for x in psnr]} dB, the reference's "
+          f"{[round(float(x), 4) for x in g['mpeg2_psnr']]} (diff "
+          f"{[f'{x:+.4f}' for x in dpsnr]}); {4 / wall:.3f} frames/s "
+          f"({wall * 1e3:.1f} ms, wall, after a warm decode at 64x48; host "
+          f"parse {parse / 4:.1f} ms/frame); "
+          + "; ".join(_mpeg2_split(s) for s in stats)
+          + f"; {counts}", flush=True)
+    print(f"phase 18 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+
+
+def phase19_mjpeg_encode(dev, card, clip) -> int:
+    """The MJPEG encoder on the card: 8 frames of the 1920x1080 clip
+    through open_encoder("mjpeg") with the flagship's options; the
+    coefficients within one quantiser step of the port's CPU transform on
+    <= 1e-3 of positions; packet sizes within 0.1% of the reference's;
+    the packets through the flagship pipeline (K1) as one batch, each
+    frame's 224x224 rgb24 PSNR against the source's scale within 0.05 dB
+    of the reference's decode of its own packets.  Returns K1's
+    launches."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext, EncoderParameters
+    from ffmpeg_tpu_torch.ops import huffman
+    from ffmpeg_tpu_torch.testing import (MJPEG_ENC_OPTIONS,
+                                          ROUNDTRIP_GOLDEN,
+                                          mjpeg_pipeline_rgb,
+                                          mjpeg_target_rgb, rgb_psnr)
+    t_phase = time.monotonic()
+    g = np.load(ROUNDTRIP_GOLDEN)
+    par = EncoderParameters("mjpeg", ENC_W, ENC_H)
+    ctx = CodecContext.open_encoder(par, dict(MJPEG_ENC_OPTIONS),
+                                    device=dev)
+    ctx.codec.transform(clip[0])                 # warm
+
+    zero_counts()
+    ctx.codec.stats = []
+    pkts = []
+    t = time.perf_counter()
+    for f in clip:
+        ctx.send_frame(f)
+        pkts.append(ctx.receive_packet().data)
+    enc_s = time.perf_counter() - t
+    rgb = mjpeg_pipeline_rgb(pkts, dev)
+    torch.cuda.synchronize()
+    launches = huffman.KERNEL_LAUNCHES
+    counts = read_counts()
+    if launches < 1:
+        raise RuntimeError("K1 not launched by the pipeline")
+
+    sizes = [len(p) for p in pkts]
+    rel = [a / int(b) - 1 for a, b in zip(sizes, g["mjpeg_packet_bytes"])]
+    if max(map(abs, rel)) > 1e-3:
+        raise RuntimeError(f"MJPEG packets {sizes} B not within 0.1% of "
+                           f"the reference's "
+                           f"{g['mjpeg_packet_bytes'].tolist()}")
+    cpu = CodecContext.open_encoder(par, dict(MJPEG_ENC_OPTIONS),
+                                    device="cpu").codec
+    worst = 0.0
+    for f in clip:
+        for a, b in zip(ctx.codec.transform(f)[0], cpu.transform(f)[0]):
+            d = np.abs(a.astype(np.int64) - b)
+            worst = max(worst, float((d > 0).mean()))
+            if d.max() > 1 or (d > 0).mean() > 1e-3:
+                raise RuntimeError(f"coefficients: max |diff| {d.max()} on "
+                                   f"{(d > 0).mean():.4%} of positions")
+    psnr = rgb_psnr(rgb, mjpeg_target_rgb(clip, dev))
+    dpsnr = [a - float(b) for a, b in zip(psnr, g["mjpeg_psnr"])]
+    if max(map(abs, dpsnr)) > 0.05:
+        raise RuntimeError(f"PSNR {psnr} not within 0.05 dB of the "
+                           f"reference's {g['mjpeg_psnr'].tolist()}")
+    st = ctx.codec.stats
+    tr = sum(s["transform"] for s in st) / len(st)
+    pk = sum(s["pack"] for s in st) / len(st)
+    print(f"phase 19 mjpeg encode [{card}]: {len(clip)} frames of 1920x1080 "
+          f"through open_encoder('mjpeg') on the card (quality 88, "
+          f"restart_interval 1, optimal tables <= 8 bits): "
+          f"{len(clip) / enc_s:.3f} frames/s ({enc_s * 1e3 / len(clip):.1f} ms/frame: device "
+          f"transform with its copies {tr:.2f}, host packing {pk:.1f}); "
+          f"packets {sizes} B (rel to the reference "
+          f"{[f'{x:+.5%}' for x in rel]}); coefficients within one step of "
+          f"the CPU transform, at most {worst:.6%} of positions differing; "
+          f"decoded by the flagship pipeline (K1) as one batch: PSNR "
+          f"{[round(x, 4) for x in psnr]} dB against the source's 224x224 "
+          f"scale (diff to the reference's {[f'{x:+.4f}' for x in dpsnr]});"
+          f" {counts}", flush=True)
+    print(f"phase 19 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    return launches
 
 if __name__ == "__main__":
     sys.exit(main())

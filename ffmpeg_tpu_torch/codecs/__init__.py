@@ -5,7 +5,10 @@ from .codec import (CodecContext, EncoderParameters, Rational,  # noqa: F401
                     decoder_names, encoder_names)
 from . import aac  # noqa: F401  (registers the aac decoder)
 from . import h264  # noqa: F401  (registers the h264 decoder)
+from . import h264_enc  # noqa: F401  (registers the h264 encoder)
 from . import hevc  # noqa: F401  (registers the hevc decoder)
 from . import mjpeg  # noqa: F401  (registers the mjpeg decoder)
+from . import mjpeg_enc  # noqa: F401  (registers the mjpeg encoder)
+from . import mpeg12  # noqa: F401  (registers mpeg2video, mpeg1video)
 from . import mpeg12_enc  # noqa: F401  (registers mpeg2video)
 from . import vp9  # noqa: F401  (registers the vp9 decoder)

@@ -36,7 +36,15 @@ both check the port against the JAX reference's committed answers:
   stream, with the sha256 of every plane of the reference's default
   decode (`H264_GOLDEN`, written by tools/gen_torch_h264_fixture.py),
   the decode itself (`h264_decode`, `h264_pictures`), and the
-  reference's parse as the port's input (`h264_slice_from_reference`).
+  reference's parse as the port's input (`h264_slice_from_reference`);
+- the encoders' round trip on `mpeg2_clip` at 1920x1080
+  (`ROUNDTRIP_GOLDEN`, written by tools/gen_torch_roundtrip_fixture.py):
+  the reference H.264 encoder's I and P packets of the first 2 frames
+  and its decoder's planes of them, the reference MPEG-2 decoder's PSNR
+  on the reference's I P P P encode, and the reference MJPEG encoder's
+  packet sizes and its flagship pipeline's PSNR on 8 frames
+  (`MJPEG_ENC_OPTIONS`, `mjpeg_pipeline_rgb`, `mjpeg_target_rgb`,
+  `rgb_psnr`).
 
 They live here so that each check reads them from the package and not
 from the other.
@@ -96,6 +104,25 @@ HEVC_GOLDEN = DATA / "hevc_1080p_golden.npz"
 H264_CABAC = DATA / "h264_1080p_cabac.h264"
 H264_SMALL = DATA / "h264_crafted_small.h264"
 H264_GOLDEN = DATA / "h264_1080p_golden.npz"
+
+# The encoders' round trip on mpeg2_clip at 1920x1080: the H.264
+# encoder's defaults on the first 2 frames (I, P); the MPEG-2 decoder on
+# the I P P P encode at ENC_OPTIONS; the MJPEG encoder with the
+# flagship's options (bench.py's) on the first 8 frames, its packets
+# decoded by the flagship pipeline to 224x224 rgb24 and held against the
+# source frames through the same scale (bicubic, full-range source,
+# centred chroma, as the pipeline's operators build it).
+ROUNDTRIP_GOLDEN = DATA / "roundtrip_1080p_golden.npz"
+RT_FRAMES = 8                 # clip frames the golden's checksum covers
+H264_ENC_FRAMES = 2
+MJPEG_ENC_OPTIONS = {"quality": 88, "restart_interval": 1,
+                     "huffman": "optimal", "max_code_len": 8}
+# TpuEntropySpec.stride for the clip: its textured MCUs take up to 237
+# bytes a restart segment at these options, past the flagship's 192
+MJPEG_SEGMENT_STRIDE = 512
+MJPEG_TARGET_SPEC = dict(src_fmt="yuv420p", dst_w=OUT, dst_h=OUT,
+                         dst_fmt="rgb24", filter="bicubic", src_range=True,
+                         src_chroma_loc="center")
 
 
 def packed_cap(pkts) -> int:
@@ -197,6 +224,43 @@ def recon_psnr(recon, frame) -> float:
         for r, p in zip(recon, frame.planes[:3])])
     mse = float((d * d).mean())
     return float(10 * np.log10(255 * 255 / max(mse, 1e-12)))
+
+
+def mjpeg_pipeline_rgb(pkts, device, w: int = W, h: int = H):
+    """4:2:0 MJPEG packets with one MCU per restart interval through the
+    flagship pipeline (MjpegTpuEntropyPipeline, K1 on a card) as one
+    batch: (3, n, OUT, OUT) uint8 rgb24 on the host."""
+    from .models.mjpeg_tpu_entropy import (MjpegTpuEntropyPipeline,
+                                           TpuEntropySpec)
+    max_scan = max(len(p) - _parse_until_scan(p, _JpegState())[0]
+                   for p in pkts)
+    cap = 2 * (-(-w // 16)) * (-(-h // 16)) + 512 * 12 + max_scan \
+        + MJPEG_SEGMENT_STRIDE + 128
+    spec = TpuEntropySpec(w, h, OUT, OUT, batch=len(pkts),
+                          stride=MJPEG_SEGMENT_STRIDE, packed_cap=cap)
+    pipe = MjpegTpuEntropyPipeline(spec, max(pkts, key=len), device=device)
+    for i, p in enumerate(pkts):
+        pipe.prep_frame(p, i)
+    return np.stack([c.cpu().numpy() for c in pipe.run_batch()])
+
+
+def mjpeg_target_rgb(frames, device) -> np.ndarray:
+    """The source frames through the scale the flagship pipeline folds
+    into its operators (MJPEG_TARGET_SPEC): (3, n, OUT, OUT) uint8."""
+    from .scale.swscale import Scaler
+    f0 = frames[0]
+    sc = Scaler(device, src_w=f0.width, src_h=f0.height,
+                **MJPEG_TARGET_SPEC)
+    return np.stack([np.stack([c.cpu().numpy() for c in sc.run(
+        [np.asarray(p) for p in f.planes[:3]])]) for f in frames], axis=1)
+
+
+def rgb_psnr(got: np.ndarray, want: np.ndarray) -> list:
+    """Per-frame PSNR (dB) of (3, n, h, w) uint8 planes against `want`,
+    over the three components together."""
+    d = got.astype(np.float64) - want.astype(np.float64)
+    mse = (d * d).mean(axis=(0, 2, 3))
+    return [float(10 * np.log10(255 * 255 / max(m, 1e-12))) for m in mse]
 
 
 def plane_sha256(plane) -> str:

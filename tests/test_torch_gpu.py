@@ -7,7 +7,9 @@ within 1 LSB; the audio frontend's stages against their CPU runs; and
 the VP9 decoder and its device loop filter, byte-exact against the CPU
 run, the host filter and the reference's committed hashes; the H.264
 decoder's transforms, inter prediction and wavefronts against the CPU
-run, and its streams against the reference's committed hashes.  Marked
+run, and its streams against the reference's committed hashes; K2 on
+the H.264 encoder's planes, and the encoders' round trips (H.264,
+MPEG-2, MJPEG through the flagship pipeline) against the CPU.  Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
 card and without jax they run without tests/conftest.py (which imports
@@ -537,3 +539,89 @@ def test_h264_1080p_on_card_matches_golden(cuda):
     assert [[fx.plane_sha256(p) for p in f.planes] for f in got] == \
         gold["cabac_1080p"].tolist()
     assert [s["slice_type"] for s in stats] == [2, 0, 1]
+
+
+def test_k2_on_h264_encoder_planes_matches_plain(cuda):
+    """K2 on what the H.264 encoder uploads: the padded 1088x1920 uint8
+    luma of clip frames 1 and 0, B=16, R=8, against its plain version."""
+    frames = fx.mpeg2_clip(2, fx.W, fx.H)
+    cur, ref = (torch.from_numpy(np.pad(np.asarray(f.planes[0]),
+                                        ((0, 8), (0, 0)), mode="edge"))
+                .to(cuda) for f in frames[::-1])
+    got = me.sad_cost_volume_strip(cur, ref, 16, 8)
+    assert torch.equal(got, me.sad_cost_volume_strip_plain(cur, ref, 16, 8))
+
+
+def _encode_all(ctx, frames):
+    out = []
+    for f in frames:
+        ctx.send_frame(f)
+        out.append(ctx.receive_packet().data)
+    return out
+
+
+def test_h264_round_trip_on_card_matches_cpu(cuda):
+    """I P P at 200x120 (padded to 208x128 for the search) on the card:
+    one K2 launch per P frame, packets byte-identical to the CPU's, and
+    open_decoder("h264") on the card gives the encoder's reconstruction."""
+    frames = fx.mpeg2_clip(3, 200, 120)
+    par = EncoderParameters("h264", 200, 120)
+    card = CodecContext.open_encoder(par, device=cuda)
+    before = me.KERNEL_LAUNCHES
+    got = _encode_all(card, frames)
+    assert me.KERNEL_LAUNCHES == before + 2
+    assert got == _encode_all(CodecContext.open_encoder(par, device="cpu"),
+                              frames)
+    dec = fx.h264_decode(b"".join(got), cuda)
+    assert len(dec) == 3 and all(p.is_cuda for p in dec[2].planes)
+    for p, r in zip(dec[2].planes, card.codec._recon):
+        np.testing.assert_array_equal(p.cpu().numpy(), r[:p.shape[0],
+                                                          :p.shape[1]])
+
+
+def test_mpeg2_round_trip_on_card_matches_cpu(cuda):
+    """The MPEG-2 encoder's I P P P at 200x120 on the card, decoded by
+    open_decoder("mpeg2video") on the card and on the CPU: I pictures
+    within 1 LSB on <= 1% of samples, every picture >= 60 dB."""
+    frames = fx.mpeg2_clip(4, 200, 120)
+    pkts = _encode_all(CodecContext.open_encoder(
+        EncoderParameters("mpeg2video", 200, 120), {"qscale": 6},
+        device=cuda), frames)
+
+    def dec(device):
+        return CodecContext.open_decoder(
+            CodecParameters(codec_id="mpeg2video"), device=device) \
+            .decode_all([Packet(data=p, pts=i) for i, p in enumerate(pkts)])
+    got, want = dec(cuda), dec("cpu")
+    assert [f.pict_type for f in got] == ["I", "P", "P", "P"]
+    for g, w in zip(got, want):
+        for a, b in zip(g.planes, w.planes):
+            assert a.is_cuda
+            a, b = a.cpu().numpy(), b.numpy()
+            if g.pict_type == "I":
+                _within_one_lsb(a, b)
+            d = (a.astype(np.float64) - b) ** 2
+            assert d.mean() == 0 or 10 * np.log10(255 ** 2 / d.mean()) >= 60
+
+
+def test_mjpeg_round_trip_on_card_matches_cpu(cuda):
+    """The MJPEG encoder with the flagship's options at 320x176 on the
+    card: coefficients within one step of the CPU's on <= 1e-3 of
+    positions; its packets through the flagship pipeline (K1) on the card
+    within 1 LSB of the pipeline on the CPU."""
+    frames = fx.mpeg2_clip(2, 320, 176)
+    par = EncoderParameters("mjpeg", 320, 176)
+    card = CodecContext.open_encoder(par, dict(fx.MJPEG_ENC_OPTIONS),
+                                     device=cuda)
+    cpu = CodecContext.open_encoder(par, dict(fx.MJPEG_ENC_OPTIONS),
+                                    device="cpu")
+    for f in frames:
+        for a, b in zip(card.codec.transform(f)[0],
+                        cpu.codec.transform(f)[0]):
+            d = np.abs(a.astype(np.int64) - b)
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+    pkts = _encode_all(card, frames)
+    before = huffman.KERNEL_LAUNCHES
+    got = fx.mjpeg_pipeline_rgb(pkts, cuda, 320, 176)
+    assert huffman.KERNEL_LAUNCHES == before + 1
+    _within_one_lsb(got, fx.mjpeg_pipeline_rgb(pkts, "cpu", 320, 176))

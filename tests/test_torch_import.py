@@ -18,7 +18,10 @@ loop filter; then the HEVC decoder, on its device path and its host
 path (device_recon=False), over the committed small crafted stream
 against the reference's hashes; then the H.264 decoder, on its device
 path and its host path (recon="host"), over its committed small
-crafted stream against the reference's hashes; all on the CPU."""
+crafted stream against the reference's hashes; then the encoders' round
+trips: the H.264 encoder's I and P through the H.264 decoder, the MPEG-2
+encoder's packets through the MPEG-1/2 decoder, and the MJPEG encoder's
+packet through the MJPEG decoder; all on the CPU."""
 
 import re
 import subprocess
@@ -161,6 +164,38 @@ agold = np.load(H264_GOLDEN)["small"].tolist()
 for opts in (None, {"recon": "host"}):
     afr = h264_decode(H264_SMALL.read_bytes(), "cpu", opts)
     assert [[plane_sha256(p) for p in f.planes] for f in afr] == agold
+from ffmpeg_tpu_torch.codecs import encoder_names
+assert {"h264", "mjpeg", "mpeg2video"} <= set(encoder_names())
+assert {"mpeg2video", "mpeg1video"} <= set(decoder_names())
+clip = mpeg2_clip(2, 64, 48)
+henc = CodecContext.open_encoder(EncoderParameters("h264", 64, 48),
+                                 device="cpu")
+hdata = b""
+for f in clip:
+    henc.send_frame(f)
+    hdata += henc.receive_packet().data
+hfr = h264_decode(hdata, "cpu")
+assert len(hfr) == 2
+for p, r in zip(hfr[1].planes, henc.codec._recon):
+    assert np.array_equal(p.numpy(), r)
+menc = CodecContext.open_encoder(EncoderParameters("mpeg2video", 64, 48),
+                                 {"qscale": 6}, device="cpu")
+mpk = []
+for f in clip:
+    menc.send_frame(f)
+    mpk.append(Packet(data=menc.receive_packet().data))
+mfr = CodecContext.open_decoder(CodecParameters(codec_id="mpeg2video"),
+                                device="cpu").decode_all(mpk)
+assert [f.pict_type for f in mfr] == ["I", "P"]
+assert mfr[1].planes[0].shape == (48, 64)
+jenc = CodecContext.open_encoder(EncoderParameters("mjpeg", 64, 48),
+                                 device="cpu")
+jenc.send_frame(clip[0])
+jfr = CodecContext.open_decoder(CodecParameters(codec_id="mjpeg"),
+                                device="cpu").decode_all(
+    [Packet(data=jenc.receive_packet().data)])
+assert jfr[0].planes[0].shape == (48, 64)
+assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
              or m.startswith(("jax.", "ffmpeg_tpu.")))
@@ -202,3 +237,15 @@ def test_chip_smoke_imports_only_the_port():
     pat = re.compile(r"^\s*(import|from)\s+(jax|ffmpeg_tpu)\b", re.M)
     hits = pat.findall((REPO / "chip_smoke.py").read_text())
     assert not hits, hits
+
+
+def test_roundtrip_fixture_tool_takes_its_answers_from_the_reference():
+    """tools/gen_torch_roundtrip_fixture.py runs the reference by design,
+    so it stays out of the no-jax check above; of the port it imports
+    only the shared constants and helpers of ffmpeg_tpu_torch.testing,
+    so no answer in the golden comes from the code it checks."""
+    src = (REPO / "tools" / "gen_torch_roundtrip_fixture.py").read_text()
+    port = set(re.findall(r"^\s*(?:from|import)\s+(ffmpeg_tpu_torch[\w.]*)"
+                          r"(?:\s+import\s+(\w+))?", src, re.M))
+    assert port == {("ffmpeg_tpu_torch", "testing")}, port
+    assert re.search(r"^\s*from ffmpeg_tpu\.codecs import", src, re.M)

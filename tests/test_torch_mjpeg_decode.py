@@ -75,6 +75,43 @@ def test_decoder_matches_reference(w, h, opts):
             _within_one_lsb(a, b)
 
 
+def _port_jpeg(w, h, pix_fmt):
+    """One frame through the port's MJPEG encoder on the CPU (one MCU per
+    restart interval, optimal tables): testing.mpeg2_clip's luma and
+    seeded chroma planes of the format's size."""
+    from ffmpeg_tpu_torch.codecs import EncoderParameters
+    from ffmpeg_tpu_torch.testing import mpeg2_clip
+    sx, sy = {"yuv420p": (2, 2), "yuv422p": (2, 1), "yuv444p": (1, 1),
+              "yuv440p": (1, 2)}[pix_fmt]
+    rng = np.random.default_rng(w * h)
+    planes = [np.asarray(mpeg2_clip(1, w, h)[0].planes[0])] + [
+        rng.integers(40, 220, (-(-h // sy), -(-w // sx))).astype(np.uint8)
+        for _ in range(2)]
+    enc = CodecContext.open_encoder(
+        EncoderParameters("mjpeg", w, h),
+        {"quality": 85, "restart_interval": 1, "huffman": "optimal"},
+        device="cpu")
+    enc.send_frame(Frame.video(w, h, pix_fmt, planes=planes))
+    return enc.receive_packet().data
+
+
+@pytest.mark.parametrize("pix_fmt", ["yuv420p", "yuv422p", "yuv444p",
+                                     "yuv440p"])
+@pytest.mark.parametrize("w,h", [(37, 23), (33, 19)])
+def test_decoder_matches_reference_at_odd_sizes(w, h, pix_fmt):
+    """Sizes that are no multiple of the MCU, in every subsampling, on
+    streams of the port's own encoder."""
+    want, got = _decode_both([_port_jpeg(w, h, pix_fmt)])
+    assert len(got) == len(want) == 1
+    r, p = want[0], got[0]
+    assert (p.width, p.height, p.format) == (r.width, r.height, r.format) \
+        == (w, h, pix_fmt)
+    assert len(p.planes) == len(r.planes) == 3
+    for a, b in zip(p.planes, r.planes):
+        assert tuple(a.shape) == np.asarray(b).shape
+        _within_one_lsb(a, b)
+
+
 def test_decoder_on_a_fixture_frame():
     """One 1080p frame of the committed clip."""
     want, got = _decode_both(fixture_packets()[:1])
