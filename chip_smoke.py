@@ -34,7 +34,12 @@ Drives the port's paths through their user entry points at full size:
   the H.264 decoder; the MPEG-2 encoder's packets of phase 7 into the
   MPEG-1/2 decoder (open_decoder("mpeg2video")); the MJPEG encoder
   (open_encoder("mjpeg"), the flagship's options) into the flagship
-  pipeline (K1).
+  pipeline (K1);
+- the intra codecs' round trips at 1920x1080 on the seeded frame lifted
+  to 10-bit 4:2:2: ProRes and DNxHR HQX (open_encoder and open_decoder
+  "prores" and "dnxhd"); and the MPEG-4 Part 2 and H.263 decoders
+  (open_decoder("mpeg4"), ("h263")) on three committed streams of at
+  most 352x288.
 
 Phases, one line each:
 
@@ -192,10 +197,31 @@ Phases, one line each:
    through the same scale within 0.05 dB of the reference's decode of
    its own packets (committed); encode frames/s split into the device
    transform and the host packing.
-Phases 9-16 and 18 run PyTorch only: K1 and K2 are not on their paths,
-and each prints their launch counts over its run (0).  K2's launches
+20. ProRes 4:2:2 10-bit at qscale 4, open_encoder("prores") and
+   open_decoder("prores") on the card, on testing.intra_clip_frame at
+   1920x1080: the levels against the port's transform on the CPU (within
+   one step, each difference a truncation boundary that float32 cannot
+   decide: testing.intra_levels_check), the packet's size within 0.1% of
+   the reference's (committed; its sha256 reported), the decode's device
+   stage against the same parse's device stage on the CPU (within 1 LSB
+   on <= 1% of samples, >= 60 dB), each plane's PSNR against the source
+   within 0.05 dB of the reference's decode of its own packet
+   (committed); encode and decode frames/s, split into the device
+   transform and the host packing, and into the host parse, h2d bytes
+   and ms and the device transform (CUDA events).
+21. the same for DNxHR HQX (CID 1271): the levels' differences are
+   rounding ties; the host's quantise loop is in its packing.
+22. the MPEG-4 and H.263 decoders on the card: the three streams of
+   tests/data/port/mpeg4_streams.npz (176x144 MPEG-4 with B frames,
+   176x144 MPEG-4 with 4MV, 352x288 H.263 at 400 kb/s) against the
+   port's CPU decode (I pictures within 1 LSB on <= 1% of samples, every
+   picture >= 60 dB), each frame's sha256 against the reference's
+   counted; frames/s split into host parse, the IDCT on the card with
+   its copies, and host MC and reconstruction.
+Phases 9-16, 18 and 20-22 run PyTorch only: K1 and K2 are not on their
+paths, and each prints their launch counts over its run (0).  K2's launches
 in the JSON line count phases 7 and 17, K1's phases 4 and 19.  Phases
-13-19 print their wall times, and the script its own.
+13-22 print their wall times, and the script its own.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -422,6 +448,9 @@ def main() -> int:
     clip, k2_enc = phase17_h264_encode(dev, card)
     phase18_mpeg2_decode(dev, card, mpeg2_pkts)
     k1_enc = phase19_mjpeg_encode(dev, card, clip)
+    phase_intra(dev, card, "prores", 20)
+    phase_intra(dev, card, "dnxhd", 21)
+    phase22_mpeg4(dev, card)
     launches += k1_enc
     k2_launches += k2_enc
     print(f"whole script: {time.monotonic() - T0:.1f} s", flush=True)
@@ -642,23 +671,54 @@ def phase8_timing(dev, card, frames):
           f"ms, fdct8x8 {fdct_ms:.3f} ms", flush=True)
 
 
-def check_close(got, want, what: str) -> str:
-    """Phases 4, 9 and 10: uint8 planes within 1 LSB of `want`, on at
-    most 1% of samples, at >= 60 dB PSNR; raises outside, else describes."""
+def plane_diff(got, want, bits: int = 8) -> tuple:
+    """|got - want| as int32 for two integer arrays, and its PSNR (dB) at
+    the peak of `bits`."""
     import numpy as np
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    mse = float((d.astype(np.float64) ** 2).mean())
+    return d, 10 * np.log10(((1 << bits) - 1) ** 2 / max(mse, 1e-12))
+
+
+def check_close(got, want, what: str, bits: int = 8) -> str:
+    """Phases 4, 9, 10, 18 and 20-22: integer planes within 1 LSB of
+    `want`, on at most 1% of samples, at >= 60 dB PSNR at the peak of
+    `bits`; raises outside, else describes."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise RuntimeError(f"{what}: {got.shape} {got.dtype}, expected "
                            f"{want.shape} {want.dtype}")
-    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    d, psnr = plane_diff(got, want, bits)
     frac = float((d > 0).mean())
-    psnr = 10 * np.log10(255 ** 2 / max(float((d.astype(np.float64) ** 2)
-                                              .mean()), 1e-12))
     note = (f"max |diff| {int(d.max())}, {frac:.6%} of samples differ, "
             f"PSNR {psnr:.2f} dB")
     if d.max() > 1 or frac > 0.01 or psnr < 60:
         raise RuntimeError(f"{what} outside its tolerance (max 1 LSB, <= 1% "
                            f"differ, >= 60 dB): {note}")
     return note
+
+
+def check_pictures(got, want, dev, what: str) -> tuple[float, list]:
+    """Phases 18 and 22: 8-bit frames decoded on the card against the CPU
+    decode of the same packets: planes on `dev`, I pictures under
+    check_close's bar, every picture >= 60 dB; raises outside, else
+    (the worst PSNR, max |diff| per picture)."""
+    worst, dmax = float("inf"), []
+    for f, w in zip(got, want):
+        if any(p.device != dev for p in f.planes):
+            raise RuntimeError(f"{what}: decoded planes not on the card")
+        m = 0
+        for a, b in zip(f.planes, w.planes):
+            a, b = a.cpu().numpy(), b.cpu().numpy()
+            if f.pict_type == "I":
+                check_close(a, b, f"{what}: I picture against the CPU "
+                            f"decode")
+            d, psnr = plane_diff(a, b)
+            worst, m = min(worst, psnr), max(m, int(d.max()))
+        dmax.append(m)
+    if worst < 60:
+        raise RuntimeError(f"{what}: a picture at {worst:.2f} dB of the CPU "
+                           f"decode")
+    return worst, dmax
 
 
 def zero_counts() -> None:
@@ -2051,25 +2111,8 @@ def phase18_mpeg2_decode(dev, card, pkts) -> None:
     if [f.pict_type for f in got] != ["I", "P", "P", "P"]:
         raise RuntimeError(f"expected I P P P, got "
                            f"{[f.pict_type for f in got]}")
-    worst, notes = np.inf, []
-    for f, w in zip(got, want):
-        if any(p.device != dev for p in f.planes):
-            raise RuntimeError("decoded planes not on the card")
-        dmax = 0
-        for a, b in zip(f.planes, w.planes):
-            d = np.abs(a.cpu().numpy().astype(np.int32)
-                       - b.numpy().astype(np.int32))
-            mse = float((d.astype(np.float64) ** 2).mean())
-            worst = min(worst, 10 * np.log10(255 ** 2 / max(mse, 1e-12)))
-            dmax = max(dmax, int(d.max()))
-            if f.pict_type == "I" and (d.max() > 1 or
-                                       (d > 0).mean() > 0.01):
-                raise RuntimeError(f"I picture: max |diff| {d.max()}, "
-                                   f"{(d > 0).mean():.4%} differ from the "
-                                   f"CPU decode")
-        notes.append(f"{f.pict_type} {dmax}")
-    if worst < 60:
-        raise RuntimeError(f"a picture at {worst:.2f} dB of the CPU decode")
+    worst, dmax = check_pictures(got, want, dev, "mpeg2 decode")
+    notes = [f"{f.pict_type} {m}" for f, m in zip(got, dmax)]
     psnr = [recon_psnr([p.cpu().numpy() for p in f.planes], s)
             for f, s in zip(got, src)]
     dpsnr = [a - float(b) for a, b in zip(psnr, g["mpeg2_psnr"])]
@@ -2171,6 +2214,160 @@ def phase19_mjpeg_encode(dev, card, clip) -> int:
     print(f"phase 19 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
     return launches
+
+
+def phase_intra(dev, card, codec: str, number: int) -> None:
+    """Phases 20 (ProRes) and 21 (DNxHR HQX): the golden's 1920x1080
+    10-bit 4:2:2 frame through open_encoder(codec) on the card at qscale
+    4, its levels against the port's transform on the CPU (within one
+    step, each difference on a tie or boundary that float32 cannot
+    decide), the packet's size within 0.1% of the reference's (sha256
+    reported); the packet through open_decoder(codec) on the card, the
+    device stage against the same parse's device stage on the CPU (the
+    decoder bar), each plane's PSNR against the source within 0.05 dB of
+    the reference's decode of its own packet."""
+    import hashlib
+    import importlib
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.io.stream import CodecParameters
+    from ffmpeg_tpu_torch.testing import (INTRA_GOLDEN, INTRA_QSCALE,
+                                          clip_checksum, intra_clip_frame,
+                                          intra_levels_check, plane_psnr)
+    t_phase = time.monotonic()
+    g = np.load(INTRA_GOLDEN)
+    src = intra_clip_frame(ENC_W, ENC_H)
+    if clip_checksum([src]) != str(g["clip_sha256"]):
+        raise RuntimeError("the seeded frame differs from the golden's")
+    mod = importlib.import_module(f"ffmpeg_tpu_torch.codecs.{codec}")
+
+    def round_trip(frame, w, h, device, stats=False):
+        par = CodecParameters(codec_id=codec, width=w, height=h,
+                              pix_fmt="yuv422p10le")
+        enc = CodecContext.open_encoder(par, {"qscale": INTRA_QSCALE},
+                                        device=device)
+        dec = CodecContext.open_decoder(CodecParameters(
+            codec_id=codec, codec_tag=par.codec_tag), device=device)
+        if stats:
+            enc.codec.stats, dec.codec.stats = [], []
+        t = time.perf_counter()
+        enc.send_frame(frame)
+        pkt = enc.receive_packet()
+        t_enc = time.perf_counter() - t
+        t = time.perf_counter()
+        out = dec.decode_all([pkt])[0]
+        torch.cuda.synchronize()
+        return enc, dec, pkt.data, out, t_enc, time.perf_counter() - t
+
+    round_trip(intra_clip_frame(64, 48), 64, 48, dev)          # warm
+    zero_counts()
+    enc, dec, pkt, out, enc_s, dec_s = round_trip(src, ENC_W, ENC_H, dev,
+                                                  stats=True)
+    counts = read_counts()
+    if any(p.device != dev for p in out.planes):
+        raise RuntimeError("decoded planes not on the card")
+
+    cpu = CodecContext.open_encoder(CodecParameters(
+        codec_id=codec, width=ENC_W, height=ENC_H, pix_fmt="yuv422p10le"),
+        {"qscale": INTRA_QSCALE}, device="cpu")
+    lv = intra_levels_check(enc.codec, cpu.codec, src)
+    if lv["step"] > 1 or lv["off"]:
+        raise RuntimeError(f"levels against the CPU transform: {lv}")
+    rel = len(pkt) / int(g[f"{codec}_packet_bytes"]) - 1
+    if abs(rel) > 1e-3:
+        raise RuntimeError(f"packet {len(pkt)} B not within 0.1% of the "
+                           f"reference's {int(g[f'{codec}_packet_bytes'])}")
+    same = hashlib.sha256(pkt).hexdigest() == str(g[f"{codec}_packet_sha256"])
+    note = "; ".join(
+        check_close(a.cpu().numpy(), b.cpu().numpy(), f"{codec} decode "
+                    f"against the CPU's device stage", bits=10)
+        for a, b in zip(out.planes, mod.reconstruct(dec.codec.last_parsed,
+                                                    "cpu")))
+    psnr = plane_psnr(out.planes, src.planes, 10)
+    dpsnr = [a - float(b) for a, b in zip(psnr, g[f"{codec}_psnr"])]
+    if max(map(abs, dpsnr)) > 0.05:
+        raise RuntimeError(f"PSNR {psnr} not within 0.05 dB of the "
+                           f"reference's {g[f'{codec}_psnr'].tolist()}")
+    es, ds = enc.codec.stats[0], dec.codec.stats[0]
+    name = {"prores": "ProRes 4:2:2 10-bit",
+            "dnxhd": "DNxHR HQX (CID 1271)"}[codec]
+    print(f"phase {number} {codec} round trip [{card}]: {name} at "
+          f"1920x1080, qscale {INTRA_QSCALE}, through open_encoder/"
+          f"open_decoder('{codec}') on the card; levels against the CPU "
+          f"transform: {lv['diff']} of {lv['levels']} differ by one step, "
+          f"each on a tie or boundary float32 cannot decide (worst at "
+          f"{lv['worst']:.3g} of its bound); packet {len(pkt)} B "
+          f"({rel:+.5%} of the reference's, sha256 "
+          f"{'equal' if same else 'differs'}); decode against the CPU's "
+          f"device stage on the same parse (per plane: {note}); PSNR "
+          f"against the source {[round(x, 4) for x in psnr]} dB (diff to "
+          f"the reference's {[f'{x:+.4f}' for x in dpsnr]}); "
+          f"encode {1 / enc_s:.3f} frames/s ({enc_s * 1e3:.1f} ms: device "
+          f"transform with its copies {es['transform']:.2f}, host packing "
+          f"{es['pack']:.1f}); decode {1 / dec_s:.3f} frames/s "
+          f"({dec_s * 1e3:.1f} ms: host parse {ds['host']['parse']:.1f}, "
+          f"h2d {ds['device']['h2d']:.3f} ms "
+          f"({ds['h2d_bytes'] / 1e6:.2f} MB), device transform "
+          f"{ds['device']['transform']:.3f}); {counts}", flush=True)
+    print(f"phase {number} wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+
+
+def phase22_mpeg4(dev, card) -> None:
+    """The MPEG-4 and H.263 decoders on the card: the three committed
+    streams (tests/data/port/mpeg4_streams.npz, CIF and below) through
+    open_decoder on the card against the port's CPU decode (I pictures
+    within 1 LSB on <= 1% of samples, every picture >= 60 dB), each
+    frame's sha256 against the reference's reported."""
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.core.packet import Packet
+    from ffmpeg_tpu_torch.io.stream import CodecParameters
+    from ffmpeg_tpu_torch.testing import (MPEG4_STREAM_NAMES, mpeg4_stream,
+                                          plane_sha256)
+    t_phase = time.monotonic()
+
+    def decode(st, device, stats=None, n=None):
+        dec = CodecContext.open_decoder(CodecParameters(
+            codec_id=st["codec_id"], extradata=st["extradata"]),
+            device=device)
+        dec.codec.stats = stats
+        return dec.decode_all([Packet(data=p, pts=t) for p, t in
+                               zip(st["packets"][:n], st["pts"])])
+
+    decode(mpeg4_stream(MPEG4_STREAM_NAMES[0]), dev, n=2)     # warm
+    for name in MPEG4_STREAM_NAMES:
+        st = mpeg4_stream(name)
+        codec_id, w, h = st["codec_id"], st["width"], st["height"]
+        zero_counts()
+        stats = []
+        t = time.perf_counter()
+        got = decode(st, dev, stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        want = decode(st, "cpu")
+        if [f.pict_type for f in got] != st["types"]:
+            raise RuntimeError(f"{name}: picture types differ")
+        worst, dmax = check_pictures(got, want, dev, name)
+        sha = [[plane_sha256(p) for p in f.planes] for f in got]
+        equal = sum(a == b for a, b in zip(sha, st["sha256"]))
+        parse = sum(s["host"]["parse"] for s in stats)
+        mc = sum(s["host"]["mc"] for s in stats)
+        idct = sum(s["device"].get("idct", 0.0) for s in stats)
+        h2d = sum(s["h2d_bytes"] for s in stats)
+        print(f"phase 22 {name} [{card}]: {codec_id} {w}x{h}, {len(got)} "
+              f"pictures ({''.join(f.pict_type for f in got)}) through "
+              f"open_decoder('{codec_id}') on the card; against the CPU "
+              f"decode: max |diff| {max(dmax)}, worst PSNR {worst:.2f} dB; "
+              f"{equal} of {len(got)} frames equal to the reference's "
+              f"sha256; {len(got) / wall:.2f} frames/s ({wall * 1e3:.1f} "
+              f"ms, wall): host parse {parse:.1f} ms, IDCT on the card "
+              f"{idct:.3f} ms with its copies ({h2d / 1e6:.3f} MB up), host "
+              f"MC and reconstruction {mc:.1f} ms; {counts}", flush=True)
+    print(f"phase 22 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -4,6 +4,8 @@ encoders, as the reference's codec registry does."""
 from .codec import (CodecContext, EncoderParameters, Rational,  # noqa: F401
                     decoder_names, encoder_names)
 from . import aac  # noqa: F401  (registers the aac decoder)
+from . import dnxhd  # noqa: F401  (registers the dnxhd decoder)
+from . import dnxhd_enc  # noqa: F401  (registers the dnxhd encoder)
 from . import h264  # noqa: F401  (registers the h264 decoder)
 from . import h264_enc  # noqa: F401  (registers the h264 encoder)
 from . import hevc  # noqa: F401  (registers the hevc decoder)
@@ -11,4 +13,7 @@ from . import mjpeg  # noqa: F401  (registers the mjpeg decoder)
 from . import mjpeg_enc  # noqa: F401  (registers the mjpeg encoder)
 from . import mpeg12  # noqa: F401  (registers mpeg2video, mpeg1video)
 from . import mpeg12_enc  # noqa: F401  (registers mpeg2video)
+from . import mpeg4  # noqa: F401  (registers mpeg4, h263)
+from . import prores  # noqa: F401  (registers the prores decoder)
+from . import prores_enc  # noqa: F401  (registers the prores encoder)
 from . import vp9  # noqa: F401  (registers the vp9 decoder)

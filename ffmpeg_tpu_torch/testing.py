@@ -44,7 +44,17 @@ both check the port against the JAX reference's committed answers:
   on the reference's I P P P encode, and the reference MJPEG encoder's
   packet sizes and its flagship pipeline's PSNR on 8 frames
   (`MJPEG_ENC_OPTIONS`, `mjpeg_pipeline_rgb`, `mjpeg_target_rgb`,
-  `rgb_psnr`).
+  `rgb_psnr`);
+- the intra codecs' round trip on the clip's first frame lifted to
+  10-bit 4:2:2 (`intra_clip_frame`) at 1920x1080 (`INTRA_GOLDEN`,
+  written by tools/gen_torch_intra_fixture.py): the reference ProRes and
+  DNxHD encoders' packet sha256 and sizes and the per-plane sha256 and
+  PSNR (`plane_psnr`) of the reference decoders' output on them; and
+  three of tests/test_mpeg4.py's MPEG-4 and H.263 streams with the
+  sha256 of the reference decoder's planes (`MPEG4_STREAMS`, read by
+  `mpeg4_stream`);
+- the tie-aware bar of the encoders whose levels come from a float32
+  FDCT (`fdct_exact`, `undecided_levels`).
 
 They live here so that each check reads them from the package and not
 from the other.
@@ -123,6 +133,19 @@ MJPEG_SEGMENT_STRIDE = 512
 MJPEG_TARGET_SPEC = dict(src_fmt="yuv420p", dst_w=OUT, dst_h=OUT,
                          dst_fmt="rgb24", filter="bicubic", src_range=True,
                          src_chroma_loc="center")
+
+
+# The intra codecs (ProRes 4:2:2 10-bit and DNxHR HQX, CID 1271, both
+# at qscale 4) on intra_clip_frame at 1920x1080, and three MPEG-4/H.263
+# streams (test_mpeg4_bframes, test_mpeg4_4mv, test_h263_cif_rc).
+INTRA_GOLDEN = DATA / "intra_1080p_golden.npz"
+INTRA_QSCALE = 4
+MPEG4_STREAMS = DATA / "mpeg4_streams.npz"
+MPEG4_STREAM_NAMES = ("mpeg4_bframes", "mpeg4_4mv", "h263_cif_rc")
+# float32's error bound on an FDCT coefficient, as a share of the sum of
+# its terms' magnitudes: 16 units in the last place of float32 (2^-24
+# each), the bound of two 8-term float32 sums in any order
+F32_TOL = 2.0 ** -20
 
 
 def packed_cap(pkts) -> int:
@@ -401,3 +424,203 @@ def h264_pictures(data: bytes) -> list:
         else:
             head += nal
     return pkts
+
+
+def intra_clip_frame(w: int, h: int) -> Frame:
+    """mpeg2_clip's first frame lifted to 10-bit 4:2:2 (yuv422p10le): the
+    4:2:0 chroma rows repeated (the last one again where h is odd) and
+    every sample times 4.  Numpy uint16 planes, pts 0."""
+    f = mpeg2_clip(1, w, h)[0]
+    planes = [f.planes[0].astype(np.uint16) * 4]
+    for c in f.planes[1:3]:
+        c = np.repeat(c, 2, axis=0)
+        c = np.concatenate([c, c[-1:]])[:h] if c.shape[0] < h else c
+        planes.append(c.astype(np.uint16) * 4)
+    return Frame.video(w, h, "yuv422p10le", planes=planes, pts=0,
+                       time_base=Rational(1, 25))
+
+
+def plane_psnr(got, src, bits: int) -> list:
+    """Per-plane PSNR (dB) of decoded planes (tensors or arrays) against
+    the source planes, at the peak of `bits`."""
+    from .core.frame import host_array
+    peak = float((1 << bits) - 1)
+    out = []
+    for a, b in zip(got, src):
+        d = host_array(a).astype(np.float64) - np.asarray(b, np.float64)
+        mse = float((d * d).mean())
+        out.append(float(10 * np.log10(peak * peak / max(mse, 1e-12))))
+    return out
+
+
+def fdct_exact(blocks: np.ndarray):
+    """The FDCT of (..., 8, 8) blocks in float64 (ops/idct.py's basis),
+    and for each coefficient the sum of its 64 terms' magnitudes, the
+    scale of float32's rounding error on it."""
+    from .ops.idct import _dct8_matrix
+    a = _dct8_matrix()
+    x = np.asarray(blocks, np.float64)
+    coef = np.einsum("ux,...xy,vy->...uv", a, x, a)
+    mag = np.einsum("ux,...xy,vy->...uv", np.abs(a), np.abs(x), np.abs(a))
+    return coef, mag
+
+
+def undecided_levels(got, want, x, tol, mode: str) -> dict:
+    """Where two integer level arrays of one quantiser differ, how far
+    the exact value `x` (float64, the quantity that was rounded or
+    truncated) lies from the decision point: a half-integer for `mode`
+    "round", an integer for "trunc".  `tol` (same shape as x, or a
+    scalar) is float32's error bound on x.  Returns the count of
+    differing levels, the largest step between them, the count of those
+    farther than `tol` from a decision point (0 when every difference is
+    one that float32 arithmetic cannot decide), and the largest
+    distance over its bound."""
+    got = np.asarray(got, np.int64)
+    want = np.asarray(want, np.int64)
+    d = np.abs(got - want)
+    sel = d > 0
+    xs = np.asarray(x, np.float64)[sel]
+    tols = np.broadcast_to(np.asarray(tol, np.float64), d.shape)[sel]
+    if mode == "round":
+        dist = np.abs(np.abs(xs) - np.floor(np.abs(xs)) - 0.5)
+    elif mode == "trunc":
+        dist = np.abs(xs - np.round(xs))
+    else:
+        raise ValueError(mode)
+    ratio = dist / np.maximum(tols, 1e-300)
+    return {"diff": int(sel.sum()), "step": int(d.max(initial=0)),
+            "off": int((ratio > 1).sum()),
+            "worst": float(ratio.max(initial=0.0))}
+
+
+def prores_decisions(blocks, qmat, qscale: int, bits12: bool):
+    """The exact values that the ProRes quantiser truncates
+    (prores_enc.quantise_plane: the level-shifted FDCT over qmat ×
+    qscale) for (..., 8, 8) sample blocks, and float32's bound on each:
+    (x, tol), each (..., 64) raster."""
+    b = np.asarray(blocks, np.float64)
+    coef, mag = fdct_exact(b - 2048.0 if bits12 else (b - 512.0) * 4.0)
+    q = np.asarray(qmat, np.float64).reshape(8, 8) * qscale
+    x = coef / q
+    tol = F32_TOL * (mag / q + np.abs(x))
+    return x.reshape(*x.shape[:-2], 64), tol.reshape(*x.shape[:-2], 64)
+
+
+def dnxhd_levels(coefs, scale, qscale: int) -> np.ndarray:
+    """DnxhdEncoder.quant over whole arrays: (..., 8, 8) float32 FDCT
+    coefficients → (..., 64) levels in zigzag order, the same float32
+    arithmetic that NumPy gives quant's scalar expressions."""
+    from .ops.idct import ZIGZAG
+    c = np.asarray(coefs, np.float32)
+    czz = c.reshape(*c.shape[:-2], 64)[..., ZIGZAG]
+    out = np.zeros(czz.shape, np.int64)
+    out[..., 0] = np.round(czz[..., 0]).astype(np.int64)
+    w = np.asarray(scale[1:], np.int64)
+    b = np.where(w // qscale == 32, 0, 32).astype(np.float32)
+    a = np.abs(czz[..., 1:])
+    lev = np.round(((a * np.float32(64.0) - (w >> 1).astype(np.float32)
+                     - b) / w.astype(np.float32) - np.float32(1.0))
+                   / np.float32(2.0)).astype(np.int64)
+    lev = np.where((czz[..., 1:] == 0) | (lev <= 0), 0, lev)
+    out[..., 1:] = np.where(czz[..., 1:] < 0, -lev, lev)
+    return out
+
+
+def dnxhd_decisions(blocks, scale, qscale: int):
+    """The exact values that DnxhdEncoder.quant rounds for (..., 8, 8)
+    sample blocks (the DC coefficient; each AC level's
+    ((|c|·64 − w/2 − b)/w − 1)/2), and float32's bound on each: (x,
+    tol), each (..., 64) in zigzag order."""
+    from .ops.idct import ZIGZAG
+    coef, mag = fdct_exact(blocks)
+    czz = coef.reshape(*coef.shape[:-2], 64)[..., ZIGZAG]
+    mzz = mag.reshape(*mag.shape[:-2], 64)[..., ZIGZAG]
+    w = np.asarray(scale, np.int64)
+    b = np.where(w // qscale == 32, 0, 32)
+    x = np.empty_like(czz)
+    tol = np.empty_like(czz)
+    x[..., 0] = czz[..., 0]
+    tol[..., 0] = F32_TOL * (mzz[..., 0] + np.abs(czz[..., 0]))
+    x[..., 1:] = ((np.abs(czz[..., 1:]) * 64.0 - (w[1:] >> 1) - b[1:])
+                  / w[1:] - 1.0) / 2.0
+    tol[..., 1:] = F32_TOL * (mzz[..., 1:] * 32.0 / w[1:]
+                              + np.abs(x[..., 1:]) + 1.0)
+    return x, tol
+
+
+def jpeg_decisions(blocks, qtab):
+    """The exact values that the MJPEG encoder rounds
+    (ops/idct.jpeg_forward_transform: the FDCT of samples − 128, in
+    zigzag order, over the zigzag table `qtab`) for (..., 8, 8) sample
+    blocks, and float32's bound on each: (x, tol), each (..., 64)."""
+    from .ops.idct import ZIGZAG
+    coef, mag = fdct_exact(np.asarray(blocks, np.float64) - 128.0)
+    q = np.asarray(qtab, np.float64)
+    x = coef.reshape(*coef.shape[:-2], 64)[..., ZIGZAG] / q
+    tol = F32_TOL * (mag.reshape(*mag.shape[:-2], 64)[..., ZIGZAG] / q
+                     + np.abs(x))
+    return x, tol
+
+
+def plane_blocks(plane) -> np.ndarray:
+    """A (rows*8, cols*8) plane as (rows, cols, 8, 8) blocks."""
+    p = np.asarray(plane)
+    h, w = p.shape
+    return p.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+
+
+def intra_levels_check(enc_a, enc_b, frame) -> dict:
+    """Two ProRes or two DNxHD encoders of the same options (on two
+    devices) on one frame: their levels compared plane by plane by
+    `undecided_levels` against the exact values of the padded planes'
+    blocks, summed ("step" and "worst" the largest)."""
+    from .codecs.dnxhd_enc import DnxhdEncoder
+    from .codecs.prores_enc import _QMAT_FLAT4
+    from .core.frame import host_array
+    W, H = -(-enc_a.width // 16) * 16, -(-enc_a.height // 16) * 16
+    pads = []
+    for i, p in enumerate(frame.planes[:3]):
+        p = host_array(p)
+        tw = W if i == 0 or getattr(enc_a, "is444", False) else W // 2
+        pads.append(np.pad(p, ((0, H - p.shape[0]), (0, tw - p.shape[1])),
+                           mode="edge"))
+    out = {"diff": 0, "step": 0, "off": 0, "worst": 0.0}
+    if isinstance(enc_a, DnxhdEncoder):
+        qs, tb = enc_a.qscale, enc_a.tb
+        ca, cb = enc_a.transform(frame), enc_b.transform(frame)
+        parts = []
+        for name, pad in zip("yuv", pads):
+            scale = (tb["lw"] if name == "y" else tb["cw"]) * qs
+            x, tol = dnxhd_decisions(plane_blocks(pad), scale, qs)
+            parts.append((dnxhd_levels(ca[name], scale, qs),
+                          dnxhd_levels(cb[name], scale, qs), x, tol,
+                          "round"))
+    else:
+        la, lb = enc_a.transform(frame), enc_b.transform(frame)
+        parts = [(a, b) + prores_decisions(plane_blocks(pad), _QMAT_FLAT4,
+                                           enc_a.qscale, enc_a.bits12)
+                 + ("trunc",) for a, b, pad in zip(la, lb, pads)]
+    for part in parts:
+        r = undecided_levels(*part)
+        out["diff"] += r["diff"]
+        out["off"] += r["off"]
+        out["step"] = max(out["step"], r["step"])
+        out["worst"] = max(out["worst"], r["worst"])
+    out["levels"] = sum(int(np.asarray(p[0]).size) for p in parts)
+    return out
+
+
+def mpeg4_stream(name: str) -> dict:
+    """One stream of MPEG4_STREAMS: codec_id, width, height, extradata,
+    packets (bytes) and their pts, and the reference decoder's picture
+    types and per-plane sha256."""
+    z = np.load(MPEG4_STREAMS)
+    codec_id, w, h = z[f"{name}_params"].tolist()
+    data = z[f"{name}_data"].tobytes()
+    offs = np.concatenate([[0], np.cumsum(z[f"{name}_sizes"])])
+    return {"codec_id": codec_id, "width": int(w), "height": int(h),
+            "extradata": z[f"{name}_extradata"].tobytes(),
+            "packets": [data[a:b] for a, b in zip(offs[:-1], offs[1:])],
+            "pts": [int(t) for t in z[f"{name}_pts"]],
+            "types": z[f"{name}_types"].tolist(),
+            "sha256": z[f"{name}_sha256"].tolist()}

@@ -9,7 +9,8 @@ run, the host filter and the reference's committed hashes; the H.264
 decoder's transforms, inter prediction and wavefronts against the CPU
 run, and its streams against the reference's committed hashes; K2 on
 the H.264 encoder's planes, and the encoders' round trips (H.264,
-MPEG-2, MJPEG through the flagship pipeline) against the CPU.  Marked
+MPEG-2, MJPEG through the flagship pipeline, ProRes, DNxHD) and the
+MPEG-4 and H.263 decoders against the CPU.  Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
 card and without jax they run without tests/conftest.py (which imports
@@ -625,3 +626,59 @@ def test_mjpeg_round_trip_on_card_matches_cpu(cuda):
     got = fx.mjpeg_pipeline_rgb(pkts, cuda, 320, 176)
     assert huffman.KERNEL_LAUNCHES == before + 1
     _within_one_lsb(got, fx.mjpeg_pipeline_rgb(pkts, "cpu", 320, 176))
+
+
+@pytest.mark.parametrize("codec", ["prores", "dnxhd"])
+def test_intra_round_trip_on_card_matches_cpu(cuda, codec):
+    """The ProRes or DNxHD encoder at 200x120 (10-bit 4:2:2) on the card:
+    levels within one step of the CPU's, each difference on a tie or
+    boundary that float32 cannot decide; its packet decoded on the card
+    within 1 LSB on <= 1% of samples of the same parse's device stage on
+    the CPU, at >= 60 dB."""
+    import importlib
+    src = fx.intra_clip_frame(200, 120)
+    par = CodecParameters(codec_id=codec, width=200, height=120,
+                          pix_fmt="yuv422p10le")
+    card = CodecContext.open_encoder(par, device=cuda)
+    cpu = CodecContext.open_encoder(par, device="cpu")
+    r = fx.intra_levels_check(card.codec, cpu.codec, src)
+    assert r["step"] <= 1 and r["off"] == 0, r
+    card.send_frame(src)
+    pkt = card.receive_packet()
+    dec = CodecContext.open_decoder(CodecParameters(
+        codec_id=codec, codec_tag=par.codec_tag), device=cuda)
+    got = dec.decode_all([pkt])[0]
+    mod = importlib.import_module(f"ffmpeg_tpu_torch.codecs.{codec}")
+    want = mod.reconstruct(dec.codec.last_parsed, "cpu")
+    for a, b in zip(got.planes, want):
+        assert a.is_cuda
+        a, b = a.cpu().numpy().astype(np.int32), b.numpy().astype(np.int32)
+        d = np.abs(a - b)
+        assert d.max() <= 1 and (d > 0).mean() <= 0.01
+        mse = (d.astype(np.float64) ** 2).mean()
+        assert mse == 0 or 10 * np.log10(1023 ** 2 / mse) >= 60
+    assert min(fx.plane_psnr(got.planes, src.planes, 10)) > 45
+
+
+@pytest.mark.parametrize("name", fx.MPEG4_STREAM_NAMES)
+def test_mpeg4_streams_on_card_match_cpu(cuda, name):
+    """The committed MPEG-4 and H.263 streams through their decoders on
+    the card and on the CPU: I pictures within 1 LSB on <= 1% of
+    samples, every picture >= 60 dB, planes on the card."""
+    st = fx.mpeg4_stream(name)
+
+    def dec(device):
+        return CodecContext.open_decoder(CodecParameters(
+            codec_id=st["codec_id"], extradata=st["extradata"]),
+            device=device).decode_all([Packet(data=p, pts=t) for p, t in
+                                       zip(st["packets"], st["pts"])])
+    got, want = dec(cuda), dec("cpu")
+    assert [f.pict_type for f in got] == st["types"]
+    for g, w in zip(got, want):
+        for a, b in zip(g.planes, w.planes):
+            assert a.is_cuda
+            a, b = a.cpu().numpy(), b.numpy()
+            if g.pict_type == "I":
+                _within_one_lsb(a, b)
+            d = (a.astype(np.float64) - b) ** 2
+            assert d.mean() == 0 or 10 * np.log10(255 ** 2 / d.mean()) >= 60

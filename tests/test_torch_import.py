@@ -21,7 +21,9 @@ path and its host path (recon="host"), over its committed small
 crafted stream against the reference's hashes; then the encoders' round
 trips: the H.264 encoder's I and P through the H.264 decoder, the MPEG-2
 encoder's packets through the MPEG-1/2 decoder, and the MJPEG encoder's
-packet through the MJPEG decoder; all on the CPU."""
+packet through the MJPEG decoder; then the intra codecs: a frame through
+the ProRes and the DNxHD encoder and back through their decoders, and
+the MPEG-4 and H.263 decoders on committed streams; all on the CPU."""
 
 import re
 import subprocess
@@ -195,6 +197,30 @@ jfr = CodecContext.open_decoder(CodecParameters(codec_id="mjpeg"),
                                 device="cpu").decode_all(
     [Packet(data=jenc.receive_packet().data)])
 assert jfr[0].planes[0].shape == (48, 64)
+from ffmpeg_tpu_torch.testing import (intra_clip_frame, mpeg4_stream,
+                                      plane_psnr)
+assert {"prores", "dnxhd"} <= set(encoder_names())
+assert {"prores", "apch", "ap4h", "dnxhd", "mpeg4", "h263"} <= \
+    set(decoder_names())
+isrc = intra_clip_frame(48, 32)
+for cid in ("prores", "dnxhd"):
+    ipar = CodecParameters(codec_id=cid, width=48, height=32,
+                           pix_fmt="yuv422p10le")
+    ienc = CodecContext.open_encoder(ipar, device="cpu")
+    ienc.send_frame(isrc)
+    ifr = CodecContext.open_decoder(CodecParameters(
+        codec_id=cid, codec_tag=ipar.codec_tag), device="cpu").decode_all(
+        [ienc.receive_packet()])[0]
+    assert ifr.format == "yuv422p10le"
+    assert min(plane_psnr(ifr.planes, isrc.planes, 10)) > 45
+for name in ("mpeg4_4mv", "h263_cif_rc"):
+    vst = mpeg4_stream(name)
+    vfr = CodecContext.open_decoder(CodecParameters(
+        codec_id=vst["codec_id"], extradata=vst["extradata"]),
+        device="cpu").decode_all([Packet(data=p, pts=t) for p, t in
+                                  zip(vst["packets"][:2], vst["pts"])])
+    assert [f.pict_type for f in vfr] == ["I", "P"]
+    assert vfr[1].planes[0].shape == (vst["height"], vst["width"])
 assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
@@ -249,3 +275,16 @@ def test_roundtrip_fixture_tool_takes_its_answers_from_the_reference():
                           r"(?:\s+import\s+(\w+))?", src, re.M))
     assert port == {("ffmpeg_tpu_torch", "testing")}, port
     assert re.search(r"^\s*from ffmpeg_tpu\.codecs import", src, re.M)
+
+
+def test_intra_fixture_tool_takes_its_answers_from_the_reference():
+    """tools/gen_torch_intra_fixture.py runs the reference by design, like
+    the round-trip tool above: of the port it imports only
+    ffmpeg_tpu_torch.testing, and the codecs it runs are the
+    reference's."""
+    src = (REPO / "tools" / "gen_torch_intra_fixture.py").read_text()
+    port = set(re.findall(r"^\s*(?:from|import)\s+(ffmpeg_tpu_torch[\w.]*)"
+                          r"(?:\s+import\s+(\w+))?", src, re.M))
+    assert port == {("ffmpeg_tpu_torch", "testing")}, port
+    assert re.search(r"^\s*from ffmpeg_tpu\.codecs import CodecContext",
+                     src, re.M)

@@ -26,6 +26,7 @@ from ffmpeg_tpu_torch.codecs import mjpeg_enc as port_enc
 from ffmpeg_tpu_torch.core.frame import Frame
 from ffmpeg_tpu_torch.core.packet import Packet
 from ffmpeg_tpu_torch.io.stream import CodecParameters, MediaType
+from torch_port_util import assert_levels_at_ties
 
 CHROMA = {"yuv420p": (2, 2), "yuv422p": (2, 1), "yuv444p": (1, 1),
           "yuv440p": (1, 2), "gray": None}
@@ -51,9 +52,10 @@ def _frames(w, h, fmt, seed=0):
             Frame.video(w, h, fmt, planes=planes, pts=seed))
 
 
-def _ref_coeffs(rf, enc):
+def _ref_coeffs(rf, enc, pads=None):
     """The reference's device analysis of one frame, as its encode runs
-    it (the same padding and jpeg_forward_transform calls)."""
+    it (the same padding and jpeg_forward_transform calls); `pads`, when
+    a list, gets each component's padded plane."""
     planes = [np.asarray(p) for p in rf.planes]
     fmt = rf.format
     ncomp = 1 if fmt == "gray" else 3
@@ -73,6 +75,8 @@ def _ref_coeffs(rf, enc):
         pad[:ch, :cw] = p
         pad[ch:, :cw] = p[ch - 1:ch, :]
         pad[:, cw:] = pad[:, cw - 1:cw]
+        if pads is not None:
+            pads.append(pad)
         out.append(np.asarray(ref_transform(pad, q[ci], rows, cols))
                    .reshape(rows, cols, 64))
     return out, q, samp, mx, my, ncomp
@@ -119,6 +123,36 @@ def test_encoder_matches_reference(w, h, fmt, opts):
         assert got_pkt.data == want_pkt.data
     assert abs(len(got_pkt.data) / len(want_pkt.data) - 1) <= 1e-3
     assert (got_pkt.flags, got_pkt.pts) == (want_pkt.flags, want_pkt.pts)
+
+
+@pytest.mark.parametrize("w,h,fmt,opts", [
+    (17, 9, "yuv440p", {"huffman": "optimal"}),
+    (31, 47, "yuv420p", {"quality": 100, "restart_interval": 7}),
+    (65, 33, "yuv422p", {"huffman": "optimal", "max_code_len": 16}),
+], ids=["440-optimal", "420-q100-ri7", "422-optimal16"])
+def test_encoder_small_frames_at_float32_ties(w, h, fmt, opts):
+    """Small frames, where one differing coefficient is more than 1e-3 of
+    the positions: every coefficient within one step of the reference's
+    and each differing one on a rounding tie that float32 cannot decide
+    (torch_port_util.assert_levels_at_ties); the packing byte-identical
+    on the reference's coefficients."""
+    rf, pf = _frames(w, h, fmt)
+    ref = RefContext.open_encoder(RefParams(
+        codec_type="video", codec_id="mjpeg", width=w, height=h),
+        options=dict(opts))
+    port = CodecContext.open_encoder(EncoderParameters("mjpeg", w, h),
+                                     dict(opts), device="cpu")
+    want_pkt = ref.codec.encode(rf)[0]
+    pads = []
+    want = _ref_coeffs(rf, ref.codec, pads)
+    got = port.codec.transform(pf)
+    assert got[2:] == want[2:]
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_array_equal(a, b)
+    for a, b, pad, q in zip(got[0], want[0], pads, want[1]):
+        x, tol = fx.jpeg_decisions(fx.plane_blocks(pad), q)
+        assert_levels_at_ties(a, b, x, tol, "round")
+    assert port.codec._pack(pf, *want) == want_pkt.data
 
 
 def test_reference_gray_optimal_fault():

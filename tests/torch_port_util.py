@@ -1,6 +1,7 @@
 """Shared inputs for the PyTorch port's equality tests (test_torch_*.py):
 JPEG frames made by the reference encoder, the committed 1080p fixture,
-and the reference's own coefficients for a batch of packed regions.
+the reference's own coefficients for a batch of packed regions, and the
+tie-aware bar of the encoders that quantise a float32 FDCT.
 The fixture's constants, its packed cap and the C++ host decode are in
 ffmpeg_tpu_torch.testing, which chip_smoke.py reads too."""
 
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ffmpeg_tpu_torch.testing import FIXTURE
+from ffmpeg_tpu_torch.testing import FIXTURE, undecided_levels
 
 
 def encode_jpeg(w: int, h: int, quality: int = 85, frame: int = 0,
@@ -62,3 +63,16 @@ def reference_coefficients(regions: np.ndarray, nmcu: int,
     return np.stack([np.asarray(jpeg_scan_decode9(
         jnp.asarray(rows[b]), jnp.ones(nmcu, bool), jnp.asarray(luts[b]),
         cur0=jnp.asarray(cur0[b]))) for b in range(B)])
+
+
+def assert_levels_at_ties(got, want, x, tol, mode: str) -> dict:
+    """The encoders' coefficient bar: every level within one step of the
+    reference's, and each differing level one that float32 cannot
+    decide: its exact value `x` (float64) lies on a rounding tie
+    (`mode` "round") or a truncation boundary ("trunc") within `tol`,
+    float32's error bound on x (testing.undecided_levels).  Both FDCTs
+    are float32, summed in their own orders, so neither side rounds such
+    a value reliably.  Returns the counts."""
+    r = undecided_levels(got, want, x, tol, mode)
+    assert r["step"] <= 1 and r["off"] == 0, r
+    return r
