@@ -39,7 +39,12 @@ Drives the port's paths through their user entry points at full size:
   to 10-bit 4:2:2: ProRes and DNxHR HQX (open_encoder and open_decoder
   "prores" and "dnxhd"); and the MPEG-4 Part 2 and H.263 decoders
   (open_decoder("mpeg4"), ("h263")) on three committed streams of at
-  most 352x288.
+  most 352x288;
+- the audio decoders: MPEG audio Layers I-III (open_decoder("mp3"),
+  "mp2", "mp1"; the hybrid filterbank ops/mp3fb.py on the card), AC-3
+  and E-AC-3 ("ac3", "eac3"; the IMDCT ops/ac3fb.py on the card) and
+  HE-AAC (the AAC decoder's IMDCT on the card, SBR and PS on the host)
+  on the ten committed streams of about 1 s each.
 
 Phases, one line each:
 
@@ -218,10 +223,26 @@ Phases, one line each:
    picture >= 60 dB), each frame's sha256 against the reference's
    counted; frames/s split into host parse, the IDCT on the card with
    its copies, and host MC and reconstruction.
-Phases 9-16, 18 and 20-22 run PyTorch only: K1 and K2 are not on their
+23. the audio decoders on the card: mp3fb's packet forms and
+   ac3fb.frame on seeded inputs at the decoders' shapes against their
+   CPU runs (within 1e-5 of the CPU output's largest magnitude); each
+   stream of tests/data/port/audio_streams.npz (E-AC-3 5.1 and AC-3
+   stereo from the reference binary's encoder, crafted E-AC-3 AHT + SPX,
+   crafted MP3 bit-reservoir, short-block and M/S frames, crafted MP2
+   and MP1 stereo, HE-AAC with SBR and with PS on an AAC-LC core) through
+   open_decoder on the card, after a warm pass, against the port's CPU
+   decode of the same packets and its first packets against the
+   reference's committed PCM, within testing.audio_bar (max |diff| <=
+   1e-5 of full scale and >= 100 dB; SBR and PS >= 100 dB); the
+   filterbank state on the card; x-realtime over the median of 5
+   passes, split into host parse, h2d bytes and ms, the device
+   filterbank (CUDA events) and d2h (for HE-AAC: host parse, the IMDCT
+   stage, host window and SBR); device launches per packet from
+   torch.profiler in a child process.
+Phases 9-16, 18 and 20-23 run PyTorch only: K1 and K2 are not on their
 paths, and each prints their launch counts over its run (0).  K2's launches
 in the JSON line count phases 7 and 17, K1's phases 4 and 19.  Phases
-13-22 print their wall times, and the script its own.
+13-23 print their wall times, and the script its own.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -451,6 +472,7 @@ def main() -> int:
     phase_intra(dev, card, "prores", 20)
     phase_intra(dev, card, "dnxhd", 21)
     phase22_mpeg4(dev, card)
+    phase23_audio_decoders(dev, card)
     launches += k1_enc
     k2_launches += k2_enc
     print(f"whole script: {time.monotonic() - T0:.1f} s", flush=True)
@@ -995,17 +1017,20 @@ def phase11_dataloader(dev, card) -> None:
           flush=True)
 
 
-def _close_audio(got, want, what: str, tol: float, min_snr: float) -> str:
-    """Phase 12: float32 samples within `tol` of `want` at >= `min_snr`
-    dB; raises outside, else describes."""
+def _close_audio(got, want, what: str, tol, min_snr: float) -> str:
+    """Phases 12 and 23: float32 samples within `tol` (None: no bound) of
+    `want`, times its largest magnitude where that exceeds full scale 1,
+    at >= `min_snr` dB; raises outside, else describes."""
     import numpy as np
     from ffmpeg_tpu_torch.testing import snr_db
     if got.shape != want.shape or got.dtype != np.float32:
         raise RuntimeError(f"{what}: {got.shape} {got.dtype}, expected "
                            f"{want.shape} float32")
+    if tol is not None:
+        tol *= max(1.0, float(np.abs(want).max()))
     err, snr = float(np.abs(got - want).max()), snr_db(got, want)
     note = f"{what} {got.shape} max |diff| {err:.3g}, SNR {snr:.2f} dB"
-    if err > tol or snr < min_snr:
+    if (tol is not None and err > tol) or snr < min_snr:
         raise RuntimeError(f"{note}: outside max |diff| <= {tol}, SNR >= "
                            f"{min_snr} dB")
     return note
@@ -1030,7 +1055,8 @@ def _audio_device_stages(dev, par, pkts, pcm):
     from ffmpeg_tpu_torch.ops import tx
     from ffmpeg_tpu_torch.resample import swresample
     dec = CodecContext.open_decoder(par, device=dev).codec
-    chans = [ch for _, outs in dec.parse_packets(pkts) for _, ch in outs]
+    chans = [ch for _, outs, _sbr in dec.parse_packets(pkts)
+             for _, ch in outs]
     spec = np.stack([ch.coeffs.astype(np.float32) for ch in chans
                      if ch.ics.window_sequence != EIGHT_SHORT])
     spec_d = torch.from_numpy(spec).to(dev)
@@ -2368,6 +2394,239 @@ def phase22_mpeg4(dev, card) -> None:
               f"MC and reconstruction {mc:.1f} ms; {counts}", flush=True)
     print(f"phase 22 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
+
+# phase 23: each decoder's filterbank on the card against its CPU run, as
+# a share of the CPU output's largest magnitude (TX_REL, phase 12's bound)
+
+
+def _audio_fb_cases(dev) -> list:
+    """mp3fb's packet forms (Layer III: 2 granules of stereo; Layer II:
+    36 slots) and ac3fb.frame (6 blocks of 5.1, some block-switched, the
+    LFE never) on seeded inputs with carried state, on `dev` and on the
+    CPU: [(what, (card tensors), (CPU tensors))]."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.ops import ac3fb, mp3fb
+    rng = np.random.default_rng(23)
+
+    def f32(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32))
+    xr, ov, fifo = f32((2, 2, 32, 18), 0.05), f32((2, 32, 18), 0.01), \
+        f32((2, 16, 64), 0.01)
+    bt = torch.from_numpy(rng.integers(0, 4, (2, 2, 32)).astype(np.int32))
+    bt[0, 0, :2] = 0
+    sub, xf, delay = f32((2, 36, 32), 0.1), f32((6, 6, 256), 0.1), \
+        f32((6, 128), 0.1)
+    sw = rng.random((6, 6)) < 0.3
+    sw[:, 5] = False
+
+    def run(d):
+        sb, ov2 = mp3fb.imdct_packet(xr.to(d), bt.to(d), ov.to(d))
+        pcm3, fifo3 = mp3fb.synth_packet(sb, fifo.to(d))
+        pcm2, fifo2 = mp3fb.synth_packet(sub.to(d), fifo.to(d))
+        return [("mp3fb Layer III packet", (pcm3, ov2, fifo3)),
+                ("mp3fb synthesis of 36 slots", (pcm2, fifo2)),
+                (f"ac3fb.frame ({int(sw.sum())} of 36 block-channels "
+                 f"switched)", ac3fb.frame(xf.to(d), sw, delay.to(d)))]
+    return [(what, card, cpu)
+            for (what, card), (_, cpu) in zip(run(dev), run("cpu"))]
+
+
+def _aac_split(st, dev) -> dict:
+    """One decode_frames of an HE-AAC stream on `dev` by its stages: host
+    parse, the IMDCT stage (h2d, device, d2h), host window, overlap-add
+    and SBR; and the IMDCT's h2d and device time alone (CUDA events)."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.codecs.aac import EIGHT_SHORT, LONG_SCALE
+    from ffmpeg_tpu_torch.ops import tx
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    dec = fx.audio_decoder(st, dev).codec
+    t = [time.perf_counter()]
+    parsed = dec.parse_packets(fx.audio_packets(st))
+    t.append(time.perf_counter())
+    dec.batched_imdct(parsed)
+    t.append(time.perf_counter())
+    dec.overlap_add(parsed)
+    t.append(time.perf_counter())
+    chans = [ch for _, outs, _ in parsed for _, ch in outs]
+    spec = np.stack([ch.coeffs.astype(np.float32) for ch in chans
+                     if ch.ics.window_sequence != EIGHT_SHORT])
+    spec_d = torch.from_numpy(spec).to(dev)
+    parse, stage, sbr = np.diff(t) * 1e3
+    return {"parse": parse, "stage": stage, "sbr": sbr,
+            "h2d_bytes": spec.nbytes, "d2h_bytes": 2 * spec.nbytes,
+            "n_short": len(chans) - len(spec),
+            "h2d_ms": cuda_ms(lambda: torch.from_numpy(spec).to(dev), 10),
+            "imdct_ms": cuda_ms(lambda: tx.imdct(spec_d, 1024, LONG_SCALE),
+                                10)}
+
+
+def audio_decoders_profile(device: str = "cuda:0") -> None:
+    """Phase 23's torch.profiler sessions, in a process of their own (see
+    audio_profile): for each committed audio stream, after a warm decode
+    of its first 2 packets, one whole decode profiled.  Prints one JSON
+    line: name → packets, device kernels, copies, the host's launch calls
+    and the device's busy ms."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    dev = torch.device(device)
+    out = {}
+    for name in fx.AUDIO_STREAM_NAMES:
+        st = fx.audio_stream(name)
+        fx.audio_decode(st, dev, n=2)
+        device_ev, api = profile_device(lambda: fx.audio_decode(st, dev),
+                                        warm=False)
+        kernels = sum(1 for n, _ in device_ev
+                      if not n.startswith(("Memcpy", "Memset")))
+        out[name] = {"packets": len(st["packets"]), "kernels": kernels,
+                     "copies": len(device_ev) - kernels, "api": api,
+                     "busy_ms": sum(us for _, us in device_ev) / 1e3}
+    print(json.dumps(out), flush=True)
+
+
+def _audio_decoders_profile_in_child(dev) -> dict:
+    """audio_decoders_profile() in a child process on `dev`; its line."""
+    r = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.audio_decoders_profile({str(dev)!r})"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"phase 23's profile exited {r.returncode}: "
+                           f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def phase23_audio_decoders(dev, card) -> None:
+    """The audio decoders on the card: the filterbanks against their CPU
+    runs; each committed stream through open_decoder on the card against
+    the port's CPU decode and the reference's committed PCM, its
+    filterbank state on the card; x-realtime and its split; launches per
+    packet (torch.profiler in a child process); K1 and K2 not launched."""
+    import statistics
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.codecs.aac import AacDecoder
+    t_phase = time.monotonic()
+    names = fx.AUDIO_STREAM_NAMES
+
+    # the filterbanks on seeded inputs
+    notes = []
+    for what, card_t, cpu_t in _audio_fb_cases(dev):
+        worst = 0.0
+        for a, b in zip(card_t, cpu_t):
+            if a.device != dev:
+                raise RuntimeError(f"{what}: a result on {a.device}")
+            full = float(b.abs().max())
+            err = float((a.cpu() - b).abs().max())
+            if err > TX_REL * full:
+                raise RuntimeError(f"{what} on the card differs from the CPU "
+                                   f"run by {err:.3g} (> {TX_REL} of full "
+                                   f"scale {full:.3g})")
+            worst = max(worst, err / full)
+        notes.append(f"{what} within {worst:.3g} of full scale")
+    print(f"phase 23 audio filterbanks [{card}]: on the card against the "
+          f"CPU run: {'; '.join(notes)}", flush=True)
+
+    # each stream, checked; the passes timed
+    for name in names:
+        fx.audio_decode(fx.audio_stream(name), dev, n=2)      # warm
+    zero_counts()
+    rows = {}
+    for name in names:
+        st = fx.audio_stream(name)
+        ctx = fx.audio_decoder(st, dev)
+        stats = []
+        ctx.codec.stats = stats
+        t = time.perf_counter()
+        got = ctx.decode_frames(fx.audio_packets(st))
+        torch.cuda.synchronize()
+        walls = [time.perf_counter() - t]
+        codec = ctx.codec
+        state = ([codec._overlap, codec._fifo]
+                 if st["codec_id"].startswith("mp") else
+                 [] if isinstance(codec, AacDecoder) else [codec._delay])
+        if codec.device != dev or any(
+                x is not None and x.device != dev for x in state):
+            raise RuntimeError(f"{name}: the decoder's state is not on the "
+                               f"card")
+        want = fx.audio_decode(st, "cpu")
+        if len(got) != len(want) or len(got) != len(st["packets"]):
+            raise RuntimeError(f"{name}: {len(got)} frames on the card, "
+                               f"{len(want)} on the CPU, "
+                               f"{len(st['packets'])} packets")
+        bar = fx.audio_bar(name)
+        n = fx.AUDIO_PREFIX_PACKETS
+        checks = [_close_audio(fx.audio_pcm(got), fx.audio_pcm(want),
+                               "against the CPU decode:", *bar),
+                  _close_audio(np.concatenate([f.audio_data
+                                               for f in got[:n]], 1),
+                               st["prefix"], f"first {n} packets against "
+                               f"the reference's PCM:", *bar)]
+        rows[name] = {"st": st, "got": got, "stats": stats, "walls": walls,
+                      "checks": checks}
+    for _ in range(4):
+        for name in names:
+            t = time.perf_counter()
+            fx.audio_decode(rows[name]["st"], dev)
+            torch.cuda.synchronize()
+            rows[name]["walls"].append(time.perf_counter() - t)
+    counts = read_counts()
+    from ffmpeg_tpu_torch.ops import huffman, me
+    if huffman.KERNEL_LAUNCHES or me.KERNEL_LAUNCHES:
+        raise RuntimeError(f"phase 23 launched K1 or K2: {counts}")
+
+    prof = _audio_decoders_profile_in_child(dev)
+    for name in names:
+        r = rows[name]
+        st, got = r["st"], r["got"]
+        secs = sum(f.nb_samples for f in got) / got[0].sample_rate
+        med = statistics.median(r["walls"])
+        if st["codec_id"] == "aac":
+            sp = _aac_split(st, dev)
+            split = (f"host parse {sp['parse']:.1f}, IMDCT stage "
+                     f"{sp['stage']:.2f} (h2d {sp['h2d_bytes']} B "
+                     f"{sp['h2d_ms']:.3f} ms, device {sp['imdct_ms']:.4f} ms "
+                     f"by CUDA events, {sp['n_short']} short-window "
+                     f"channels, d2h {sp['d2h_bytes']} B), host window, "
+                     f"overlap-add and SBR{' + PS' if 'ps' in name else ''} "
+                     f"{sp['sbr']:.1f}")
+        else:
+            ss = r["stats"]
+            dev_ms = {k: sum(s["device"][k] for s in ss)
+                      for k in ("h2d", "filterbank", "d2h")}
+            split = (f"host parse {sum(s['host']['parse'] for s in ss):.1f}, "
+                     f"h2d {sum(s['h2d_bytes'] for s in ss)} B "
+                     f"{dev_ms['h2d']:.3f} ms, device filterbank "
+                     f"{dev_ms['filterbank']:.3f} ms (CUDA events, launches "
+                     f"included), d2h {sum(s['d2h_bytes'] for s in ss)} B "
+                     f"{dev_ms['d2h']:.3f} ms, over {len(ss)} packets")
+        pr = prof[name]
+        launches = (f"{pr['kernels'] / pr['packets']:.1f} kernels + "
+                    f"{pr['copies'] / pr['packets']:.1f} copies per packet "
+                    f"({pr['kernels']} + {pr['copies']} over "
+                    f"{pr['packets']} packets, {pr['api']} launch calls; "
+                    f"device busy {pr['busy_ms']:.3f} ms, "
+                    f"{pr['busy_ms'] / (med * 1e3):.1%} of a pass)"
+                    if pr["kernels"] or pr["api"] else
+                    "launches not measured (the profiler saw no CUDA "
+                    "activity)")
+        print(f"phase 23 {name} [{card}]: {st['codec_id']}, "
+              f"{len(got[0].planes)} ch at {got[0].sample_rate} Hz, "
+              f"{len(got)} packets ({secs:.3f} s) through "
+              f"open_decoder('{st['codec_id']}') on the card: "
+              f"{'; '.join(r['checks'])}; {secs / med:.2f}x realtime "
+              f"(median {med * 1e3:.1f} ms of 5 passes, wall, "
+              f"{[round(w * 1e3, 1) for w in r['walls']]} ms); split of "
+              f"the first pass (ms): {split}; {launches}; {counts}",
+              flush=True)
+    print(f"phase 23 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+
 
 if __name__ == "__main__":
     sys.exit(main())

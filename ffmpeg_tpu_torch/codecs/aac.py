@@ -1,15 +1,21 @@
-"""AAC-LC decoder (counterpart of ffmpeg_tpu/codecs/aac.py; reference:
+"""AAC decoder (counterpart of ffmpeg_tpu/codecs/aac.py; reference:
 libavcodec/aac/aacdec*.c).  The LC core: SCE/CPE/LFE elements, section/
 scalefactor/spectral Huffman, PNS, M/S and intensity stereo, TNS, and the
-four window sequences.  SBR and PS are not ported yet: a stream that
-carries SBR data raises NotSupported.
+four window sequences; and HE-AAC v1/v2: SBR (aacsbr.py) and PS
+(aacps.py) on the core's PCM, at twice the core's rate, 2048 samples a
+packet, PS upmixing a mono SCE to stereo.
 
 Split: the bitstream work on the host (Python, with the spectral Huffman
 walk in the port's C++, `csrc/host/aac_spectral.cpp`); the IMDCT on the
 decoder's device through ops/tx.py; window and overlap-add in numpy on
-the host.  `decode_frames` parses every packet first, then runs one
-device IMDCT per window class over the whole batch and copies each
-class's result to the host once.
+the host; SBR and PS on the host in numpy, as in the reference.
+`decode_frames` parses every packet first, then runs one device IMDCT
+per window class over the whole batch and copies each class's result to
+the host once, then runs each packet's SBR in packet order.  A packet's
+SBR payloads are read where the parse finds them but decoded when that
+packet's SBR runs (`_SbrPayloads`), so that each SBR context reads its
+payloads and applies them in the reference's order, one packet after
+the other.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import native
+from .aacsbr import SBRContext
 from ..core.frame import Frame
 from ..core.packet import Packet
 from ..formats.channel_layout import default_layout
@@ -107,6 +114,18 @@ class ICSInfo:
     group_len: List[int] = field(default_factory=lambda: [1])
     swb_offset: List[int] = field(default_factory=list)
     num_swb: int = 0
+
+
+@dataclass
+class _SbrPayloads:
+    """One packet's SBR extension payloads (FIL elements of type
+    EXT_SBR_DATA or EXT_SBR_DATA_CRC), found by the parse: the packet's
+    raw data block, the core's sample rate then, and for each payload in
+    bitstream order the element it follows ("sce"/"cpe", tag), its CRC
+    flag and the bit position where it starts."""
+    data: bytes
+    sample_rate: int
+    ext: list = field(default_factory=list)
 
 
 @dataclass
@@ -230,6 +249,7 @@ class AacDecoder(Codec):
             self._parse_asc(par.extradata)
         self._overlap = {}      # channel key → (1024,) float
         self._prev_shape = {}
+        self._sbr = {}          # element key → SBRContext
         # PNS noise generator state (aac/aacdec.c:1353 — one LCG per
         # decoder, advanced per noise coefficient in decode order)
         self._random_state = 0x1F2E3D4C
@@ -276,8 +296,9 @@ class AacDecoder(Codec):
         return self.overlap_add(parsed)
 
     def parse_packets(self, pkts: List[Packet]) -> list:
-        """Host stage of decode_frames: [(packet, channel outputs)]."""
-        return [(pkt, self._parse_frame(bytes(pkt.data)))
+        """Host stage of decode_frames: [(packet, channel outputs, SBR
+        payloads or None)]."""
+        return [(pkt, *self._parse_frame(bytes(pkt.data)))
                 for pkt in pkts if pkt is not None and pkt.data]
 
     def batched_imdct(self, parsed: list) -> None:
@@ -285,7 +306,7 @@ class AacDecoder(Codec):
         and one for all short ones, each class's coefficients copied to the
         device once and its samples back once."""
         longs, shorts = [], []
-        for _pkt, outputs in parsed:
+        for _pkt, outputs, _sbr in parsed:
             for _key, ch in outputs:
                 if ch.ics.window_sequence == EIGHT_SHORT:
                     shorts.append(ch)
@@ -305,33 +326,82 @@ class AacDecoder(Codec):
                 c._imdct = b
 
     def overlap_add(self, parsed: list) -> List[Frame]:
-        """Host stage after the IMDCT: window, overlap-add, one frame per
-        packet."""
+        """Host stage after the IMDCT: window, overlap-add and SBR, one
+        frame per packet, in packet order."""
         frames = []
-        for pkt, outputs in parsed:
+        for pkt, outputs, sbr in parsed:
             pcm = np.stack([self._reconstruct(key, ch)
                             for key, ch in outputs])
-            frames.append(self._frame(pcm, pkt))
+            frames.append(self._frame(pcm, pkt, outputs, sbr))
         return frames
 
     def decode(self, pkt: Optional[Packet]) -> List[Frame]:
         if pkt is None or not pkt.data:
             return []
-        outputs = self._parse_frame(bytes(pkt.data))
+        outputs, sbr = self._parse_frame(bytes(pkt.data))
         pcm = np.stack([self._reconstruct(key, ch) for key, ch in outputs])
-        return [self._frame(pcm, pkt)]
+        return [self._frame(pcm, pkt, outputs, sbr)]
 
-    def _frame(self, pcm: np.ndarray, pkt: Packet) -> Frame:
+    def _frame(self, pcm: np.ndarray, pkt: Packet, outputs: list,
+               sbr: Optional[_SbrPayloads]) -> Frame:
+        """The packet's frame from its core PCM, through SBR (and PS)
+        when the packet carries SBR data."""
+        rate, dur = self.sample_rate, 1024
+        if sbr is not None and self._decode_sbr(sbr):
+            pcm, rate, dur = self._apply_sbr(outputs, pcm, sbr.sample_rate)
         # the reference float decoder does not clamp its output
         # (aacdec.c float path writes raw floats)
         nch = pcm.shape[0]
-        f = Frame.audio(pcm.astype(np.float32), self.sample_rate, "fltp",
+        f = Frame.audio(pcm.astype(np.float32), rate, "fltp",
                         self.par.ch_layout if (self.par.ch_layout and
                                                self.par.channels == nch)
                         else default_layout(nch),
                         pts=pkt.pts, time_base=pkt.time_base)
-        f.duration = 1024
+        f.duration = dur
         return f
+
+    def _decode_sbr(self, sbr: _SbrPayloads) -> set:
+        """Decode one packet's SBR payloads into their elements' contexts,
+        in bitstream order → the elements whose payload decoded.  A
+        payload that raises stops the packet's SBR payloads there, as the
+        reference's parse loop stops at it (such a payload reaches the end
+        of the packet, so no element follows it)."""
+        applied = set()
+        for elem_key, crc, pos in sbr.ext:
+            ctx = self._sbr.get(elem_key)
+            if ctx is None:
+                ctx = self._sbr[elem_key] = SBRContext(sbr.sample_rate)
+            br = BitReader(sbr.data)
+            br.pos = pos
+            try:
+                ctx.decode_extension(br, crc, elem_key[0])
+            except (InvalidData, NotSupported):
+                break
+            applied.add(elem_key)
+        return applied
+
+    def _apply_sbr(self, outputs, pcm, sample_rate):
+        """Run SBR per element; → (pcm2x, rate, duration)."""
+        out = []
+        idx = 0
+        for key, _ in outputs:
+            if key[0] == "cpe" and key[2] == "r":
+                continue                  # handled with the pair
+            elem_key = (key[0], key[1])
+            ctx = self._sbr.get(elem_key)
+            if ctx is None:
+                # element without its own SBR data in an SBR stream:
+                # still run it through the QMF analysis/synthesis banks
+                # (SBRContext with no header decoded = zero high band =
+                # clean interpolating 2x upsample), matching the
+                # reference's sbr_apply on non-SBR elements
+                # (libavcodec/aacsbr_template.c ff_aac_sbr_apply).
+                ctx = self._sbr[elem_key] = SBRContext(sample_rate)
+            nch = 2 if key[0] == "cpe" else 1
+            chans = [pcm[idx + c] for c in range(nch)]
+            out.extend(ctx.apply(key[0], chans))
+            idx += nch
+        return np.stack(out), sample_rate * 2, 2048
 
     def _imdct(self, spec: np.ndarray, n: int, scale: float) -> np.ndarray:
         """IMDCT of host coefficients on the decoder's device: one copy
@@ -340,9 +410,10 @@ class AacDecoder(Codec):
         return tx.imdct(x, n, scale=scale).cpu().numpy()
 
     def _parse_frame(self, data: bytes):
-        """Host-side parse of one raw/ADTS AAC frame → channel outputs:
-        entropy + scalefactors + TNS applied, coeffs ready for the IMDCT.
-        Raises NotSupported where the reference would apply SBR."""
+        """Host-side parse of one raw/ADTS AAC frame → (channel outputs,
+        SBR payloads or None): entropy + scalefactors + TNS applied,
+        coeffs ready for the IMDCT; the SBR payloads found, to be decoded
+        by _decode_sbr when the packet's PCM is ready."""
         if len(data) > 7 and data[0] == 0xFF and (data[1] & 0xF6) == 0xF0:
             # inline ADTS header
             hdr = BitReader(data)
@@ -365,7 +436,7 @@ class AacDecoder(Codec):
         br = BitReader(data)
         outputs = []     # (key, samples)
         last_elem = None                  # ("sce"/"cpe", tag)
-        sbr = False
+        sbr = None
         while True:
             try:
                 elem = br.get(3)
@@ -389,10 +460,13 @@ class AacDecoder(Codec):
                     if cnt == 15:
                         cnt += br.get(8) - 1
                     endpos = br.pos + 8 * cnt
-                    if cnt and last_elem is not None \
-                            and br.peek(4) in (13, 14):
-                        sbr = True       # EXT_SBR_DATA(_CRC)
-                        break
+                    if cnt and last_elem is not None:
+                        ext = br.peek(4)
+                        if ext in (13, 14):     # EXT_SBR_DATA(_CRC)
+                            if sbr is None:
+                                sbr = _SbrPayloads(data, self.sample_rate)
+                            sbr.ext.append((last_elem, ext == 14,
+                                            br.pos + 4))
                     br.pos = endpos
                 elif elem == DSE:
                     br.get(4)
@@ -415,11 +489,9 @@ class AacDecoder(Codec):
                 raise
             if br.bits_left() < 3:
                 break
-        if sbr:
-            raise NotSupported("aac: SBR/PS not ported yet")
         if not outputs:
             raise InvalidData("aac: no elements decoded")
-        return outputs
+        return outputs, sbr
 
     def _skip_pce(self, br: BitReader) -> None:
         br.get(4)

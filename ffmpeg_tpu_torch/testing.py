@@ -54,7 +54,15 @@ both check the port against the JAX reference's committed answers:
   sha256 of the reference decoder's planes (`MPEG4_STREAMS`, read by
   `mpeg4_stream`);
 - the tie-aware bar of the encoders whose levels come from a float32
-  FDCT (`fdct_exact`, `undecided_levels`).
+  FDCT (`fdct_exact`, `undecided_levels`);
+- the audio decoders: ten short streams (E-AC-3 5.1 and AC-3 stereo
+  from the reference binary's encoder, crafted E-AC-3 AHT + SPX frames,
+  crafted MP3, MP2 and MP1 frames, and crafted SBR and PS payloads on
+  an AAC-LC core) with the reference decoder's PCM of their first
+  packets (`AUDIO_STREAMS`, written by tools/gen_torch_audio_fixture.py
+  and read by `audio_stream`), the decode through the port's entry
+  points (`audio_decode`), the bar (`audio_bar`), and the reference
+  decoders' carried state moved into the port's (`transplant_audio_state`).
 
 They live here so that each check reads them from the package and not
 from the other.
@@ -142,6 +150,17 @@ INTRA_GOLDEN = DATA / "intra_1080p_golden.npz"
 INTRA_QSCALE = 4
 MPEG4_STREAMS = DATA / "mpeg4_streams.npz"
 MPEG4_STREAM_NAMES = ("mpeg4_bframes", "mpeg4_4mv", "h263_cif_rc")
+# The audio decoders' streams (tools/gen_torch_audio_fixture.py), and the
+# reference decoder's PCM of each one's first AUDIO_PREFIX_PACKETS packets.
+AUDIO_STREAMS = DATA / "audio_streams.npz"
+AUDIO_STREAM_NAMES = ("eac3_5_1", "ac3_stereo", "eac3_aht_spx",
+                      "mp3_reservoir", "mp3_short", "mp3_ms", "mp2_stereo",
+                      "mp1_stereo", "aac_sbr", "aac_ps")
+AUDIO_PREFIX_PACKETS = 4
+# max |diff| on PCM whose full scale is 1, and SNR, of a decode against
+# the reference's decode of the same packets, and of the card's decode
+# against the CPU's
+AUDIO_DECODE_TOL, AUDIO_DECODE_MIN_SNR = 1e-5, 100.0
 # float32's error bound on an FDCT coefficient, as a share of the sum of
 # its terms' magnitudes: 16 units in the last place of float32 (2^-24
 # each), the bound of two 8-term float32 sums in any order
@@ -624,3 +643,89 @@ def mpeg4_stream(name: str) -> dict:
             "pts": [int(t) for t in z[f"{name}_pts"]],
             "types": z[f"{name}_types"].tolist(),
             "sha256": z[f"{name}_sha256"].tolist()}
+
+
+def audio_bar(name: str) -> tuple:
+    """(max |diff| or None, min SNR dB) for one of AUDIO_STREAM_NAMES.
+    SBR and PS carry the core's float32 rounding through their LPC and
+    envelope gains: on the CPU against the reference they measure max
+    |diff| up to 2.3e-5, at 117.7 dB or more, on noise cores
+    (tests/test_torch_aac_sbr.py), so their bar is the SNR alone (the
+    reference's own bar against the binary is 80 dB for SBR and 60 dB
+    for PS)."""
+    if name.startswith("aac_"):
+        return None, AUDIO_DECODE_MIN_SNR
+    return AUDIO_DECODE_TOL, AUDIO_DECODE_MIN_SNR
+
+
+def audio_stream(name: str) -> dict:
+    """One stream of AUDIO_STREAMS: codec_id, sample_rate (the core's, for
+    AAC), packets (bytes) and their pts, and the reference decoder's PCM
+    of the first AUDIO_PREFIX_PACKETS packets, (channels, n) float32."""
+    z = np.load(AUDIO_STREAMS)
+    codec_id, rate = z[f"{name}_params"].tolist()
+    data = z[f"{name}_data"].tobytes()
+    offs = np.concatenate([[0], np.cumsum(z[f"{name}_sizes"])])
+    return {"codec_id": codec_id, "sample_rate": int(rate),
+            "packets": [data[a:b] for a, b in zip(offs[:-1], offs[1:])],
+            "pts": [int(t) for t in z[f"{name}_pts"]],
+            "prefix": z[f"{name}_prefix"]}
+
+
+def audio_decoder(st: dict, device):
+    """CodecContext.open_decoder on `device` for an audio_stream."""
+    from .codecs import CodecContext
+    from .io.stream import CodecParameters, MediaType
+    return CodecContext.open_decoder(CodecParameters(
+        codec_type=MediaType.AUDIO, codec_id=st["codec_id"],
+        sample_rate=st["sample_rate"]), device=device)
+
+
+def audio_packets(st: dict, n=None) -> list:
+    """The first `n` (all) packets of an audio_stream as Packets."""
+    from .core.packet import Packet
+    rate = Rational(1, st["sample_rate"])
+    return [Packet(data=p, pts=t, time_base=rate)
+            for p, t in zip(st["packets"][:n], st["pts"])]
+
+
+def audio_decode(st: dict, device, stats=None, n=None) -> list:
+    """The first `n` (all) packets of an audio_stream through its decoder
+    on `device`: decode_frames (AAC's batched path; the others decode
+    packet by packet).  `stats`, when a list, gets the MP3 and AC-3
+    decoders' split."""
+    dec = audio_decoder(st, device)
+    dec.codec.stats = stats
+    return dec.decode_frames(audio_packets(st, n))
+
+
+def audio_pcm(frames) -> np.ndarray:
+    """Every sample of the frames, frame by frame and plane by plane, as
+    one float32 vector (a stream may change its channel count)."""
+    return np.concatenate([np.asarray(f.audio_data, np.float32).ravel()
+                           for f in frames])
+
+
+def transplant_audio_state(ref, port) -> None:
+    """Carry a reference audio decoder's state into a port decoder of the
+    same codec (`.codec` of each CodecContext), its filterbank state onto
+    the port decoder's device: the MP3 decoder's overlap, synthesis FIFO
+    and bit reservoir; the AC-3 decoder's delay and dither generator.
+    The AAC decoder's is not needed: its overlap is host arrays, which
+    the tests hold equal through the decode."""
+    import torch
+    from .codecs.ac3 import Ac3Decoder
+    from .codecs.mp3 import Mp3Decoder
+
+    def dev(a):
+        return None if a is None else torch.tensor(
+            np.array(a, np.float32), device=port.device)
+    if isinstance(port, Mp3Decoder):
+        port._overlap, port._fifo = dev(ref._overlap), dev(ref._fifo)
+        port._resv, port._resv_valid = ref._resv, ref._resv_valid
+    elif isinstance(port, Ac3Decoder):
+        port._delay = dev(ref._delay)
+        port._dith.state = list(ref._dith.state)
+        port._dith.index = ref._dith.index
+    else:
+        raise TypeError(f"no audio state to carry into {type(port)}")

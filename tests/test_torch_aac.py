@@ -8,8 +8,10 @@ reference's (ffmpeg_tpu/codecs/aac.py on CPU JAX), on the CPU:
   same invocations, byte for byte, so that tests/golden.py replays the
   same streams and decodes: the click train that forces EIGHT_SHORT, the
   stereo CPE with M/S, and the 44.1 kHz mono SCE;
-- raw packets with AudioSpecificConfig extradata, and the refusals: SBR
-  data raises NotSupported, as does an object type the decoder lacks.
+- raw packets with AudioSpecificConfig extradata, the refusal of an
+  object type the decoder lacks, and a FIL element's SBR data decoded as
+  the reference decodes it (tests/test_torch_aac_sbr.py has the SBR and
+  PS streams).
 
 Tolerance: 1e-5 absolute on PCM in [-1, 1) against the reference's
 decode (the same host arithmetic; the IMDCT's float32 sums differ in
@@ -80,8 +82,8 @@ def test_committed_clip_first_48_packets(batched):
 
 def _window_sequences(par, pkts):
     dec = aac.AacDecoder(par, device="cpu")
-    return {ch.ics.window_sequence for _, outs in dec.parse_packets(pkts)
-            for _, ch in outs}
+    return {ch.ics.window_sequence
+            for _, outs, _sbr in dec.parse_packets(pkts) for _, ch in outs}
 
 
 def test_decode_frames_equals_decode_and_batches_one_imdct_per_class(
@@ -264,16 +266,28 @@ def _with_fill(pkt: bytes, par, ext: int) -> bytes:
 
 
 def test_sbr_data_raises_not_supported():
-    """Where the reference would run SBR (a FIL element with SBR data
-    after a channel element), the port raises NotSupported through both
-    entry points; the same packet with a plain fill extension decodes."""
+    """A FIL element with SBR data after a channel element: the port runs
+    SBR there as the reference does, through both entry points (before
+    SBR was ported this case held the port's NotSupported; it keeps its
+    name).  A plain packet, then three whose SBR payload carries no
+    header (the QMF banks' 2x upsample of the core), equal the
+    reference's decode: the first at 48 kHz, the others at 96 kHz with
+    2048 samples; the same packets with a plain fill extension decode at
+    the core rate."""
     par, pkts = read_adts(AAC_CLIP.read_bytes())
-    fill = [Packet(data=_with_fill(p.data, par, 0)) for p in pkts[:3]]
-    sbr = [Packet(data=_with_fill(p.data, par, 13)) for p in pkts[:3]]
-    assert len(_port_decode(par, fill, True)) == 3
-    for batched in (True, False):
-        with pytest.raises(NotSupported, match="SBR/PS not ported yet"):
-            _port_decode(par, fill[:1] + sbr, batched)
+    fill = [Packet(data=_with_fill(p.data, par, 0), pts=p.pts,
+                   time_base=p.time_base) for p in pkts[:3]]
+    sbr = [Packet(data=_with_fill(p.data, par, 13), pts=p.pts,
+                  time_base=p.time_base) for p in pkts[1:4]]
+    assert [f.sample_rate for f in _port_decode(par, fill, True)] == \
+        [48000] * 3
     ref = RefCodecContext.open_decoder(RefCodecParameters(
         codec_type="audio", codec_id="aac", sample_rate=48000))
     assert ref.codec._parse_frame(sbr[0].data)[1]   # the reference's SBR
+    want = ref.decode_all([RefPacket(data=p.data, pts=p.pts,
+                                     time_base=p.time_base)
+                           for p in fill[:1] + sbr])
+    assert [(f.sample_rate, f.nb_samples) for f in want] == \
+        [(48000, 1024)] + [(96000, 2048)] * 3
+    for batched in (True, False):
+        _same_frames(_port_decode(par, fill[:1] + sbr, batched), want)

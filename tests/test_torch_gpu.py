@@ -10,7 +10,9 @@ decoder's transforms, inter prediction and wavefronts against the CPU
 run, and its streams against the reference's committed hashes; K2 on
 the H.264 encoder's planes, and the encoders' round trips (H.264,
 MPEG-2, MJPEG through the flagship pipeline, ProRes, DNxHD) and the
-MPEG-4 and H.263 decoders against the CPU.  Marked
+MPEG-4 and H.263 decoders against the CPU; the audio decoders' device
+filterbanks (mp3fb, ac3fb) and the MPEG audio, AC-3/E-AC-3 and HE-AAC
+decoders on the committed audio streams against the CPU.  Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
 card and without jax they run without tests/conftest.py (which imports
@@ -682,3 +684,72 @@ def test_mpeg4_streams_on_card_match_cpu(cuda, name):
                 _within_one_lsb(a, b)
             d = (a.astype(np.float64) - b) ** 2
             assert d.mean() == 0 or 10 * np.log10(255 ** 2 / d.mean()) >= 60
+
+
+
+# --- the audio decoders: mp3fb, ac3fb, the committed streams --------------
+
+def test_mp3fb_on_card_matches_cpu(cuda):
+    """The packet forms of the MP3 filterbank on the card, two packets in
+    a row with the overlap and FIFO carried on the card, within 1e-5 of
+    the largest magnitude of the CPU run (phase 12's bound for tx.imdct:
+    float32 sums in another order); block types 0-3 and mixed blocks."""
+    from ffmpeg_tpu_torch.ops import mp3fb
+    rng = np.random.default_rng(23)
+    state = {d: (torch.zeros(2, 32, 18, device=d),
+                 torch.zeros(2, 16, 64, device=d)) for d in (cuda, "cpu")}
+    for _ in range(2):
+        xr = torch.from_numpy((rng.standard_normal((2, 2, 32, 18)) * 0.05)
+                              .astype(np.float32))
+        bt = torch.from_numpy(rng.integers(0, 4, (2, 2, 32)).astype(np.int32))
+        bt[0, 0, :2] = 0
+        out = {}
+        for d in (cuda, "cpu"):
+            sb, ov = mp3fb.imdct_packet(xr.to(d), bt.to(d), state[d][0])
+            pcm, fifo = mp3fb.synth_packet(sb, state[d][1])
+            state[d] = ov, fifo
+            out[d] = pcm
+        assert out[cuda].is_cuda and state[cuda][1].is_cuda
+        want = out["cpu"]
+        assert float((out[cuda].cpu() - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+def test_ac3fb_on_card_matches_cpu(cuda):
+    """ac3fb.frame on the card (6 blocks of 5.1, some switched, the LFE
+    never) within 1e-5 of the largest magnitude of the CPU run, the delay
+    carried over two frames on the card (phase 12's bound for tx.imdct:
+    float32 sums in another order)."""
+    from ffmpeg_tpu_torch.ops import ac3fb
+    rng = np.random.default_rng(24)
+    delay = {d: torch.zeros(6, 128, device=d) for d in (cuda, "cpu")}
+    for _ in range(2):
+        xf = torch.from_numpy((rng.standard_normal((6, 6, 256)) * 0.1)
+                              .astype(np.float32))
+        sw = rng.random((6, 6)) < 0.3
+        sw[:, 5] = False
+        out = {}
+        for d in (cuda, "cpu"):
+            out[d], delay[d] = ac3fb.frame(xf.to(d), sw, delay[d])
+        assert out[cuda].is_cuda and delay[cuda].is_cuda
+        assert float((out[cuda].cpu() - out["cpu"]).abs().max()) <= \
+            1e-5 * float(out["cpu"].abs().max())
+
+
+@pytest.mark.parametrize("name", fx.AUDIO_STREAM_NAMES)
+def test_audio_streams_on_card_match_cpu(cuda, name):
+    """Each committed audio stream through its decoder on the card and on
+    the CPU, within the stream's bar (testing.audio_bar), and its first
+    packets against the reference's committed PCM; host numpy planes."""
+    st = fx.audio_stream(name)
+    got, want = fx.audio_decode(st, cuda), fx.audio_decode(st, "cpu")
+    assert len(got) == len(want) == len(st["packets"])
+    assert all(isinstance(p, np.ndarray) for f in got for p in f.planes)
+    tol, snr = fx.audio_bar(name)
+    a, b = fx.audio_pcm(got), fx.audio_pcm(want)
+    peak = max(1.0, float(np.abs(b).max()))
+    assert tol is None or float(np.abs(a - b).max()) <= tol * peak
+    assert fx.snr_db(a, b) >= snr
+    n = fx.AUDIO_PREFIX_PACKETS
+    pre = np.concatenate([f.audio_data for f in got[:n]], axis=1)
+    assert fx.snr_db(pre, st["prefix"]) >= snr

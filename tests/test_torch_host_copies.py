@@ -14,7 +14,9 @@ host half of the VP9 decoder: its tables and the H.264 bit reader, the
 bool coder, the frame headers, the 1-D inverse transforms (on torch
 int32 tensors too), the intra and inter predictors, the loop filter's
 tables, the C++ tile walk's records on all 100 frames of the bench
-stream, and the IVF reader."""
+stream, and the IVF reader; and the audio decoders' tables (MPEG audio,
+AC-3, E-AC-3, SBR, PS), the MP3 Huffman tables built from them, and the
+AC-3 bit allocation on seeded exponents."""
 
 import ctypes
 import dataclasses
@@ -932,3 +934,66 @@ def test_ivf_reader_equals_reference(tmp_path):
         open_input(str(tmp_path / "cut.ivf")).packets())) == 2
     with pytest.raises(error.InvalidData, match="bad magic"):
         read_ivf(b"XKIF" + cut[4:])
+
+
+def _same(a, b) -> bool:
+    """Deep equality of nested lists, tuples, numbers and arrays."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and np.array_equal(a, b))
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and \
+            all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+@pytest.mark.parametrize("name", ["mp3_tables", "ac3_tables", "eac3_tables",
+                                  "aacsbr_tables", "ps_tables"])
+def test_audio_decoder_tables_equal_reference(name):
+    import importlib
+    ref = importlib.import_module(f"ffmpeg_tpu.codecs.{name}")
+    port = importlib.import_module(f"ffmpeg_tpu_torch.codecs.{name}")
+    names = sorted(n for n in vars(ref) if n.isupper())
+    assert names and names == sorted(n for n in vars(port) if n.isupper())
+    for n in names:
+        assert _same(getattr(port, n), getattr(ref, n)), n
+
+
+def test_mp3_luts_and_ac3_bit_allocation_equal_reference():
+    """The MP3 decoder's Huffman LUTs, band indices and antialias
+    coefficients; the AC-3 PSD, masking curve and bap of seeded
+    exponents, for the AC-3 and the high-efficiency bap tables."""
+    from ffmpeg_tpu.codecs import ac3 as ref_ac3
+    from ffmpeg_tpu.codecs import mp3 as ref_mp3
+    from ffmpeg_tpu_torch.codecs import ac3, mp3
+    ref_mp3._init_tables()
+    mp3._init_tables()
+    for got, want in zip(mp3._HUFF_LUTS + mp3._QUAD_LUTS,
+                         ref_mp3._HUFF_LUTS + ref_mp3._QUAD_LUTS):
+        assert got[0] == want[0]
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(mp3._band_index_long(),
+                                  ref_mp3._band_index_long())
+    for g, w in zip(mp3.Mp3Decoder._make_csa(),
+                    ref_mp3.Mp3Decoder._make_csa()):
+        np.testing.assert_array_equal(g, w)
+    rng = np.random.default_rng(12)
+    ba = {"sr_code": 1, "sr_shift": 0, "slow_decay": 15, "fast_decay": 83,
+          "slow_gain": 1344, "db_per_bit": 2048, "floor": 0x2F0,
+          "cpl_fast_leak": 0, "cpl_slow_leak": 0}
+    for end in (253, 181, 37):
+        exps = rng.integers(0, 25, 256).astype(np.int8)
+        psd, band = ac3._calc_psd(exps, 0, end)
+        rpsd, rband = ref_ac3._calc_psd(exps, 0, end)
+        np.testing.assert_array_equal(psd, rpsd)
+        np.testing.assert_array_equal(band, rband)
+        mask = ac3._calc_mask(ba, band, 0, end, 1280, end == 37, None)
+        np.testing.assert_array_equal(mask, ref_ac3._calc_mask(
+            ba, rband, 0, end, 1280, end == 37, None))
+        for tab, ref_tab in ((ac3.T.BAP_TAB, ref_ac3.T.BAP_TAB),
+                             (ac3.E.HEBAP_TAB, ref_ac3.E.HEBAP_TAB)):
+            np.testing.assert_array_equal(
+                ac3._calc_bap(mask, psd, 0, end, 40, ba["floor"], tab),
+                ref_ac3._calc_bap(mask, rpsd, 0, end, 40, ba["floor"],
+                                  ref_tab))

@@ -23,7 +23,10 @@ trips: the H.264 encoder's I and P through the H.264 decoder, the MPEG-2
 encoder's packets through the MPEG-1/2 decoder, and the MJPEG encoder's
 packet through the MJPEG decoder; then the intra codecs: a frame through
 the ProRes and the DNxHD encoder and back through their decoders, and
-the MPEG-4 and H.263 decoders on committed streams; all on the CPU."""
+the MPEG-4 and H.263 decoders on committed streams; then the audio
+decoders (MPEG audio Layers I-III, AC-3 and E-AC-3, HE-AAC with SBR and
+PS) on the first packets of the committed audio streams, against the
+reference's committed PCM; all on the CPU."""
 
 import re
 import subprocess
@@ -221,6 +224,19 @@ for name in ("mpeg4_4mv", "h263_cif_rc"):
                                   zip(vst["packets"][:2], vst["pts"])])
     assert [f.pict_type for f in vfr] == ["I", "P"]
     assert vfr[1].planes[0].shape == (vst["height"], vst["width"])
+from ffmpeg_tpu_torch.testing import (AUDIO_PREFIX_PACKETS, audio_bar,
+                                      audio_decode, audio_stream, snr_db)
+assert {"mp3", "mp2", "mp1", "ac3", "eac3", "aac"} <= set(decoder_names())
+for name in ("mp3_reservoir", "mp2_stereo", "mp1_stereo", "ac3_stereo",
+             "eac3_aht_spx", "aac_ps"):
+    ast = audio_stream(name)
+    afr = audio_decode(ast, "cpu", n=AUDIO_PREFIX_PACKETS)
+    apcm = np.concatenate([f.audio_data for f in afr], axis=1)
+    atol, asnr = audio_bar(name)
+    peak = max(1.0, float(np.abs(ast["prefix"]).max()))
+    assert apcm.shape == ast["prefix"].shape, name
+    assert atol is None or np.abs(apcm - ast["prefix"]).max() <= atol * peak
+    assert snr_db(apcm, ast["prefix"]) >= asnr, name
 assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
@@ -283,6 +299,19 @@ def test_intra_fixture_tool_takes_its_answers_from_the_reference():
     ffmpeg_tpu_torch.testing, and the codecs it runs are the
     reference's."""
     src = (REPO / "tools" / "gen_torch_intra_fixture.py").read_text()
+    port = set(re.findall(r"^\s*(?:from|import)\s+(ffmpeg_tpu_torch[\w.]*)"
+                          r"(?:\s+import\s+(\w+))?", src, re.M))
+    assert port == {("ffmpeg_tpu_torch", "testing")}, port
+    assert re.search(r"^\s*from ffmpeg_tpu\.codecs import CodecContext",
+                     src, re.M)
+
+
+def test_audio_fixture_tool_takes_its_answers_from_the_reference():
+    """tools/gen_torch_audio_fixture.py runs the reference by design, like
+    the tools above: of the port it imports only ffmpeg_tpu_torch.testing
+    (its paths and stream names), and the decoders it runs are the
+    reference's."""
+    src = (REPO / "tools" / "gen_torch_audio_fixture.py").read_text()
     port = set(re.findall(r"^\s*(?:from|import)\s+(ffmpeg_tpu_torch[\w.]*)"
                           r"(?:\s+import\s+(\w+))?", src, re.M))
     assert port == {("ffmpeg_tpu_torch", "testing")}, port
