@@ -44,7 +44,10 @@ Drives the port's paths through their user entry points at full size:
   "mp2", "mp1"; the hybrid filterbank ops/mp3fb.py on the card), AC-3
   and E-AC-3 ("ac3", "eac3"; the IMDCT ops/ac3fb.py on the card) and
   HE-AAC (the AAC decoder's IMDCT on the card, SBR and PS on the host)
-  on the ten committed streams of about 1 s each.
+  on the ten committed streams of about 1 s each;
+- the video filters: every filter of filters/video2-video8 and
+  sources.py through parse_graph on the card at 1920x1080, in chains
+  grouped by module, on seeded frames (testing.filter_clip).
 
 Phases, one line each:
 
@@ -239,10 +242,29 @@ Phases, one line each:
    filterbank (CUDA events) and d2h (for HE-AAC: host parse, the IMDCT
    stage, host window and SBR); device launches per packet from
    torch.profiler in a child process.
-Phases 9-16, 18 and 20-23 run PyTorch only: K1 and K2 are not on their
+24. the video filters through parse_graph on the card at 1920x1080:
+   the chains of ffmpeg_tpu_torch.testing.FILTER_CHAINS (every filter of
+   filters/video2-video8 and sources.py, grouped by module; multi-input
+   graphs on labelled pads, EOF on one input where the chain says so)
+   over 8 frames of testing.filter_clip (4 for lut3d, the neighbourhood
+   chain, the stacks, tonemap and colorspace), and the sources of FILTER_SOURCES and the audio
+   sources; each chain against the port's CPU run of the same graph
+   under the chain's bar (exact; within 1 LSB on <= 1% of samples; float
+   planes within 1e-6 of their largest magnitude), and against the
+   reference's committed golden (tests/data/port/filters_1080p_golden.npz,
+   tools/gen_torch_filters_fixture.py): every plane's sha256 for the
+   exact chains, frame 0's corners under the bar for the others, the
+   psnr and ssim scores within 1e-9 relative; the planes on the card;
+   per chain ms per frame (CUDA events over 3 warm runs, each of a new
+   graph, its construction included, on planes already on the card)
+   and, from torch.profiler in a child process that runs beside the CPU
+   runs, kernels and copies per frame and the device's busy share; the
+   phase's wall time split into making the inputs, the card runs, the
+   timing, the CPU runs and the profile.
+Phases 9-16, 18 and 20-24 run PyTorch only: K1 and K2 are not on their
 paths, and each prints their launch counts over its run (0).  K2's launches
 in the JSON line count phases 7 and 17, K1's phases 4 and 19.  Phases
-13-23 print their wall times, and the script its own.
+13-24 print their wall times, and the script its own.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -473,6 +495,7 @@ def main() -> int:
     phase_intra(dev, card, "dnxhd", 21)
     phase22_mpeg4(dev, card)
     phase23_audio_decoders(dev, card)
+    phase24_filters(dev, card)
     launches += k1_enc
     k2_launches += k2_enc
     print(f"whole script: {time.monotonic() - T0:.1f} s", flush=True)
@@ -2626,6 +2649,302 @@ def phase23_audio_decoders(dev, card) -> None:
               flush=True)
     print(f"phase 23 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
+
+
+# phase 24's bars (tests/test_torch_filters_*.py): integer samples within
+# 1 on <= 1% of each plane, float samples within 1e-6 of the plane's
+# largest magnitude, scores within 1e-9 relative
+FILTER_LSB_SHARE, FILTER_REL, SCORE_REL = 0.01, 1e-6, 1e-9
+
+
+def _filter_planes(frame) -> list:
+    """A filtered frame's planes as host arrays of the reference's types."""
+    return frame.numpy().planes
+
+
+def _filter_diff(got: list, want: list, bar: str, what: str) -> tuple:
+    """Frames `got` against `want` (props exact, planes under `bar`);
+    raises outside, else returns (max |diff|, largest share differing)."""
+    if len(got) != len(want):
+        raise RuntimeError(f"{what}: {len(got)} frames, expected "
+                           f"{len(want)}")
+    worst = [0.0, 0.0]
+    for a, b in zip(got, want):
+        if (a.pts, a.width, a.height, a.format) != \
+                (b.pts, b.width, b.height, b.format):
+            raise RuntimeError(f"{what}: frame {a.pts} {a.width}x{a.height} "
+                               f"{a.format}, expected {b.pts} "
+                               f"{b.width}x{b.height} {b.format}")
+        for x, y in zip(_filter_planes(a), _filter_planes(b)):
+            _plane_bar(x, y, bar, what, worst)
+    return tuple(worst)
+
+
+def _plane_bar(x, y, bar: str, what: str, worst: list) -> None:
+    import numpy as np
+    if x.dtype != y.dtype or x.shape != y.shape:
+        raise RuntimeError(f"{what}: plane {x.dtype} {x.shape}, expected "
+                           f"{y.dtype} {y.shape}")
+    d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+    m, share = (float(d.max()), float((d > 0).mean())) if d.size else (0, 0)
+    worst[0], worst[1] = max(worst[0], m), max(worst[1], share)
+    if bar == "exact":
+        ok = m == 0
+    elif bar == "lsb":
+        ok = m <= 1 and share <= FILTER_LSB_SHARE
+    else:
+        ok = m <= FILTER_REL * max(1.0, float(np.abs(y).max()))
+    if not ok:
+        raise RuntimeError(f"{what}: max |diff| {m} on {share:.4%} of a "
+                           f"plane, outside the {bar} bar")
+
+
+def _filter_golden(gold, key: str, frames: list, bar: str,
+                   what: str) -> str:
+    """`frames` against the reference's committed golden under `bar`:
+    each frame's pts, size, format and plane types; every plane's
+    sha256 (exact) or frame 0's corners."""
+    import hashlib
+    import numpy as np
+    from ffmpeg_tpu_torch.testing import corner_size
+    meta = json.loads(str(gold[f"{key}/meta"]))
+    got = [{"pts": int(f.pts), "size": [f.width, f.height],
+            "format": f.format,
+            "planes": [[list(p.shape), p.dtype.str]
+                       for p in _filter_planes(f)]} for f in frames]
+    if got != meta:
+        raise RuntimeError(f"{what}: frames {got[:2]}..., the reference's "
+                           f"{meta[:2]}...")
+    if bar == "exact":
+        want = gold[f"{key}/sha256"]
+        hashes = [[hashlib.sha256(np.ascontiguousarray(p).tobytes())
+                   .hexdigest() for p in _filter_planes(f)] for f in frames]
+        bad = sum(a != b for ha, hb in zip(hashes, want.tolist())
+                  for a, b in zip(ha, hb))
+        if bad:
+            raise RuntimeError(f"{what}: {bad} of {want.size} planes differ "
+                               f"from the reference's sha256")
+        return f"{want.size} plane sha256 equal to the reference's"
+    worst = [0.0, 0.0]
+    for i, p in enumerate(_filter_planes(frames[0])):
+        ch, cw = corner_size(frames[0].format, i)
+        _plane_bar(p[:ch, :cw], gold[f"{key}/tl{i}"], bar, what, worst)
+        _plane_bar(p[-ch:, -cw:], gold[f"{key}/br{i}"], bar, what, worst)
+    return (f"frame 0's corners within {worst[0]:g} "
+            f"(on {worst[1]:.3%}) of the reference's")
+
+
+def _chain_feeds(chain, cache: dict) -> dict:
+    """The chain's 1080p host inputs, each (format, frames, seed, divisor,
+    interlaced) made once per run."""
+    from ffmpeg_tpu_torch.testing import FilterChain, filter_chain_inputs
+    out = {}
+    for label, spec in chain.inputs:
+        if spec not in cache:
+            one = FilterChain("", "", (("x", spec),))
+            cache[spec] = filter_chain_inputs(one, 1920, 1080)["x"]
+        out[label] = cache[spec]
+    return out
+
+
+def _on(feeds: dict, dev) -> dict:
+    """The feeds with every plane copied to `dev` once."""
+    import torch
+    out = {}
+    for k, frames in feeds.items():
+        out[k] = []
+        for f in frames:
+            g = f.clone_props()
+            g.planes = [torch.as_tensor(p, device=dev) for p in f.planes]
+            out[k].append(g)
+    return out
+
+
+def filters_profile(device: str = "cuda:0") -> None:
+    """Phase 24's torch.profiler sessions, in a process of their own (see
+    audio_profile): each chain's graph over its inputs already on the
+    card, after a warm run.  Prints one JSON line: chain → input frames,
+    kernels, copies, the host's launch calls and the device's busy ms."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from ffmpeg_tpu_torch.filters import parse_graph
+    from ffmpeg_tpu_torch.testing import FILTER_CHAINS, run_graph
+    dev = torch.device(device)
+    cache, out = {}, {}
+    for chain in FILTER_CHAINS:
+        feeds = _on(_chain_feeds(chain, cache), dev)
+
+        def run():
+            return run_graph(parse_graph(chain.graph_text(), device=dev),
+                             feeds, chain.outs, chain.eof_early)
+        ev, api = profile_device(run)
+        kernels = sum(1 for n, _ in ev
+                      if not n.startswith(("Memcpy", "Memset")))
+        out[chain.name] = {"frames": len(feeds[chain.inputs[0][0]]),
+                           "kernels": kernels, "copies": len(ev) - kernels,
+                           "api": api,
+                           "busy_ms": sum(us for _, us in ev) / 1e3}
+    print(json.dumps(out), flush=True)
+
+
+def _filters_profile_start(dev):
+    """filters_profile() started in a child process on `dev`; pass the
+    handle to _filters_profile_result."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.filters_profile({str(dev)!r})"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _filters_profile_result(child) -> dict:
+    """The child's JSON line, after it ends (600 s at most)."""
+    try:
+        out, err = child.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise
+    if child.returncode != 0:
+        raise RuntimeError(f"phase 24's profile exited {child.returncode}: "
+                           f"{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase24_filters(dev, card) -> None:
+    """The video filters on the card at 1920x1080 through parse_graph:
+    each chain of testing.FILTER_CHAINS against the reference's golden,
+    timed; then, while a child process profiles the chains on the card,
+    each against the port's CPU run; the sources against their CPU runs
+    and the golden; K1 and K2 not launched."""
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.filters import get_filter, parse_graph
+    from ffmpeg_tpu_torch.testing import (FILTER_CHAINS, FILTER_SOURCES,
+                                          FILTERS_GOLDEN, chain_scores,
+                                          run_graph)
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    t_phase = time.monotonic()
+    gold = np.load(FILTERS_GOLDEN)
+    cache, runs, rows = {}, [], []
+    split = dict.fromkeys(("inputs", "card", "timing", "cpu"), 0.0)
+
+    def lap(key, t):
+        split[key] += time.monotonic() - t
+        return time.monotonic()
+    zero_counts()
+    for chain in FILTER_CHAINS:
+        t = time.monotonic()
+        feeds = _chain_feeds(chain, cache)
+        t = lap("inputs", t)
+        text = chain.graph_text()
+        g = parse_graph(text, device=dev)
+        got = run_graph(g, feeds, chain.outs, chain.eof_early)
+        torch.cuda.synchronize()
+        t = lap("card", t)
+        if not all(isinstance(p, torch.Tensor) and p.device == dev
+                   for o in chain.outs for f in got[o] for p in f.planes):
+            raise RuntimeError(f"{chain.name}: output planes off the card")
+        notes = {o: _filter_golden(gold, f"{chain.name}/{o}", got[o],
+                                   chain.bar, f"phase 24 {chain.name}/{o} "
+                                   f"against the golden")
+                 for o in chain.outs}
+        want_s = json.loads(str(gold[f"{chain.name}/scores"]))
+        for name, sc in chain_scores(g, chain).items():
+            err = max(abs(a - b) / abs(b) for a, b in zip(sc, want_s[name]))
+            if len(sc) != len(want_s[name]) or err > SCORE_REL:
+                raise RuntimeError(f"{chain.name}: {name} scores {sc}, the "
+                                   f"reference's {want_s[name]}")
+        t = time.monotonic()
+        dfeeds = _on(feeds, dev)
+        n_in = len(feeds[chain.inputs[0][0]])
+        ms = cuda_ms(lambda: run_graph(parse_graph(text, device=dev), dfeeds,
+                                       chain.outs, chain.eof_early), 3)
+        lap("timing", t)
+        runs.append((chain, feeds, g, got, notes, ms / n_in, n_in))
+
+    t_child = time.monotonic()
+    child = _filters_profile_start(dev)
+    for chain, feeds, g, got, notes, ms, n_in in runs:
+        t = time.monotonic()
+        gc = parse_graph(chain.graph_text(), device="cpu")
+        want = run_graph(gc, feeds, chain.outs, chain.eof_early)
+        lap("cpu", t)
+        parts = []
+        for o in chain.outs:
+            m, share = _filter_diff(got[o], want[o], chain.bar,
+                                    f"phase 24 {chain.name}/{o} against the "
+                                    f"CPU run")
+            parts.append(f"{o}: {len(got[o])} frames, within {m:g} (on "
+                         f"{share:.3%}) of the CPU run; {notes[o]}")
+        want_s = json.loads(str(gold[f"{chain.name}/scores"]))
+        for name, sc in chain_scores(g, chain).items():
+            cpu_s = chain_scores(gc, chain)[name]
+            err = max(max(abs(a - b) / abs(b) for a, b in zip(sc, ref))
+                      for ref in (want_s[name], cpu_s))
+            if err > SCORE_REL:
+                raise RuntimeError(f"{chain.name}: {name} scores {sc}, the "
+                                   f"CPU's {cpu_s}")
+            parts.append(f"{name} scores {[round(float(x), 4) for x in sc]} "
+                         f"within {err:.2g} relative of the reference's and "
+                         f"the CPU's")
+        rows.append((chain, parts, ms, n_in))
+
+    src_notes = []
+    for name, args, n, bar in FILTER_SOURCES:
+        a = ":".join(x for x in (args, "size=1920x1080") if x)
+        made = []
+        for d in (dev, torch.device("cpu")):
+            src = get_filter(name)(a)
+            src.device = d
+            made.append(list(src.generate(n)))
+        if not all(p.device == dev for f in made[0] for p in f.planes):
+            raise RuntimeError(f"{name}: planes off the card")
+        m, share = _filter_diff(made[0], made[1], bar,
+                                f"phase 24 source {name} against the CPU")
+        gnote = _filter_golden(gold, f"source/{name}", made[0], bar,
+                               f"phase 24 source {name} against the golden")
+        src_notes.append(f"{name} {n} frames within {m:g} of the CPU run, "
+                         f"{gnote}")
+    for name, args in (("sine", "frequency=1000:sample_rate=48000"),
+                       ("anullsrc", "channels=2")):
+        fr = list(get_filter(name)(args).generate(2))
+        data = np.concatenate([f.audio_data for f in fr], axis=1)
+        t = [(np.arange(1024) + pos) / 48000 for pos in (0, 1024)]
+        want = np.concatenate([(0.5 * np.sin(2 * np.pi * 1000 * x))
+                               .astype(np.float32) for x in t])[None] \
+            if name == "sine" else np.zeros((2, 2048), np.float32)
+        if not np.array_equal(data, want):
+            raise RuntimeError(f"{name}: samples differ from the formula")
+        src_notes.append(f"{name} {data.shape} host samples equal to the "
+                         f"formula")
+    counts = read_counts()
+    from ffmpeg_tpu_torch.ops import huffman, me
+    if huffman.KERNEL_LAUNCHES or me.KERNEL_LAUNCHES:
+        raise RuntimeError(f"phase 24 launched K1 or K2: {counts}")
+
+    prof = _filters_profile_result(child)
+    split["profile (beside the CPU runs)"] = time.monotonic() - t_child
+    for chain, parts, ms, n_in in rows:
+        pr = prof[chain.name]
+        launches = (f"{pr['kernels'] / n_in:.1f} kernels + "
+                    f"{pr['copies'] / n_in:.1f} copies per frame "
+                    f"({pr['kernels']} + {pr['copies']} over {n_in} input "
+                    f"frames, {pr['api']} launch calls; device busy "
+                    f"{pr['busy_ms']:.3f} ms, "
+                    f"{pr['busy_ms'] / (ms * n_in):.1%} of the run)"
+                    if pr["kernels"] or pr["api"] else
+                    "launches not measured (the profiler saw no CUDA "
+                    "activity)")
+        print(f"phase 24 {chain.name} [{card}]: '{chain.graph_text()}' "
+              f"({chain.bar}): {'; '.join(parts)}; {ms:.3f} ms/frame "
+              f"(CUDA events, 3 warm runs of a new graph over {n_in} "
+              f"frames on the card, its construction included); "
+              f"{launches}; {counts}", flush=True)
+    print(f"phase 24 sources [{card}]: {'; '.join(src_notes)}; {counts}",
+          flush=True)
+    print(f"phase 24 wall time: {time.monotonic() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in split.items())
+          + "; the sources and checks the rest)", flush=True)
 
 
 if __name__ == "__main__":

@@ -213,3 +213,137 @@ def _split_filter_args(s: str) -> List[str]:
             cur.append(ch)
     out.append("".join(cur))
     return [p for p in out if p != ""]
+
+
+# ---------------------------------------------------------------------------
+# sample helpers shared by the video filters
+# ---------------------------------------------------------------------------
+# 9-16 bit planes come as uint16 (from numpy) or as int16 holding the same
+# bits (the decoders' planes); torch implements few ops for uint16, so
+# arithmetic widens to int32/float32 first and data movement runs on the
+# int16 view of the same bits.
+
+_UNSIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+# the value range of each container, as the reference's numpy/XLA types
+# hold it (an int16 plane is a uint16 container)
+_RANGE = {torch.uint8: (0, 255), torch.uint16: (0, 65535),
+          torch.int16: (0, 65535), torch.int32: (-2 ** 31, 2 ** 31 - 1)}
+
+
+def as_i32(c: torch.Tensor) -> torch.Tensor:
+    """The samples as int32 (an int16 plane's bits read as uint16)."""
+    if c.dtype == torch.int16:
+        return c.to(torch.int32) & 0xFFFF
+    return c.to(torch.int32)
+
+
+def as_f32(c: torch.Tensor) -> torch.Tensor:
+    """The samples as float32 (an int16 plane's bits read as uint16)."""
+    if c.dtype == torch.int16:
+        return as_i32(c).to(torch.float32)
+    return c.to(torch.float32)
+
+
+def as_f64(c: torch.Tensor) -> torch.Tensor:
+    if c.dtype == torch.int16:
+        return as_i32(c).to(torch.float64)
+    return c.to(torch.float64)
+
+
+def max_of(dtype: torch.dtype) -> int:
+    """The container's largest value (numpy's iinfo of the reference's
+    type)."""
+    return _RANGE[dtype][1]
+
+
+def to_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Cast as the reference's types do: float to integer truncates and
+    saturates at the container's range (XLA's convert), integer to
+    integer wraps.  torch leaves an out-of-range float cast undefined,
+    so it is clamped here first."""
+    if x.is_floating_point() and not dtype.is_floating_point:
+        lo, hi = _RANGE[dtype]
+        x = torch.nan_to_num(x, nan=0.0).clamp(lo, hi).to(torch.int32)
+    if dtype in _UNSIGNED_VIEW and x.dtype == torch.int32:
+        return x.to(_UNSIGNED_VIEW[dtype]).view(dtype)
+    return x.to(dtype)
+
+
+def bits(c: torch.Tensor) -> torch.Tensor:
+    """The signed view of an unsigned 16/32-bit plane (same bits), for
+    data movement; other planes as they are."""
+    v = _UNSIGNED_VIEW.get(c.dtype)
+    return c if v is None else c.view(v)
+
+
+def unbits(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of bits(): the plane back in its container type."""
+    return x if x.dtype == dtype else x.view(dtype)
+
+
+def bit_value(v: int, dtype: torch.dtype) -> int:
+    """A sample value as the bits() view holds it."""
+    if dtype in _UNSIGNED_VIEW:
+        n = 16 if dtype == torch.uint16 else 32
+        v &= (1 << n) - 1
+        return v - (1 << n) if v >= 1 << (n - 1) else v
+    return v
+
+
+def where_value(mask: torch.Tensor, v: int,
+                c: torch.Tensor) -> torch.Tensor:
+    """jnp.where(mask, v cast to c's type, c) for any container."""
+    return unbits(bits(c).masked_fill(mask, bit_value(v, c.dtype)), c.dtype)
+
+
+def host_dtype(dtype: torch.dtype):
+    """The numpy type the reference holds such a plane in."""
+    import numpy as np
+    return {torch.uint8: np.uint8, torch.uint16: np.uint16,
+            torch.int16: np.uint16, torch.int32: np.int32,
+            torch.float32: np.float32, torch.float64: np.float64}[dtype]
+
+
+def rdiv(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as the reference's jitted filters compute it: XLA's CPU
+    backend turns a float32 division by a constant into a multiplication
+    by the constant's float32 reciprocal (x / 255.0 differs from that in
+    3 of 4 samples of 0..65535)."""
+    import numpy as np
+    return x * float(np.float32(1.0) / np.float32(c))
+
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root of x >= 0, as numpy's and
+    XLA's (an IEEE sqrt instruction).  torch's CPU sqrt may miss by an ulp
+    (its vector math library, whose accuracy mode is per thread), which
+    moves a truncation at an exact integer root: the root is moved to the
+    float32 whose rounding interval holds x, tested exactly in float64
+    (the squares of midpoints of float32 values are exact there)."""
+    r = torch.sqrt(x)
+    xd = x.double()
+    for _ in range(2):
+        hi = torch.nextafter(r, torch.full_like(r, float("inf")))
+        lo = torch.nextafter(r, torch.zeros_like(r))
+        rd = r.double()
+        up = ((rd + hi.double()) * 0.5) ** 2 < xd
+        down = ((rd + lo.double()) * 0.5) ** 2 > xd
+        r = torch.where(up, hi, torch.where(down, lo, r))
+    return r
+
+
+def tdiv(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c correctly rounded on every device, as numpy's and the
+    reference's eager jnp division: CUDA's torch divides by a Python
+    scalar as a multiplication by its reciprocal, which differs in the
+    last bit; a 0-d tensor on x's device divides elementwise."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def edge_pad(x: torch.Tensor, r: int, axis: int) -> torch.Tensor:
+    """x padded by r samples at both ends of `axis`, edge-replicated
+    (np.pad's "edge" along one axis)."""
+    n = x.shape[axis]
+    idx = torch.arange(-r, n + r, device=x.device).clamp(0, n - 1)
+    return x.index_select(axis, idx)

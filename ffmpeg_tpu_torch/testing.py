@@ -71,7 +71,9 @@ from the other.
 from __future__ import annotations
 
 import hashlib
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 
@@ -246,6 +248,258 @@ def mpeg2_clip(n: int, w: int, h: int, seed: int = 0) -> list:
                                   planes=[y.astype(np.uint8), u, v],
                                   pts=i, time_base=Rational(1, 25)))
     return frames
+
+
+def filter_clip(seed: int, n: int = 8, w: int = 1920, h: int = 1080,
+                fmt: str = "yuv420p", interlaced: bool = False) -> list:
+    """n frames of host planes of `fmt` at w x h for the filter checks:
+    per component a textured gradient moving a few samples a frame, with
+    seeded uniform noise on every component (chroma and alpha too).  With
+    `interlaced` the odd rows move on by half a frame's motion more, so
+    the two fields of a frame differ as a moving interlaced picture's
+    do.  Float formats hold linear light in [0, 6].  Returns
+    [[plane, ...], ...], each plane of the format's component type."""
+    from .formats import pixfmt
+    desc = pixfmt.get(fmt)
+    rng = np.random.default_rng(seed)
+    maxv = 255 if desc.is_float else (1 << desc.comp[0].depth) - 1
+    dims = [desc.chroma_dims(w, h) if i in (1, 2) and not desc.is_rgb
+            and desc.nb_components >= 3 else (w, h)
+            for i in range(desc.nb_components)]
+    tex = [rng.integers(0, 2, (ch + 8 * n, cw + 8 * n)).astype(np.float32)
+           * np.float32(maxv / 10) for cw, ch in dims]
+    frames = []
+    for k in range(n):
+        planes = []
+        for i, (cw, ch) in enumerate(dims):
+            x = np.arange(cw, dtype=np.int32)[None, :]
+            y = np.arange(ch, dtype=np.int32)[:, None]
+            odd = (y % 2) if interlaced else np.zeros_like(y)
+            t = k + 0.5 * odd                          # (ch, 1)
+            sx = np.sin((x + 4 * (k + 0.5 * np.array([[0], [1]])))
+                        / (40 + 9 * i)).astype(np.float32)
+            sx = sx[odd[:, 0]]                         # (ch, cw)
+            cy = np.cos((y - 3 * t) / (31 + 7 * i)).astype(np.float32)
+            # (x + y + 2t) % 64 / 64, with 2t an integer
+            ramp = ((x + y + (2 * k + odd)) & 63).astype(np.float32) / 64
+            base = 0.5 + np.float32(0.35) * sx * cy + np.float32(0.1) * ramp
+            dy, dx = (3 * k) % (8 * n), (4 * k) % (8 * n)
+            v = base * np.float32(maxv) + \
+                tex[i][dy:dy + ch, dx:dx + cw] + \
+                (rng.random((ch, cw), np.float32) - np.float32(0.5)) * \
+                np.float32(maxv / 12)
+            v = np.clip(np.round(v), 0, maxv)
+            # float formats: linear light in [0, 6], as HDR content
+            planes.append((v / np.float32(255 / 6) if desc.is_float else v)
+                          .astype(desc.component_dtype()))
+        frames.append(planes)
+    return frames
+
+
+FILTER_CUBE = DATA / "filters_5.cube"
+FILTERS_GOLDEN = DATA / "filters_1080p_golden.npz"
+FILTER_FRAMES = 8
+# the golden's corners of a float chain's frame 0, in luma samples (a
+# subsampled plane's corner covers the same picture area): 64 and not
+# 128, which made the golden 1.5 MB
+CORNER = 64
+
+
+def corner_size(fmt: str, plane: int) -> Tuple[int, int]:
+    """(rows, columns) of plane `plane`'s corner in a frame of `fmt`."""
+    from .formats import pixfmt
+    desc = pixfmt.get(fmt)
+    if plane in (1, 2) and not desc.is_rgb and desc.nb_components >= 3:
+        return CORNER >> desc.log2_chroma_h, CORNER >> desc.log2_chroma_w
+    return CORNER, CORNER
+
+
+@dataclass(frozen=True)
+class FilterChain:
+    """One graph of the video filters' checks (chip_smoke.py phase 24,
+    tests/test_torch_gpu.py, tools/gen_torch_filters_fixture.py).
+    `inputs` maps each input label to (pixel format, frames, clip seed,
+    size divisor, interlaced); `bar` is "exact" (the reference's sha256
+    of every output plane), "lsb" (integer samples within 1 on <= 1% of
+    each plane, the reference's frame-0 corners) or "rel" (float samples
+    within 1e-6 of the plane's largest magnitude, the same corners);
+    `scores` names the filters whose scores are compared."""
+    name: str
+    text: str
+    inputs: Tuple[Tuple[str, Tuple], ...]
+    outs: Tuple[str, ...] = ("out",)
+    eof_early: Tuple[str, ...] = ()
+    bar: str = "exact"
+    scores: Tuple[str, ...] = ()
+
+    def graph_text(self) -> str:
+        return self.text.format(cube=FILTER_CUBE)
+
+
+def _ins(*items):
+    return tuple((label, spec) for label, spec in items)
+
+
+_N = FILTER_FRAMES
+FILTER_CHAINS = (
+    FilterChain("video2_deint",
+                "yadif,deblock=strength=40,drawbox=x=100:y=80:w=400:h=300:"
+                "thickness=4,fade=type=in:start_frame=1:nb_frames=4",
+                _ins(("in", ("yuv420p", _N, 0, 1, True)))),
+    FilterChain("video2_overlay",
+                "[in][ov]overlay=x=W-w/2:y=H-h/2,split[a][b];[b]nullsink",
+                _ins(("in", ("yuva420p", _N, 0, 1, False)),
+                     ("ov", ("yuva420p", _N - 3, 5, 3, False))),
+                outs=("a",), eof_early=("ov",)),
+    FilterChain("video2_metrics", "[a][b]psnr[m];[m][c]ssim",
+                _ins(("a", ("yuv420p", _N, 0, 1, False)),
+                     ("b", ("yuv420p", _N, 1, 1, False)),
+                     ("c", ("yuv420p", _N, 2, 1, False))),
+                scores=("psnr", "ssim")),
+    FilterChain("video2_lut3d",
+                "lut3d=file={cube}:interp=trilinear,lut3d=file={cube}",
+                _ins(("in", ("rgb24", 4, 0, 1, False)))),
+    # a float chain starts from exact input at its one filter that may
+    # differ from the reference by an LSB, and amplifies nothing after it
+    FilterChain("video3_point",
+                "negate,eq=contrast=1.2:brightness=0.03:gamma=1.1,"
+                "hue=h=25:s=1.1",
+                _ins(("in", ("yuv420p", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video3_blur",
+                "unsharp=luma_amount=0.6:chroma_amount=0.3,"
+                "boxblur=luma_radius=3:chroma_radius=1",
+                _ins(("in", ("yuv420p", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video4_spatial", "gblur=sigma=1.2,avgblur=sizeX=2,"
+                "vignette,swapuv",
+                _ins(("in", ("yuv420p", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video4_edges", "edgedetect=low=0.02:high=0.1,"
+                "drawgrid=width=120:height=90:thickness=2,monochrome",
+                _ins(("in", ("yuv420p", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video4_temporal",
+                "select=expr=lt(n\\,7),tmix=frames=3,framestep=step=2,"
+                "vnoise=strength=10:seed=3",
+                _ins(("in", ("yuv420p", _N, 0, 1, False)))),
+    FilterChain("video4_blend",
+                "[a][b]blend=all_mode=multiply:all_opacity=0.8",
+                _ins(("a", ("yuv420p", _N, 0, 1, False)),
+                     ("b", ("yuv420p", _N - 2, 3, 1, False))),
+                eof_early=("b",), bar="lsb"),
+    FilterChain("video8_deint", "bwdif,separatefields,weave",
+                _ins(("in", ("yuv420p", _N, 0, 1, True)))),
+    FilterChain("video8_denoise", "hqdn3d",
+                _ins(("in", ("yuv420p", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video8_sharpen", "cas=strength=0.5",
+                _ins(("in", ("yuv420p", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video8_average", "atadenoise=s=5,deflicker=size=3",
+                _ins(("in", ("yuv420p", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video8_color", "colortemperature=temperature=5000:pl=0.3,"
+                "exposure=exposure=-0.3",
+                _ins(("in", ("gbrp", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video8_hue", "huesaturation=hue=15:saturation=0.2",
+                _ins(("in", ("gbrp", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video6_neighbours",
+                "fillborders=left=16:right=16:top=8:bottom=8:mode=mirror,"
+                "limiter=min=16:max=235,dilation,erosion,median=radius=2,"
+                "inflate,deflate,sobel,prewitt=scale=0.5,"
+                "lutyuv=y=negval:u=val/2,extractplanes=planes=y+u",
+                _ins(("in", ("yuv420p", 4, 0, 1, False)))),
+    FilterChain("video6_color",
+                "lutrgb=g=val*0.9,colorkey=color=0x808080:similarity=0.2:"
+                "blend=0.1,shuffleplanes=map0=1:map1=0,colorchannelmixer="
+                "rr=0.8:rg=0.2:gg=0.9:bb=1.1",
+                _ins(("in", ("gbrp", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video6_geometry",
+                "colorbalance=rs=0.1:gm=-0.05:bh=0.2,rotate=a=0.1:"
+                "fillcolor=16",
+                _ins(("in", ("gbrp", _N, 0, 1, False))), bar="lsb"),
+    FilterChain("video6_merge",
+                "[a][b][m]maskedmerge[o];[c]chromakey=color=0x7080a0:"
+                "similarity=0.1:blend=0.05[k]",
+                _ins(("a", ("yuv420p", _N, 0, 1, False)),
+                     ("b", ("yuv420p", _N, 1, 1, False)),
+                     ("m", ("yuv420p", _N, 2, 1, False)),
+                     ("c", ("yuv420p", _N, 3, 1, False))),
+                outs=("o", "k"), bar="lsb"),
+    FilterChain("video6_stack",
+                "[a][b]hstack[h];[c][d]hstack[v];[h][v]vstack",
+                _ins(("a", ("yuv420p", 4, 0, 2, False)),
+                     ("b", ("yuv420p", 4, 1, 2, False)),
+                     ("c", ("yuv420p", 4, 2, 2, False)),
+                     ("d", ("yuv420p", 4, 3, 2, False)))),
+    FilterChain("video6_time",
+                "setsar=sar=1/1,setdar=dar=16/9,loop=loop=1:size=2:start=1,"
+                "reverse,tpad=start=1:stop=1:stop_mode=add,tile=layout=2x1",
+                _ins(("in", ("yuv420p", _N, 0, 1, False)))),
+    FilterChain("video5_tonemap",
+                "tonemap=tonemap=hable,tonemap=tonemap=mobius",
+                _ins(("in", ("gbrpf32le", 4, 0, 1, False))), bar="rel"),
+    FilterChain("video7_colorspace",
+                "colorspace=all=bt2020:iall=bt709",
+                _ins(("in", ("yuv420p", 4, 0, 1, False))), bar="lsb"),
+)
+# the sources, each generated at the full size: (name, args, frames, bar)
+FILTER_SOURCES = (("color", "color=0x336699", 2, "exact"),
+                  ("testsrc", "", 2, "exact"),
+                  ("testsrc2", "rate=50", 2, "exact"),
+                  ("mandelbrot", "maxiter=64", 1, "lsb"))
+
+
+def filter_chain_inputs(chain: FilterChain, w: int, h: int,
+                        frame=None) -> dict:
+    """{label: [Frame, ...]} of host planes for `chain` at w x h (an
+    input's size divided by its divisor, kept even), pts k in 1/25,
+    duration 1.  `frame` builds the frames (the port's Frame by
+    default; the fixture tool passes the reference's Frame and
+    Rational)."""
+    frame, rational = frame or (Frame, Rational)
+    out = {}
+    for label, (fmt, n, seed, div, il) in chain.inputs:
+        iw, ih = (w // div) & ~1, (h // div) & ~1
+        out[label] = [frame.video(iw, ih, fmt, planes=p, pts=k, duration=1,
+                                  time_base=rational(1, 25), interlaced=il,
+                                  top_field_first=il)
+                      for k, p in enumerate(filter_clip(seed, n, iw, ih, fmt,
+                                                        il))]
+    return out
+
+
+def run_graph(g, feeds: dict, outs, eof_early=()) -> dict:
+    """Feed each label's frames in turn (frame k of every label before
+    frame k+1), pulling every output after each; a label in `eof_early`
+    gets its EOF right after its last frame, the others at the end.
+    Works on either package's FilterGraph."""
+    got = {o: [] for o in outs}
+    n = max(len(v) for v in feeds.values())
+    done = set()
+    for k in range(n):
+        for lbl, frames in feeds.items():
+            if k < len(frames):
+                g.feed(frames[k].clone_props(), lbl)
+            if lbl in eof_early and k == len(frames) - 1:
+                g.feed_eof(lbl)
+                done.add(lbl)
+            for o in outs:
+                got[o].extend(g.pull(o))
+    for lbl in feeds:
+        if lbl not in done:
+            g.feed_eof(lbl)
+        for o in outs:
+            got[o].extend(g.pull(o))
+    return got
+
+
+def chain_scores(g, chain: FilterChain) -> dict:
+    """{filter name: its scores} of the metric filters of a run graph."""
+    return {n.filter.name: list(n.filter.scores) for n in g.nodes
+            if n.filter.name in chain.scores}
+
+
+def cube_text() -> str:
+    """The chains' 5-point LUT: a nonlinear curve per channel, red
+    fastest (written to FILTER_CUBE by tools/gen_torch_filters_fixture.py)."""
+    return "TITLE \"filters\"\nLUT_3D_SIZE 5\n" + "\n".join(
+        f"{(r / 4) ** 2:.6f} {g / 4 * 0.8 + 0.1:.6f} {(b / 4) ** 0.5:.6f}"
+        for b in range(5) for g in range(5) for r in range(5)) + "\n"
 
 
 def clip_checksum(frames) -> str:

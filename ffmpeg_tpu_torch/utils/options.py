@@ -255,8 +255,10 @@ class OptionsMixin:
         if o.type is OptType.SAMPLE_FMT:
             return str(v)
         if o.type is OptType.COLOR:
-            # the colour-name table comes with the first filter that
-            # declares a colour option (none of filters/video.py does)
+            # the reference imports a `color_names` module it does not
+            # have, so a colour option raises there too; no filter of
+            # either package declares one (drawbox, colorkey, chromakey
+            # and color take their colour as a string)
             raise NotSupported(f"colour option {o.name}: not ported")
         if o.type is OptType.CHLAYOUT:
             return v

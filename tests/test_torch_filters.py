@@ -41,16 +41,16 @@ from ffmpeg_tpu_torch.utils.rational import Rational
 W, H = 64, 48
 
 
-def _planes(fmt, lead=(), seed=0):
-    """Seeded planes of `fmt` at WxH: smooth content plus noise."""
+def _planes(fmt, lead=(), seed=0, w=W, h=H):
+    """Seeded planes of `fmt` at w x h: smooth content plus noise."""
     from ffmpeg_tpu_torch.formats import pixfmt
     desc = pixfmt.get(fmt)
     rng = np.random.default_rng(seed)
     maxv = (1 << desc.depth) - 1
     out = []
     for i in range(desc.nb_components):
-        cw, ch = (desc.chroma_dims(W, H)
-                  if i in (1, 2) and not desc.is_rgb else (W, H))
+        cw, ch = (desc.chroma_dims(w, h)
+                  if i in (1, 2) and not desc.is_rgb else (w, h))
         yy, xx = np.mgrid[0:ch, 0:cw]
         base = maxv / 2 * (1 + 0.8 * np.sin(xx / (3 + i) + yy / 5.0))
         noise = rng.normal(0, maxv / 12, lead + (ch, cw))
@@ -59,14 +59,14 @@ def _planes(fmt, lead=(), seed=0):
     return out
 
 
-def _frames(fmt, lead=(), n=1, color_range="unspecified"):
+def _frames(fmt, lead=(), n=1, color_range="unspecified", w=W, h=H):
     ref, port = [], []
     for k in range(n):
-        planes = _planes(fmt, lead, seed=k)
+        planes = _planes(fmt, lead, seed=k, w=w, h=h)
         kw = dict(pts=k, time_base=(1, 25), color_range=color_range)
-        ref.append(RefFrame.video(W, H, fmt, planes=planes,
+        ref.append(RefFrame.video(w, h, fmt, planes=planes,
                                   **_kw(kw, RefRational)))
-        port.append(Frame.video(W, H, fmt, planes=planes,
+        port.append(Frame.video(w, h, fmt, planes=planes,
                                 **_kw(kw, Rational)))
     return ref, port
 
@@ -75,8 +75,8 @@ def _kw(kw, rational):
     return {**kw, "time_base": rational(*kw["time_base"])}
 
 
-def _run(text, fmt, lead=(), n=1, color_range="unspecified"):
-    ref_in, port_in = _frames(fmt, lead, n, color_range)
+def _run(text, fmt, lead=(), n=1, color_range="unspecified", w=W, h=H):
+    ref_in, port_in = _frames(fmt, lead, n, color_range, w, h)
     ref_g, port_g = ref_parse_graph(text), parse_graph(text, device="cpu")
     assert [nd.filter.name for nd in port_g.nodes] == \
         [nd.filter.name for nd in ref_g.nodes]
@@ -152,6 +152,54 @@ def test_scale_and_format_within_one_lsb(text, fmt, rng, lead):
                                                           (d > 0).mean())
 
 
+ODD = [
+    # every filter of filters/video.py at odd sizes, under its bar above
+    ("crop=iw/2:ih/2", "yuv420p", "exact"),
+    ("crop=w=20:h=12:x=3:y=5", "rgb24", "exact"),
+    ("pad=w=iw+16:h=ih+8", "yuv420p", "exact"),
+    ("pad=w=iw+9:h=ih+5:x=3:y=1", "yuv420p10le", "exact"),
+    ("hflip", "yuv420p", "exact"),
+    ("vflip", "yuv420p10le", "exact"),
+    ("transpose=1", "yuv420p", "exact"),
+    ("transpose=3", "yuv444p", "exact"),
+    ("copy", "yuv420p", "exact"),
+    ("null", "yuv420p", "exact"),
+    ("lut=c0=maxval-val:c1=val/2", "yuv420p", "exact"),
+    ("scale=32:24", "yuv420p", "lsb"),
+    ("scale=w=iw*2:h=ih*2:flags=bilinear:format=rgb24", "yuv420p", "lsb"),
+    ("format=pix_fmts=rgb24", "yuv420p", "lsb"),
+    ("format=pix_fmts=yuv444p", "yuv420p", "lsb"),
+    ("tensornorm", "rgb24", "1e-6"),
+    ("fps=10", "gray", "exact"),
+    ("trim=start_frame=2:end_frame=5", "gray", "exact"),
+    ("setpts=2*PTS", "gray", "exact"),
+]
+
+
+@pytest.mark.parametrize("w,h", [(37, 23), (33, 19)],
+                         ids=["37x23", "33x19"])
+@pytest.mark.parametrize("text,fmt,bar", ODD, ids=[o[0] for o in ODD])
+def test_video_filters_at_odd_sizes(text, fmt, bar, w, h):
+    """Odd widths and heights give odd chroma sizes (ceil of half) and
+    crop/pad origins that snap to the chroma grid."""
+    n = 10 if text.split("=")[0] in ("fps", "trim", "setpts") else 1
+    ref, port = _run(text, fmt, n=n, w=w, h=h)
+    assert len(port) == len(ref) > 0
+    for r, f in zip(ref, port):
+        _same_props(r, f)
+        for a, p in zip(r.planes, f.planes):
+            a, p = np.asarray(a), p.numpy()
+            assert p.dtype == a.dtype and p.shape == a.shape
+            if bar == "exact":
+                np.testing.assert_array_equal(p, a)
+            elif bar == "1e-6":
+                np.testing.assert_allclose(p, a, rtol=0, atol=1e-6)
+            else:
+                d = np.abs(p.astype(np.int64) - a.astype(np.int64))
+                assert d.max() <= 1 and (d > 0).mean() <= 0.01, \
+                    (d.max(), (d > 0).mean())
+
+
 @pytest.mark.parametrize("text", [
     "tensornorm", "tensornorm=mean=0.45:std=0.225",
     "tensornorm=mean=0.5\\,0.4\\,0.3:std=0.2\\,0.3\\,0.25:scale=256"])
@@ -206,18 +254,27 @@ def test_rate_and_timestamp_filters_match_reference(text):
 
 
 def test_registry_holds_video_py_only():
-    """The registry holds the filters of video.py and, since the audio
-    slice, of audio.py; the reference's others raise FilterNotFound."""
+    """The registry holds the filters of video.py, of audio.py (since the
+    audio slice) and of video2-video8 and sources.py (since the video
+    filters' slice): the reference's filters less the 29 of its host
+    audio modules audio2-audio6, whose names raise FilterNotFound."""
+    from ffmpeg_tpu.filters import audio2, audio3, audio4, audio5, audio6
+
     def names(mod):
         return sorted(c.name for c in vars(mod).values()
                       if isinstance(c, type) and issubclass(c, RefFilter)
                       and c.__module__ == mod.__name__
                       and not c.__name__.startswith("_"))
     assert len(names(ref_video)) == 14 and len(names(ref_audio)) == 10
-    assert filter_names() == sorted(names(ref_video) + names(ref_audio))
-    others = sorted(set(ref_filter_names()) - set(filter_names()))
-    assert len(others) == 101 == len(ref_filter_names()) - 24
-    for name in others:
+    from ffmpeg_tpu.filters import get_filter as ref_get_filter
+    mods = {m.__name__ for m in (audio2, audio3, audio4, audio5, audio6)}
+    host_audio = sorted(n for n in ref_filter_names()
+                        if ref_get_filter(n).__module__ in mods)
+    assert len(host_audio) == 29
+    assert filter_names() == sorted(set(ref_filter_names()) -
+                                    set(host_audio))
+    assert len(filter_names()) == 96 == len(ref_filter_names()) - 29
+    for name in host_audio:
         with pytest.raises(FilterNotFound):
             get_filter(name)
 

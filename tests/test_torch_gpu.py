@@ -12,7 +12,9 @@ the H.264 encoder's planes, and the encoders' round trips (H.264,
 MPEG-2, MJPEG through the flagship pipeline, ProRes, DNxHD) and the
 MPEG-4 and H.263 decoders against the CPU; the audio decoders' device
 filterbanks (mp3fb, ac3fb) and the MPEG audio, AC-3/E-AC-3 and HE-AAC
-decoders on the committed audio streams against the CPU.  Marked
+decoders on the committed audio streams against the CPU; the video
+filters' chains of chip_smoke.py phase 24, their sources, deblock_plane
+and apply_lut3d against the CPU.  Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
 card and without jax they run without tests/conftest.py (which imports
@@ -753,3 +755,70 @@ def test_audio_streams_on_card_match_cpu(cuda, name):
     n = fx.AUDIO_PREFIX_PACKETS
     pre = np.concatenate([f.audio_data for f in got[:n]], axis=1)
     assert fx.snr_db(pre, st["prefix"]) >= snr
+
+
+def _filter_bar(got, want, bar):
+    """Two runs' frames: props exact, planes under the chain's bar."""
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert (a.pts, a.width, a.height, a.format) == \
+            (b.pts, b.width, b.height, b.format)
+        for x, y in zip(a.numpy().planes, b.numpy().planes):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            if bar == "exact":
+                assert d.max() == 0
+            elif bar == "lsb":
+                assert d.max() <= 1 and (d > 0).mean() <= 0.01
+            else:
+                assert d.max() <= 1e-6 * max(1.0, float(np.abs(y).max()))
+
+
+@pytest.mark.parametrize("name", [c.name for c in fx.FILTER_CHAINS])
+def test_filter_chains_on_card_match_cpu(cuda, name):
+    """Each module's filters (chip_smoke.py phase 24's chains) through
+    parse_graph on the card at 256x144 against the same graph on the CPU,
+    under the chain's bar; the planes on the card; the metric scores
+    within 1e-9 relative."""
+    chain = next(c for c in fx.FILTER_CHAINS if c.name == name)
+    feeds = fx.filter_chain_inputs(chain, 256, 144)
+    g = parse_graph(chain.graph_text(), device=cuda)
+    got = fx.run_graph(g, feeds, chain.outs, chain.eof_early)
+    gc = parse_graph(chain.graph_text(), device="cpu")
+    want = fx.run_graph(gc, feeds, chain.outs, chain.eof_early)
+    for o in chain.outs:
+        assert all(p.is_cuda for f in got[o] for p in f.planes)
+        _filter_bar(got[o], want[o], chain.bar)
+    for k, sc in fx.chain_scores(g, chain).items():
+        ref = fx.chain_scores(gc, chain)[k]
+        assert all(abs(a - b) <= 1e-9 * abs(b) for a, b in zip(sc, ref))
+
+
+@pytest.mark.parametrize("name,args,n,bar", fx.FILTER_SOURCES,
+                         ids=[s[0] for s in fx.FILTER_SOURCES])
+def test_filter_sources_on_card_match_cpu(cuda, name, args, n, bar):
+    from ffmpeg_tpu_torch.filters import get_filter
+    a = ":".join(x for x in (args, "size=256x144") if x)
+    made = []
+    for d in (cuda, torch.device("cpu")):
+        src = get_filter(name)(a)
+        src.device = d
+        made.append(list(src.generate(n)))
+    assert all(p.is_cuda for f in made[0] for p in f.planes)
+    _filter_bar(made[0], made[1], bar)
+
+
+def test_deblock_and_lut3d_on_card_match_cpu(cuda):
+    from ffmpeg_tpu_torch.ops.deblock import deblock_plane
+    from ffmpeg_tpu_torch.scale.lut3d import apply_lut3d, parse_cube
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 144, 256), np.uint8))
+    got = deblock_plane(x.to(cuda), qp=45, block=8)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), deblock_plane(x, qp=45, block=8))
+    lut = torch.from_numpy(parse_cube(fx.cube_text())[0])
+    rgb = torch.from_numpy(rng.random((144, 256, 3)).astype(np.float32))
+    for method in ("tetrahedral", "trilinear"):
+        a = apply_lut3d(rgb.to(cuda), lut.to(cuda), method)
+        assert a.is_cuda
+        assert torch.equal(a.cpu(), apply_lut3d(rgb, lut, method))

@@ -16,7 +16,11 @@ int32 tensors too), the intra and inter predictors, the loop filter's
 tables, the C++ tile walk's records on all 100 frames of the bench
 stream, and the IVF reader; and the audio decoders' tables (MPEG audio,
 AC-3, E-AC-3, SBR, PS), the MP3 Huffman tables built from them, and the
-AC-3 bit allocation on seeded exponents."""
+AC-3 bit allocation on seeded exponents; and the video filters' host
+copies: the .cube parser and identity LUT, the deblock thresholds, the
+sources' colour table, the colour parsers and plane names of video6,
+the luma, transfer, primaries and range tables of video5 and video7,
+the colorspace filter's matrices, and the frame aligner."""
 
 import ctypes
 import dataclasses
@@ -997,3 +1001,76 @@ def test_mp3_luts_and_ac3_bit_allocation_equal_reference():
                 ac3._calc_bap(mask, psd, 0, end, 40, ba["floor"], tab),
                 ref_ac3._calc_bap(mask, rpsd, 0, end, 40, ba["floor"],
                                   ref_tab))
+
+
+def test_video_filter_tables_equal_reference():
+    from ffmpeg_tpu.filters import framesync as ref_fs
+    from ffmpeg_tpu.filters import sources as ref_src
+    from ffmpeg_tpu.filters import video5 as ref_v5
+    from ffmpeg_tpu.filters import video6 as ref_v6
+    from ffmpeg_tpu.filters import video7 as ref_v7
+    from ffmpeg_tpu.ops import deblock as ref_deblock
+    from ffmpeg_tpu.scale import lut3d as ref_lut3d
+    from ffmpeg_tpu_torch.filters import framesync, sources, video5, video6
+    from ffmpeg_tpu_torch.filters import video7
+    from ffmpeg_tpu_torch.ops import deblock
+    from ffmpeg_tpu_torch.scale import lut3d
+    for a, b in ((deblock._ALPHA, ref_deblock._ALPHA),
+                 (deblock._BETA, ref_deblock._BETA)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for n in (2, 9, 17, 33, 65):
+        a, b = lut3d.identity_lut(n), ref_lut3d.identity_lut(n)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    cube = "TITLE x\nLUT_3D_SIZE 2\nDOMAIN_MIN 0.1 0.1 0.1\n" \
+        "DOMAIN_MAX 0.9 0.9 0.9\n" + "\n".join(
+            f"{r * 0.7:.3f} {g * 0.9:.3f} {b * 0.5 + 0.2:.3f}"
+            for b in range(2) for g in range(2) for r in range(2))
+    (t, lo, hi), (rt, rlo, rhi) = lut3d.parse_cube(cube), \
+        ref_lut3d.parse_cube(cube)
+    np.testing.assert_array_equal(t, rt)
+    assert (lo, hi) == (rlo, rhi) == (0.1, 0.9)
+    assert sources.ColorSource._COLORS == ref_src.ColorSource._COLORS
+    assert video6.ExtractPlanesFilter._NAMES == \
+        ref_v6.ExtractPlanesFilter._NAMES
+    for c in ("black", "Lime", "#ff8000", "0x123456", "green", "abcdef"):
+        assert video6._parse_color(c) == ref_v6._parse_color(c)
+    assert (video6.SobelFilter._KX, video6.SobelFilter._KY,
+            video6.PrewittFilter._KX, video6.PrewittFilter._KY) == \
+        (ref_v6.SobelFilter._KX, ref_v6.SobelFilter._KY,
+         ref_v6.PrewittFilter._KX, ref_v6.PrewittFilter._KY)
+    assert video5._LUMA == ref_v5._LUMA
+    for x in (0.0, 0.5, 1.0, 4.0, 100.0):
+        assert video5._hable(x) == ref_v5._hable(x)
+    for name in ("_CSP_COEFFS", "_TRC", "_PRIMARIES", "_WP_D65",
+                 "_SPACE_ALIASES", "_LUT_LO", "_LUT_HI", "_I16_HI"):
+        assert getattr(video7, name) == getattr(ref_v7, name), name
+    assert video7.ColorspaceFilter._ALL == ref_v7.ColorspaceFilter._ALL
+    for sp in video7._CSP_COEFFS:
+        np.testing.assert_array_equal(
+            video7._yuv2rgb_matrix(video7._CSP_COEFFS[sp]),
+            ref_v7._yuv2rgb_matrix(ref_v7._CSP_COEFFS[sp]))
+    for pr in video7._PRIMARIES:
+        np.testing.assert_array_equal(
+            video7._rgb2xyz(video7._PRIMARIES[pr]),
+            ref_v7._rgb2xyz(ref_v7._PRIMARIES[pr]))
+    # the frame aligner: the same groups on the same pts streams
+    pts = [[0, 1, 2, 3, 4], [0, 2, 3], [1, 4]]
+    got = []
+    for mod, fmod in ((framesync, Frame), (ref_fs, None)):
+        from ffmpeg_tpu.core.frame import Frame as RefFrame
+        F = fmod or RefFrame
+        R = Rational if fmod else RefRational
+        fs = mod.FrameSync(3)
+        out = []
+        for k in range(5):
+            for pad, ps in enumerate(pts):
+                if k < len(ps):
+                    fs.push(F(pts=ps[k], time_base=R(1, 25)), pad)
+            out += [[f and f.pts for f in g] for g in fs.events()]
+        for pad in range(3):
+            fs.push(None, pad)
+        out += [[f and f.pts for f in g] for g in fs.events()]
+        got.append(out)
+    assert got[0] == got[1] and len(got[0]) >= 3

@@ -26,7 +26,9 @@ the ProRes and the DNxHD encoder and back through their decoders, and
 the MPEG-4 and H.263 decoders on committed streams; then the audio
 decoders (MPEG audio Layers I-III, AC-3 and E-AC-3, HE-AAC with SBR and
 PS) on the first packets of the committed audio streams, against the
-reference's committed PCM; all on the CPU."""
+reference's committed PCM; then the video filters of video2-video8 and
+sources.py in four parsed chains and a source, and deblock_plane and
+apply_lut3d; all on the CPU."""
 
 import re
 import subprocess
@@ -237,6 +239,32 @@ for name in ("mp3_reservoir", "mp2_stereo", "mp1_stereo", "ac3_stereo",
     assert apcm.shape == ast["prefix"].shape, name
     assert atol is None or np.abs(apcm - ast["prefix"]).max() <= atol * peak
     assert snr_db(apcm, ast["prefix"]) >= asnr, name
+from ffmpeg_tpu_torch.core.frame import Frame
+from ffmpeg_tpu_torch.filters import (framesync, get_filter, sources,  # noqa
+                                      video2, video3, video4, video5,
+                                      video6, video7, video8)
+from ffmpeg_tpu_torch.utils.rational import Rational
+from ffmpeg_tpu_torch.ops.deblock import deblock_plane
+from ffmpeg_tpu_torch.scale.lut3d import apply_lut3d, identity_lut
+from ffmpeg_tpu_torch.testing import filter_clip
+assert len(filter_names()) == 96
+vclip = filter_clip(0, 3, 32, 16, "yuv420p", interlaced=True)
+vin = [Frame.video(32, 16, "yuv420p", planes=p, pts=k,
+                   time_base=Rational(1, 25), interlaced=True,
+                   top_field_first=True) for k, p in enumerate(vclip)]
+for text in ("yadif,deblock,negate,eq=contrast=1.2,boxblur,hue=h=10",
+             "bwdif,hqdn3d,gblur,vignette,tmix,vnoise,cas",
+             "format=pix_fmts=gbrp,lut3d,colortemperature,lutrgb,rotate=a=0.2",
+             "colorspace=all=bt709:iall=bt601-6-625,median,sobel,tpad=stop=1"):
+    vout = parse_graph(text, device="cpu").run(vin)
+    assert len(vout) >= 3 and all(p.device.type == "cpu"
+                                  for f in vout for p in f.planes), text
+src = get_filter("mandelbrot")("size=16x8:maxiter=8")
+src.device = torch.device("cpu")
+assert next(iter(src.generate(1))).planes[0].shape == (8, 16)
+assert deblock_plane(torch.zeros(16, 16, dtype=torch.uint8)).shape == (16, 16)
+assert apply_lut3d(torch.zeros(4, 3), torch.from_numpy(identity_lut(5))
+                   ).shape == (4, 3)
 assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
@@ -267,7 +295,8 @@ def test_port_sources_never_import_jax():
                                             "vp9_window_ab_torch.py",
                                             "vp9_mc_ab_torch.py",
                                             "hevc_dispatch_count_torch.py",
-                                            "h264_dispatch_count_torch.py"))]
+                                            "h264_dispatch_count_torch.py",
+                                            "filter_ops_count_torch.py"))]
     hits = [str(p.relative_to(REPO)) for p in files
             if pat.search(p.read_text())]
     assert not hits, hits
@@ -304,6 +333,18 @@ def test_intra_fixture_tool_takes_its_answers_from_the_reference():
     assert port == {("ffmpeg_tpu_torch", "testing")}, port
     assert re.search(r"^\s*from ffmpeg_tpu\.codecs import CodecContext",
                      src, re.M)
+
+
+def test_filters_fixture_tool_takes_its_answers_from_the_reference():
+    """tools/gen_torch_filters_fixture.py runs the reference by design,
+    like the tools above: of the port it imports only
+    ffmpeg_tpu_torch.testing (the chains, their seeded inputs and the
+    graph runner), and the filters it runs are the reference's."""
+    src = (REPO / "tools" / "gen_torch_filters_fixture.py").read_text()
+    port = set(re.findall(r"^\s*(?:from|import)\s+(ffmpeg_tpu_torch[\w.]*)"
+                          r"(?:\s+import\s+(\w+))?", src, re.M))
+    assert port == {("ffmpeg_tpu_torch", "testing")}, port
+    assert re.search(r"^\s*from ffmpeg_tpu\.filters import", src, re.M)
 
 
 def test_audio_fixture_tool_takes_its_answers_from_the_reference():
