@@ -47,7 +47,13 @@ Drives the port's paths through their user entry points at full size:
   on the ten committed streams of about 1 s each;
 - the video filters: every filter of filters/video2-video8 and
   sources.py through parse_graph on the card at 1920x1080, in chains
-  grouped by module, on seeded frames (testing.filter_clip).
+  grouped by module, on seeded frames (testing.filter_clip);
+- the rest of the audio: the AAC-LC encoder (open_encoder("aac"), its
+  MDCT on the card) at 48 kHz stereo and 44.1 kHz mono, the Vorbis and
+  Opus decoders (open_decoder("vorbis"), ("opus"): CELT, SILK, hybrid
+  and a mode switch; the IMDCT on the card) on 19 committed streams, and
+  one chain of each audio filter module (filters/audio2-audio6, host
+  numpy) through parse_graph on the card, each ending in aresample.
 
 Phases, one line each:
 
@@ -261,10 +267,36 @@ Phases, one line each:
    runs, kernels and copies per frame and the device's busy share; the
    phase's wall time split into making the inputs, the card runs, the
    timing, the CPU runs and the profile.
-Phases 9-16, 18 and 20-24 run PyTorch only: K1 and K2 are not on their
+25. the rest of the audio on the card: tx.mdct at 1024 and tx.imdct at
+   the slice's sizes (AAC 1024 at 1/512/65536; Vorbis 1024; CELT 120,
+   240, 480 and 960 at 1/32768), at the main path's shapes on seeded
+   inputs, against their CPU runs (within 1e-5 of full scale); the AAC
+   encoder on testing.aac_signal at quality 2, 48 kHz stereo and
+   44.1 kHz mono (testing.AAC_CHIP_CASES), its packets against the
+   reference's committed sha256 and sizes, any packet that differs
+   holding only decisions within float32's error of their tie
+   (testing.aac_check against the reference's committed levels and
+   scalefactors), the total size within 0.1%, and the port's AAC decoder
+   on the card decoding the packets within 0.05 dB of the reference's
+   decode SNR; encode frames/s and x-realtime over the median of 3
+   passes, split into the host's windows, band loop and packing, the h2d,
+   the device MDCT and the d2h; each Vorbis and Opus stream of
+   tests/data/port/audio_codecs_streams.npz through open_decoder on the
+   card against the port's CPU decode and its first packets against the
+   reference's committed PCM (testing.audio_bar: max |diff| <= 1e-5 and
+   >= 100 dB), x-realtime over the median of 3 passes split into the
+   host (parse, window, overlap-add, SILK) and the device stage (h2d,
+   IMDCT, d2h; CUDA events), and kernels per packet from torch.profiler
+   in a child process beside the CPU decodes; each chain of
+   testing.AUDIO_CHAINS on the card over 4 s of audio, its host filters
+   bit-equal to the committed golden's sha256 (the same numpy and scipy
+   code; the two CPUs' difference measured 0) and with its aresample on
+   the card against the golden and the CPU graph (within 1e-5), in ms per
+   second of audio.
+Phases 9-16, 18 and 20-25 run PyTorch only: K1 and K2 are not on their
 paths, and each prints their launch counts over its run (0).  K2's launches
 in the JSON line count phases 7 and 17, K1's phases 4 and 19.  Phases
-13-24 print their wall times, and the script its own.
+13-25 print their wall times, and the script its own.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -496,6 +528,7 @@ def main() -> int:
     phase22_mpeg4(dev, card)
     phase23_audio_decoders(dev, card)
     phase24_filters(dev, card)
+    phase25_audio_codecs(dev, card)
     launches += k1_enc
     k2_launches += k2_enc
     print(f"whole script: {time.monotonic() - T0:.1f} s", flush=True)
@@ -2945,6 +2978,282 @@ def phase24_filters(dev, card) -> None:
     print(f"phase 24 wall time: {time.monotonic() - t_phase:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in split.items())
           + "; the sources and checks the rest)", flush=True)
+
+
+def _tx25_cases() -> list:
+    """Phase 25's transforms at the main path's shapes: (what, tx
+    function name, n, scale, input shape)."""
+    aac = 1.0 / 512 / 65536
+    return [("AAC encoder MDCT n=1024 (48 blocks x 2 ch)", "mdct", 1024,
+             1.0, (96, 2048)),
+            ("AAC probe IMDCT n=1024", "imdct", 1024, aac, (3, 1024)),
+            ("Vorbis IMDCT n=1024 (2 ch)", "imdct", 1024, 1.0, (2, 1024)),
+            ("Vorbis IMDCT n=128 (2 ch)", "imdct", 128, 1.0, (2, 128))] + [
+        (f"CELT IMDCT n={n} ({rows} rows)", "imdct", n, 1 / 32768,
+         (rows, n)) for n, rows in ((120, 16), (240, 8), (480, 4),
+                                    (960, 2))]
+
+
+def audio_codecs_profile(device: str = "cuda:0") -> None:
+    """Phase 25's torch.profiler sessions, in a process of their own (see
+    audio_profile): for each AAC case one encode after a warm one, and for
+    each Vorbis and Opus stream that makes device calls (the SILK streams
+    make none: their `stats` in phase 25 are empty) one whole decode after
+    a warm decode of its first 2 packets.  Prints one JSON line: name →
+    packets, kernels, copies, launch calls, device busy ms and the
+    kernels' names."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    dev = torch.device(device)
+    runs = {}
+    for name in fx.AAC_CHIP_CASES:
+        rate, ch, n, q = fx.AAC_ENC_CASES[name]
+        sig = fx.aac_signal(n, rate, ch)
+        runs[name] = (lambda s=sig, r=rate, q=q: fx.aac_encode(s, r, q, dev),
+                      -(-n // 1024) + 1)
+    for name in fx.CODEC_STREAM_NAMES:
+        if name.startswith("silk_"):
+            continue
+        st = fx.codec_stream(name)
+        fx.codec_decode(st, dev, n=2)
+        runs[name] = (lambda st=st: fx.codec_decode(st, dev),
+                      len(st["packets"]))
+    out = {}
+    for name, (fn, packets) in runs.items():
+        ev, api = profile_device(fn, warm=name in fx.AAC_CHIP_CASES)
+        names = sorted({n[:60] for n, _ in ev
+                        if not n.startswith(("Memcpy", "Memset"))})
+        kernels = sum(1 for n, _ in ev
+                      if not n.startswith(("Memcpy", "Memset")))
+        out[name] = {"packets": packets, "kernels": kernels,
+                     "copies": len(ev) - kernels, "api": api,
+                     "busy_ms": sum(us for _, us in ev) / 1e3,
+                     "names": names}
+    print(json.dumps(out), flush=True)
+
+
+def _audio_codecs_profile_start(dev):
+    """audio_codecs_profile() started in a child process on `dev`; pass
+    the handle to _audio_codecs_profile_result."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.audio_codecs_profile({str(dev)!r})"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _audio_codecs_profile_result(child) -> dict:
+    """The child's JSON line, after it ends (600 s at most)."""
+    try:
+        out, err = child.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise
+    if child.returncode != 0:
+        raise RuntimeError(f"phase 25's profile exited {child.returncode}: "
+                           f"{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _stage_split(stats: list, wall_ms: float) -> str:
+    """One pass's split from its `stats` (codecs/audio_tx.py): the host's
+    time outside the device stage, and the stage's h2d, transform and d2h
+    by CUDA events, with the bytes each way."""
+    stage = sum(s["host"]["device"] for s in stats)
+    dev = {k: sum(s["device"][k] for s in stats)
+           for k in ("h2d", "transform", "d2h")}
+    return (f"host {wall_ms - stage:.2f} ms, device stage {stage:.2f} ms "
+            f"wall over {len(stats)} calls: h2d "
+            f"{sum(s['h2d_bytes'] for s in stats)} B {dev['h2d']:.3f} ms, "
+            f"transform {dev['transform']:.3f} ms, d2h "
+            f"{sum(s['d2h_bytes'] for s in stats)} B {dev['d2h']:.3f} ms "
+            f"(CUDA events)")
+
+
+def _profile_note(pr, med_ms: float) -> str:
+    """The profile child's counts for one run, per packet, with the
+    device's busy share of `med_ms`; for a stream it did not profile,
+    the pass's device calls from `stats` (none for SILK)."""
+    if pr is None:
+        return ("no device call in the pass (`stats`: SILK runs on the "
+                "host), not profiled")
+    if not (pr["kernels"] or pr["api"]):
+        return "launches not measured (the profiler saw no CUDA activity)"
+    return (f"{pr['kernels'] / pr['packets']:.2f} kernels + "
+            f"{pr['copies'] / pr['packets']:.2f} copies per packet "
+            f"({pr['kernels']} + {pr['copies']} over {pr['packets']} "
+            f"packets, {pr['api']} launch calls; device busy "
+            f"{pr['busy_ms']:.3f} ms, {pr['busy_ms'] / med_ms:.2%} of a "
+            f"pass; kernels: {', '.join(pr['names'])})")
+
+
+def phase25_audio_codecs(dev, card) -> None:
+    """The AAC encoder, the Vorbis and Opus decoders and the audio filter
+    chains on the card (see phase 25 in the module docstring); K1 and K2
+    not launched."""
+    import statistics
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.filters import parse_graph
+    from ffmpeg_tpu_torch.ops import huffman, me, tx
+    t_phase = time.monotonic()
+
+    # the transforms at the main path's shapes
+    rng = np.random.default_rng(25)
+    notes = []
+    for what, kind, n, scale, shape in _tx25_cases():
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        fn = getattr(tx, kind)
+        got, want = fn(x.to(dev), n, scale), fn(x, n, scale)
+        if got.device != dev:
+            raise RuntimeError(f"{what}: result on {got.device}")
+        full = float(want.abs().max())
+        err = float((got.cpu() - want).abs().max())
+        if err > TX_REL * full:
+            raise RuntimeError(f"{what} on the card differs from the CPU run "
+                               f"by {err:.3g} (> {TX_REL} of full scale "
+                               f"{full:.3g})")
+        notes.append(f"{what} {err / full:.3g}")
+    print(f"phase 25 transforms [{card}]: on the card against the CPU run, "
+          f"max |diff| over full scale: {'; '.join(notes)}", flush=True)
+
+    # warm every path once, then count K1/K2 over the main path's runs
+    fx.aac_encode(fx.aac_signal(3000, 48000, 2), 48000, 2, dev)
+    for name in fx.CODEC_STREAM_NAMES:
+        fx.codec_decode(fx.codec_stream(name), dev, n=2)
+    zero_counts()
+
+    # the AAC encoder
+    aac_med = {}
+    for name in fx.AAC_CHIP_CASES:
+        rate, ch, n, q = fx.AAC_ENC_CASES[name]
+        r = fx.aac_check(name, dev)
+        sig = fx.aac_signal(n, rate, ch)
+        walls, stats = [], []
+        for i in range(3):
+            st = [] if i == 0 else None
+            t = time.perf_counter()
+            fx.aac_encode(sig, rate, q, dev, st)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            stats = st if st is not None else stats
+        med = aac_med[name] = statistics.median(walls)
+        decided = ("all byte-equal to the reference's" if
+                   r["equal"] == r["packets"] else
+                   f"{r['equal']} byte-equal to the reference's, the rest "
+                   f"holding {r['diff']} levels and {r['sf_diff']} "
+                   f"scalefactors that differ, each one step at most and "
+                   f"within float32's error of its tie (worst "
+                   f"{max(r['worst'], r['sf_worst']):.3g} of the bound)")
+        print(f"phase 25 AAC encoder {name} [{card}]: {ch} ch at {rate} Hz, "
+              f"{n / rate:.3f} s at quality {q} through open_encoder('aac') "
+              f"on the card: {r['packets']} packets, {decided}; "
+              f"{r['bytes']} bytes (reference {r['ref_bytes']}); decoded "
+              f"on the card at {r['snr']:.4f} dB to the source (reference "
+              f"{r['ref_snr']:.4f} dB); {r['packets'] * 1e3 / med:.1f} "
+              f"frames/s, {n / rate * 1e3 / med:.2f}x realtime (median "
+              f"{med:.1f} ms of {[round(w, 1) for w in walls]}, wall); "
+              f"split of the first pass: {_stage_split(stats, walls[0])}; "
+              f"the host part is the windows, band loop and packing",
+              flush=True)
+
+    # the Vorbis and Opus streams
+    rows = {}
+    for name in fx.CODEC_STREAM_NAMES:
+        st = fx.codec_stream(name)
+        walls, stats, got = [], [], None
+        for i in range(3):
+            s_ = [] if i == 0 else None
+            t = time.perf_counter()
+            frames = fx.codec_decode(st, dev, s_)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                got, stats = frames, s_
+        pre = fx.codec_decode(st, dev, n=fx.CODEC_PREFIX_PACKETS)
+        rows[name] = {"st": st, "got": got, "pre": pre, "walls": walls,
+                      "stats": stats}
+    counts = read_counts()
+    child = _audio_codecs_profile_start(dev)
+    try:
+        for name, r in rows.items():
+            st = r["st"]
+            want = fx.codec_decode(st, "cpu")
+            pcm = fx.audio_pcm(r["got"])
+            checks = [_close_audio(
+                np.concatenate([f.audio_data for f in r["got"]], 1),
+                np.concatenate([f.audio_data for f in want], 1),
+                "against the CPU decode:", fx.AUDIO_DECODE_TOL,
+                fx.AUDIO_DECODE_MIN_SNR),
+                _close_audio(np.concatenate([f.audio_data for f in r["pre"]],
+                                            1), st["prefix"],
+                             f"first {fx.CODEC_PREFIX_PACKETS} packets "
+                             f"against the reference's PCM:",
+                             fx.AUDIO_DECODE_TOL, fx.AUDIO_DECODE_MIN_SNR)]
+            r["checks"] = checks
+            r["secs"] = pcm.size / st["channels"] / st["sample_rate"]
+    finally:
+        prof = _audio_codecs_profile_result(child)
+    for name, r in rows.items():
+        st = r["st"]
+        med = statistics.median(r["walls"])
+        print(f"phase 25 {name} [{card}]: {st['codec_id']}, "
+              f"{st['channels']} ch, {len(st['packets'])} packets "
+              f"({r['secs']:.3f} s) through open_decoder("
+              f"'{st['codec_id']}') on the card: {'; '.join(r['checks'])}; "
+              f"{r['secs'] * 1e3 / med:.2f}x realtime (median {med:.1f} ms "
+              f"of {[round(w, 1) for w in r['walls']]}, wall); split of the "
+              f"first pass: {_stage_split(r['stats'], r['walls'][0])}; "
+              f"{_profile_note(prof.get(name), med)}", flush=True)
+        if bool(r["stats"]) != (name in prof):
+            raise RuntimeError(f"{name}: {len(r['stats'])} device calls, "
+                               f"profiled: {name in prof}")
+    for name in fx.AAC_CHIP_CASES:
+        print(f"phase 25 AAC encoder {name} launches [{card}]: one encode "
+              f"with the encoder's opening: "
+              f"{_profile_note(prof[name], aac_med[name])}", flush=True)
+
+    # the audio filter chains
+    z = np.load(fx.AUDIO_CODECS)
+    inputs = fx.audio_chain_inputs()
+    for name in fx.AUDIO_CHAINS:
+        host = fx.run_audio_chain(lambda t: parse_graph(t, device=dev), name,
+                                  inputs, resample=False)
+        try:
+            fx.audio_chain_host_check(host, z, name)
+        except AssertionError as e:
+            raise RuntimeError(str(e)) from None
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            got = fx.run_audio_chain(lambda t: parse_graph(t, device=dev),
+                                     name, inputs)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        cpu = fx.run_audio_chain(lambda t: parse_graph(t, device="cpu"),
+                                 name, inputs)
+        checks = [_close_audio(got, z[f"chain_{name}"], "against the golden:",
+                               TX_REL, AUDIO_MIN_SNR),
+                  _close_audio(got, cpu, "against the CPU graph:", TX_REL,
+                               AUDIO_MIN_SNR)]
+        med = statistics.median(walls)
+        print(f"phase 25 audio chain {name} [{card}]: "
+              f"parse_graph('{fx.audio_chain_text(name)}') on the card over "
+              f"{fx.AUDIO_CHAIN_SECONDS} s of 48 kHz stereo: host filters "
+              f"{host.shape} bit-equal to the golden (sha256); "
+              f"{'; '.join(checks)}; {med / fx.AUDIO_CHAIN_SECONDS:.1f} ms "
+              f"per second of audio (median of "
+              f"{[round(w, 1) for w in walls]} ms, wall)", flush=True)
+
+    counts = f"{counts}; after the chains {read_counts()}"
+    if huffman.KERNEL_LAUNCHES or me.KERNEL_LAUNCHES:
+        raise RuntimeError(f"phase 25 launched K1 or K2: {counts}")
+    print(f"phase 25 K1 and K2: 0 launches in phase 25 ({counts})",
+          flush=True)
+    print(f"phase 25 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -62,7 +62,16 @@ both check the port against the JAX reference's committed answers:
   packets (`AUDIO_STREAMS`, written by tools/gen_torch_audio_fixture.py
   and read by `audio_stream`), the decode through the port's entry
   points (`audio_decode`), the bar (`audio_bar`), and the reference
-  decoders' carried state moved into the port's (`transplant_audio_state`).
+  decoders' carried state moved into the port's (`transplant_audio_state`);
+- the rest of the audio (`AUDIO_CODECS`, written by
+  tools/gen_torch_audio_codecs_fixture.py): the Vorbis and Opus streams
+  of the reference's tests (`codec_stream`, `codec_decode`) with the
+  reference decoder's PCM of their first packets; the AAC encoder's
+  cases on the seeded `aac_signal` with the reference encoder's packet
+  sha256, sizes, decisions and decode SNR (`aac_encode`, `aac_check`,
+  whose tie-aware bar is `aac_decision_check`); and the audio filter
+  chains (`AUDIO_CHAINS`, `audio_chain_inputs`, `run_audio_chain`) with
+  the reference's outputs (`audio_chain_host_check`).
 
 They live here so that each check reads them from the package and not
 from the other.
@@ -71,6 +80,7 @@ from the other.
 from __future__ import annotations
 
 import hashlib
+import math
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Tuple
@@ -983,3 +993,381 @@ def transplant_audio_state(ref, port) -> None:
         port._dith.index = ref._dith.index
     else:
         raise TypeError(f"no audio state to carry into {type(port)}")
+
+
+# The rest of the audio (tools/gen_torch_audio_codecs_fixture.py writes
+# AUDIO_CODECS from the JAX package): the Vorbis and Opus streams of the
+# reference's tests/test_vorbis.py, test_opus.py and test_opus_silk.py
+# with the reference decoder's PCM of their first CODEC_PREFIX_PACKETS
+# packets; the AAC encoder's cases of tests/test_aac_enc.py with the
+# reference encoder's packets' sha256 and sizes, its band decisions and
+# the SNR of the reference decoder's decode of its packets; and the audio
+# filter chains' outputs.
+AUDIO_CODECS = DATA / "audio_codecs_streams.npz"
+VORBIS_STREAM_NAMES = ("vorbis_sine", "vorbis_stereo", "vorbis_noise")
+CELT_STREAM_NAMES = ("celt_sine", "celt_mono", "celt_noise", "celt_256k",
+                     "celt_16k")
+SILK_STREAM_NAMES = ("silk_cfg1_20ms", "silk_cfg5_20ms", "silk_cfg9_20ms",
+                     "silk_10ms", "silk_60ms", "silk_nb_40ms", "silk_stereo",
+                     "hybrid_cfg13", "hybrid_cfg15", "hybrid_stereo_10ms",
+                     "mode_switch")
+CODEC_STREAM_NAMES = VORBIS_STREAM_NAMES + CELT_STREAM_NAMES + \
+    SILK_STREAM_NAMES
+CODEC_PREFIX_PACKETS = 4
+# name → (sample rate, channels, samples, quality): the cases of
+# tests/test_aac_enc.py (mono at 44.1 and 48 kHz, stereo, and the
+# quality ladder 1/3/5 on half a second), all on aac_signal.
+AAC_ENC_CASES = {
+    "aac_mono_44k": (44100, 1, 44100, 2),
+    "aac_mono_48k": (48000, 1, 48000, 2),
+    "aac_stereo_48k": (48000, 2, 48000, 2),
+    "aac_ladder_q1": (44100, 1, 22050, 1),
+    "aac_ladder_q3": (44100, 1, 22050, 3),
+    "aac_ladder_q5": (44100, 1, 22050, 5),
+}
+AAC_CHIP_CASES = ("aac_stereo_48k", "aac_mono_44k")
+# the encoder's decode SNR against the reference's, dB
+AAC_SNR_TOL_DB = 0.05
+
+
+def aac_signal(n: int, rate: int, ch: int, seed: int = 0) -> np.ndarray:
+    """tests/test_aac_enc.py `_signal`: two tones and noise, (ch, n)
+    float32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / rate
+    base = (0.3 * np.sin(2 * np.pi * 440 * t) +
+            0.15 * np.sin(2 * np.pi * 1870 * t) +
+            0.04 * rng.normal(size=n))
+    if ch == 1:
+        return base[None, :].astype(np.float32)
+    second = (0.25 * np.sin(2 * np.pi * 660 * t) +
+              0.04 * rng.normal(size=n))
+    return np.stack([base, second]).astype(np.float32)
+
+
+def aac_encode(sig: np.ndarray, rate: int, quality, device, stats=None):
+    """The port's AAC encoder on `device` over one frame of `sig` (fltp,
+    pts 0) and the drain, as tests/test_aac_enc.py `_encode` does:
+    (packets, the encoder, its band decisions as it made them:
+    ((frames, ch, 1024) levels, (frames, ch, bands) scalefactors))."""
+    from .codecs import CodecContext
+    from .formats.channel_layout import default_layout
+    from .io.stream import CodecParameters, MediaType
+    from .utils.error import EndOfStream, TryAgain
+    ch = sig.shape[0]
+    enc = CodecContext.open_encoder(CodecParameters(
+        codec_type=MediaType.AUDIO, codec_id="aac", sample_rate=rate,
+        ch_layout=default_layout(ch)), {"quality": quality}, device=device)
+    codec = enc.codec
+    codec.stats = stats
+    made = []
+
+    def record(spec):
+        out = type(codec).decide(codec, spec)
+        made.append(out)
+        return out
+    codec.decide = record
+    pkts = []
+    for fr in (Frame.audio(sig, rate, "fltp", default_layout(ch), pts=0,
+                           time_base=Rational(1, rate)), None):
+        enc.send_frame(fr)
+        while True:
+            try:
+                pkts.append(enc.receive_packet())
+            except (TryAgain, EndOfStream):
+                break
+    del codec.decide
+    levels = np.array([np.concatenate(q + [np.zeros(
+        1024 - sum(map(len, q)), np.int64)]) for q, _sf, _cb in made],
+        np.int64)
+    sfs = np.array([sf for _q, sf, _cb in made], np.int64)
+    return pkts, codec, (levels.reshape(-1, ch, 1024),
+                         sfs.reshape(-1, ch, codec.max_sfb))
+
+
+def aac_decode(pkts, rate: int, device) -> np.ndarray:
+    """The port's AAC decoder on `device` over `pkts` → (ch, n)."""
+    from .codecs import CodecContext
+    from .io.stream import CodecParameters, MediaType
+    frames = CodecContext.open_decoder(CodecParameters(
+        codec_type=MediaType.AUDIO, codec_id="aac", sample_rate=rate),
+        device=device).decode_all(pkts)
+    return np.concatenate([f.audio_data for f in frames], axis=1)
+
+
+def aac_snr(decoded: np.ndarray, sig: np.ndarray) -> float:
+    """tests/test_aac_enc.py's measure: the decode past the encoder's
+    1024-sample delay against the source, the last 4096 samples left
+    out."""
+    n = sig.shape[1]
+    return snr_db(decoded[:, 1024:1024 + n - 4096], sig[:, :n - 4096])
+
+
+def aac_exact(enc, sig: np.ndarray):
+    """The encoder's windows of `sig` as the encoder forms them (one
+    per packet, the flush frame included), and each window's MDCT in
+    float64 times the encoder's scale, with the sum of its terms'
+    magnitudes: ((frames, ch, 1024) exact, (frames, ch, 1024) mag)."""
+    from .ops.tx import _mdct_matrix
+    ch, n = sig.shape
+    nb = -(-n // 1024)
+    x = np.zeros((ch, (nb + 2) * 1024))
+    x[:, 1024:1024 + n] = np.asarray(sig, np.float64)
+    frames = nb + int(bool(np.any(x[:, nb * 1024:(nb + 1) * 1024])))
+    win = np.stack([x[:, i * 1024:i * 1024 + 2048] for i in range(frames)])
+    win = (win * enc._window).astype(np.float32).astype(np.float64)
+    m = _mdct_matrix(1024)
+    exact = np.einsum("kj,bcj->bck", m, win) * enc._spec_scale
+    mag = np.einsum("kj,bcj->bck", np.abs(m), np.abs(win)) * enc._spec_scale
+    return exact, mag
+
+
+def aac_decision_check(enc, got, want, exact, mag,
+                       scale_rel: float) -> dict:
+    """The AAC encoder's bar: where two runs' decisions (as aac_encode
+    gives them) differ, each differing scalefactor is one step from the
+    other and its exact value 4·log2(target/0.35) lies within float32's
+    error of a rounding tie, and each differing level (in a band whose
+    scalefactors agree) is one step from the other and its exact value
+    |x·2^(-sf/4)|^(3/4) + 0.4054 lies within float32's error of the
+    integer it truncates at.  float32's error on each coefficient is
+    F32_TOL times the sum of its terms' magnitudes (the MDCT at 1024
+    measured up to 5.1e-7 of it between the two packages), plus
+    `scale_rel` (the two runs' scale factors' relative difference) of
+    its value.  Returns the counts (testing.undecided_levels's keys for
+    levels, and `sf_*` for the scalefactors)."""
+    (gq, gsf), (wq, wsf) = got, want
+    offs = list(enc.swb_offset)
+    dx = F32_TOL * mag + scale_rel * np.abs(exact)
+    sf_x, sf_tol, sf_got, sf_want = [], [], [], []
+    lv_sel = np.zeros(gq.shape, bool)
+    for f, c in zip(*np.nonzero((gsf != wsf).any(-1) | (gq != wq).any(-1))):
+        spec, err = exact[f, c], dx[f, c]
+        e_all = float(np.mean(spec * spec))
+        gref = math.sqrt(e_all + 1e-12)
+        rel_g = float(np.sum(np.abs(spec) * err)) / max(e_all * 1024, 1e-300)
+        for b in range(enc.max_sfb):
+            lo, hi = offs[b], offs[b + 1]
+            if gsf[f, c, b] != wsf[f, c, b]:
+                x = spec[lo:hi]
+                energy = float(np.sum(x * x))
+                r = 10.0 ** (-(3.6 - 0.35 * enc.quality - 0.03 * b))
+                band = math.sqrt(energy / len(x)) * r
+                floor = gref * 10.0 ** (-(4.4 - 0.3 * enc.quality))
+                rel = (float(np.sum(np.abs(x) * err[lo:hi])) /
+                       max(energy, 1e-300) if band >= floor else rel_g)
+                sf_x.append(4 * math.log2(max(band, floor, 1e-9) / 0.35))
+                sf_tol.append(4 / math.log(2) * rel)
+                sf_got.append(gsf[f, c, b])
+                sf_want.append(wsf[f, c, b])
+            else:
+                lv_sel[f, c, lo:hi] = gq[f, c, lo:hi] != wq[f, c, lo:hi]
+    sfs = np.repeat(wsf, np.diff(offs[:enc.max_sfb + 1]), axis=-1)
+    sfs = np.concatenate([sfs, np.zeros(gq.shape[:2] + (
+        1024 - sfs.shape[-1],), np.int64)], axis=-1)
+    a = (np.abs(exact) * 2.0 ** (-sfs / 4.0)) ** 0.75
+    u = a + 0.4054
+    u_tol = 0.75 * a * dx / np.maximum(np.abs(exact), 1e-300)
+    lv = undecided_levels(np.where(lv_sel, gq, 0), np.where(lv_sel, wq, 0),
+                          u, u_tol, "trunc")
+    sf = undecided_levels(np.array(sf_got), np.array(sf_want),
+                          np.array(sf_x), np.array(sf_tol), "round")
+    return {**lv, **{f"sf_{k}": v for k, v in sf.items()}}
+
+
+def aac_check(name: str, device, stats=None) -> dict:
+    """One case of AAC_ENC_CASES through the port's encoder on `device`,
+    held to the reference's committed answers (AUDIO_CODECS): each packet
+    byte-equal to the reference's (sha256) or, where not, every decision
+    in it within float32's error of its tie (aac_decision_check against
+    the reference's decisions; only the cases of AAC_CHIP_CASES carry
+    them); the total size within 0.1%; the port's AacDecoder on `device`
+    decoding the packets within AAC_SNR_TOL_DB of the reference's decode
+    SNR.  Raises AssertionError outside; returns the counts and numbers:
+    packets, equal, bytes, ref_bytes, snr, ref_snr and the decision
+    check's keys."""
+    rate, ch, n, q = AAC_ENC_CASES[name]
+    z = np.load(AUDIO_CODECS)
+    sig = aac_signal(n, rate, ch)
+    pkts, enc, made = aac_encode(sig, rate, q, device, stats)
+    sha = [hashlib.sha256(bytes(p.data)).hexdigest() for p in pkts]
+    want_sha = z[f"{name}_sha256"].tolist()
+    assert len(sha) == len(want_sha), (len(sha), len(want_sha))
+    equal = [a == b for a, b in zip(sha, want_sha)]
+    out = {"packets": len(pkts), "equal": sum(equal)}
+    if not all(equal):
+        want = (z[f"{name}_levels"].astype(np.int64),
+                z[f"{name}_sf"].astype(np.int64))
+        exact, mag = aac_exact(enc, sig)
+        r = aac_decision_check(enc, made, want, exact, mag, abs(
+            enc._spec_scale / float(z[f"{name}_scale"]) - 1))
+        assert r["step"] <= 1 and r["off"] == 0, r
+        assert r["sf_step"] <= 1 and r["sf_off"] == 0, r
+        differ = set(np.nonzero((made[0] != want[0]).any((1, 2)) |
+                                (made[1] != want[1]).any((1, 2)))[0])
+        assert {i for i, e in enumerate(equal) if not e} <= differ
+        out.update(r)
+    out["bytes"] = sum(len(p.data) for p in pkts)
+    out["ref_bytes"] = int(z[f"{name}_sizes"].sum())
+    assert abs(out["bytes"] - out["ref_bytes"]) <= 1e-3 * out["ref_bytes"]
+    out["snr"] = aac_snr(aac_decode(pkts, rate, device), sig)
+    out["ref_snr"] = float(z[f"{name}_snr"])
+    assert abs(out["snr"] - out["ref_snr"]) <= AAC_SNR_TOL_DB, out
+    return out
+
+
+def codec_stream(name: str) -> dict:
+    """One stream of AUDIO_CODECS: codec_id, sample_rate, channels,
+    extradata, packets (bytes) with their pts and time base, and the
+    reference decoder's PCM of the first CODEC_PREFIX_PACKETS packets,
+    (channels, n) float32."""
+    z = np.load(AUDIO_CODECS)
+    codec_id, rate, ch, tb_num, tb_den = z[f"{name}_params"].tolist()
+    data = z[f"{name}_data"].tobytes()
+    offs = np.concatenate([[0], np.cumsum(z[f"{name}_sizes"])])
+    return {"codec_id": codec_id, "sample_rate": int(rate),
+            "channels": int(ch), "extradata": z[f"{name}_extradata"]
+            .tobytes(),
+            "packets": [data[a:b] for a, b in zip(offs[:-1], offs[1:])],
+            "pts": [int(t) for t in z[f"{name}_pts"]],
+            "time_base": Rational(int(tb_num), int(tb_den)),
+            "prefix": z[f"{name}_prefix"]}
+
+
+def codec_decoder(st: dict, device):
+    """CodecContext.open_decoder on `device` for a codec_stream."""
+    from .codecs import CodecContext
+    from .formats.channel_layout import default_layout
+    from .io.stream import CodecParameters, MediaType
+    return CodecContext.open_decoder(CodecParameters(
+        codec_type=MediaType.AUDIO, codec_id=st["codec_id"],
+        sample_rate=st["sample_rate"],
+        ch_layout=default_layout(st["channels"]),
+        extradata=st["extradata"]), device=device)
+
+
+def codec_packets(st: dict, n=None) -> list:
+    """The first `n` (all) packets of a codec_stream as Packets."""
+    from .core.packet import Packet
+    return [Packet(data=p, pts=t, time_base=st["time_base"])
+            for p, t in zip(st["packets"][:n], st["pts"])]
+
+
+def codec_decode(st: dict, device, stats=None, n=None) -> list:
+    """The first `n` (all) packets of a codec_stream through its decoder
+    on `device`, drained; `stats`, when a list, gets each device call's
+    split."""
+    dec = codec_decoder(st, device)
+    dec.codec.stats = stats
+    return dec.decode_all(codec_packets(st, n))
+
+
+# The audio filter chains that chip_smoke.py runs on the card through
+# parse_graph: one per module of filters/audio2.py-audio6.py, each on
+# AUDIO_CHAIN_SECONDS of a seeded 48 kHz stereo clip (audio_chain_inputs)
+# and each ending in aresample=16000, whose FIR runs on the graph's
+# device.  4 s is the length of the reference's tests/test_loudness.py
+# `_noise`: long enough for ebur128's 400 ms momentary and 3 s
+# short-term blocks, its loudness range and loudnorm's dynamic gain, and
+# for dynaudnorm's window of five 100 ms frames to fill.  name → (graph
+# text, its inputs: {label: "clip", "left", "right" or "ir"}).  The
+# golden holds each chain's output (`chain_<name>`) and the sha256 and
+# shape of the output of the chain without its final aresample
+# (`chain_<name>_host`, `chain_<name>_host_shape`: audio_chain_digest).
+AUDIO_CHAIN_SECONDS = 4.0
+AUDIO_CHAIN_FRAME = 1024
+AUDIO_CHAINS = {
+    "audio2": ("lowpass=frequency=6000,highpass=frequency=120,"
+               "bandpass=frequency=1000:width=0.5,"
+               "equalizer=frequency=2000:width=1:gain=4,bass=gain=3,"
+               "treble=gain=-2,adelay=delays=5|12,aecho=0.8:0.6:30|70:0.4|0.2",
+               {"in": "clip"}),
+    "audio3": ("ebur128,loudnorm=I=-18:TP=-3", {"in": "clip"}),
+    "audio4": ("[in]atempo=1.25[t];[t][ir]afir=dry=0.5:wet=0.8",
+               {"in": "clip", "ir": "ir"}),
+    "audio5": ("[l][r]amerge=inputs=2,asetpts=PTS,"
+               "afade=type=in:duration=0.1,channelmap=map=1|0,"
+               "extrastereo=m=2,stereowiden,crystalizer=i=1.5,"
+               "tremolo=f=7:d=0.6,vibrato=f=6:d=0.3,"
+               "join=inputs=1:channel_layout=stereo",
+               {"l": "left", "r": "right"}),
+    "audio6": ("dynaudnorm=f=100:g=5,compand,acompressor=threshold=0.1:"
+               "ratio=4,agate=threshold=0.05:ratio=3,alimiter=limit=0.7,"
+               "silenceremove=start_threshold=0.01:start_duration=0.01",
+               {"in": "clip"}),
+}
+
+
+def audio_chain_inputs(seed: int = 0) -> dict:
+    """The chains' seeded inputs as fltp frames of AUDIO_CHAIN_FRAME
+    samples at 48 kHz: "clip" (stereo: tones and noise with a quiet
+    head), "left" and "right" (its channels, mono) and "ir" (a decaying
+    noise impulse response of 257 taps, stereo, one frame)."""
+    from .formats.channel_layout import default_layout
+    rate = 48000
+    n = int(AUDIO_CHAIN_SECONDS * rate)
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / rate
+    x = np.stack([0.4 * np.sin(2 * np.pi * 330 * t) +
+                  0.1 * rng.standard_normal(n),
+                  0.3 * np.sin(2 * np.pi * 523 * t + 0.5) +
+                  0.1 * rng.standard_normal(n)])
+    x[:, :n // 10] *= 0.001
+    x = x.astype(np.float32)
+    ir = (rng.standard_normal((2, 257)) *
+          np.exp(-np.arange(257) / 40.0)).astype(np.float32)
+    tb = Rational(1, rate)
+
+    def frames(a):
+        step = AUDIO_CHAIN_FRAME
+        return [Frame.audio(np.ascontiguousarray(a[:, i:i + step]), rate,
+                            "fltp", default_layout(a.shape[0]), pts=i,
+                            time_base=tb)
+                for i in range(0, a.shape[1], step)]
+    return {"clip": frames(x), "left": frames(x[:1]), "right": frames(x[1:]),
+            "ir": frames(ir)}
+
+
+def audio_chain_text(name: str, resample: bool = True) -> str:
+    """A chain's graph text, with or without its final aresample."""
+    text = AUDIO_CHAINS[name][0]
+    return text + ",aresample=16000" if resample else text
+
+
+def audio_chain_digest(x: np.ndarray) -> str:
+    """sha256 of a chain's output as C-ordered float32 bytes."""
+    return hashlib.sha256(np.ascontiguousarray(x, np.float32)
+                          .tobytes()).hexdigest()
+
+
+def audio_chain_host_check(host: np.ndarray, golden, name: str) -> None:
+    """Raise AssertionError unless `host` (a chain's output without its
+    final aresample) is bit-equal to the golden's: the filters before
+    aresample are the same numpy and scipy code in both packages."""
+    shape = tuple(int(v) for v in golden[f"chain_{name}_host_shape"])
+    if host.shape != shape:
+        raise AssertionError(f"chain {name}: host filters give "
+                             f"{host.shape}, the golden {shape}")
+    if audio_chain_digest(host) != str(golden[f"chain_{name}_host"]):
+        raise AssertionError(f"chain {name}: host filters' output is not "
+                             f"bit-equal to the golden's (sha256)")
+
+
+def run_audio_chain(parse, name: str, inputs: dict,
+                    resample: bool = True) -> np.ndarray:
+    """Chain `name` through `parse` (either package's parse_graph, bound
+    to its device): every input's frames fed in label order, frame by
+    frame, then each input's EOF; the output frames' samples
+    concatenated → (channels, n) float32."""
+    g = parse(audio_chain_text(name, resample))
+    feeds = AUDIO_CHAINS[name][1]
+    out = []
+    for label, src in feeds.items():
+        for f in inputs[src]:
+            g.feed(f, label)
+            out.extend(g.pull("out"))
+    for label in feeds:
+        g.feed_eof(label)
+        out.extend(g.pull("out"))
+    return np.concatenate([np.asarray(f.audio_data, np.float32)
+                           for f in out], axis=1)

@@ -255,9 +255,10 @@ def test_rate_and_timestamp_filters_match_reference(text):
 
 def test_registry_holds_video_py_only():
     """The registry holds the filters of video.py, of audio.py (since the
-    audio slice) and of video2-video8 and sources.py (since the video
-    filters' slice): the reference's filters less the 29 of its host
-    audio modules audio2-audio6, whose names raise FilterNotFound."""
+    audio slice), of video2-video8 and sources.py (since the video
+    filters' slice) and of the host audio modules audio2-audio6 (since
+    the rest of the audio): all of the reference's, each of those 29
+    from the port's copy of its module."""
     from ffmpeg_tpu.filters import audio2, audio3, audio4, audio5, audio6
 
     def names(mod):
@@ -271,12 +272,13 @@ def test_registry_holds_video_py_only():
     host_audio = sorted(n for n in ref_filter_names()
                         if ref_get_filter(n).__module__ in mods)
     assert len(host_audio) == 29
-    assert filter_names() == sorted(set(ref_filter_names()) -
-                                    set(host_audio))
-    assert len(filter_names()) == 96 == len(ref_filter_names()) - 29
+    assert filter_names() == ref_filter_names()
+    assert len(filter_names()) == 125
     for name in host_audio:
-        with pytest.raises(FilterNotFound):
-            get_filter(name)
+        assert get_filter(name).__module__ == "ffmpeg_tpu_torch" + \
+            ref_get_filter(name).__module__[len("ffmpeg_tpu"):]
+    with pytest.raises(FilterNotFound):
+        get_filter("no_such_filter")
 
 
 def test_props_cache_hits_across_frames():

@@ -14,7 +14,11 @@ MPEG-4 and H.263 decoders against the CPU; the audio decoders' device
 filterbanks (mp3fb, ac3fb) and the MPEG audio, AC-3/E-AC-3 and HE-AAC
 decoders on the committed audio streams against the CPU; the video
 filters' chains of chip_smoke.py phase 24, their sources, deblock_plane
-and apply_lut3d against the CPU.  Marked
+and apply_lut3d against the CPU; the transforms of the last audio slice
+at its sizes, the AAC encoder against the reference's committed packets
+and decisions, the Vorbis and Opus streams against the CPU and the
+reference's committed PCM, and chip_smoke.py phase 25's audio filter
+chains against the CPU and the committed golden.  Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
 card and without jax they run without tests/conftest.py (which imports
@@ -822,3 +826,72 @@ def test_deblock_and_lut3d_on_card_match_cpu(cuda):
         a = apply_lut3d(rgb.to(cuda), lut.to(cuda), method)
         assert a.is_cuda
         assert torch.equal(a.cpu(), apply_lut3d(rgb, lut, method))
+
+
+# --- the rest of the audio: AAC encoder, Vorbis, Opus, audio filters ------
+
+@pytest.mark.parametrize("kind,n,scale", [
+    ("mdct", 1024, 1.0), ("imdct", 1024, 1.0 / 512 / 65536),
+    ("imdct", 1024, 1.0), ("imdct", 128, 1.0), ("imdct", 120, 1 / 32768),
+    ("imdct", 240, 1 / 32768), ("imdct", 480, 1 / 32768),
+    ("imdct", 960, 1 / 32768)])
+def test_audio_codec_transforms_on_card_match_cpu(cuda, kind, n, scale):
+    """tx.mdct / tx.imdct at the slice's sizes and scales (the AAC
+    encoder, Vorbis, CELT) on a batch on the card, within 1e-5 of the CPU
+    run's largest magnitude (phase 12's bound: float32 sums in another
+    order)."""
+    from ffmpeg_tpu_torch.ops import tx
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal(
+        (16, 2 * n if kind == "mdct" else n)).astype(np.float32))
+    fn = getattr(tx, kind)
+    got, want = fn(x.to(cuda), n, scale), fn(x, n, scale)
+    assert got.is_cuda
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name", fx.AAC_CHIP_CASES)
+def test_aac_encoder_on_card_matches_reference(cuda, name):
+    """The AAC encoder on the card against the reference's committed
+    packets, decisions and decode SNR (testing.aac_check's bar)."""
+    r = fx.aac_check(name, cuda)
+    assert r["packets"] == len(np.load(fx.AUDIO_CODECS)[f"{name}_sizes"])
+
+
+@pytest.mark.parametrize("name", fx.CODEC_STREAM_NAMES)
+def test_codec_streams_on_card_match_cpu(cuda, name):
+    """Each committed Vorbis and Opus stream through open_decoder on the
+    card and on the CPU, within testing.audio_bar's bar, and its first
+    packets against the reference's committed PCM."""
+    st = fx.codec_stream(name)
+    a = np.concatenate([f.audio_data for f in fx.codec_decode(st, cuda)], 1)
+    b = np.concatenate([f.audio_data for f in fx.codec_decode(st, "cpu")], 1)
+    assert a.shape == b.shape
+    assert float(np.abs(a - b).max()) <= fx.AUDIO_DECODE_TOL
+    assert fx.snr_db(a, b) >= fx.AUDIO_DECODE_MIN_SNR
+    pre = np.concatenate([f.audio_data for f in fx.codec_decode(
+        st, cuda, n=fx.CODEC_PREFIX_PACKETS)], 1)
+    assert pre.shape == st["prefix"].shape
+    assert float(np.abs(pre - st["prefix"]).max()) <= fx.AUDIO_DECODE_TOL
+    assert fx.snr_db(pre, st["prefix"]) >= fx.AUDIO_DECODE_MIN_SNR
+
+
+@pytest.mark.parametrize("name", list(fx.AUDIO_CHAINS))
+def test_audio_chains_on_card_match_golden(cuda, name):
+    """Each audio filter module's chain through parse_graph on the card
+    (its final aresample's FIR there) against the CPU graph and the
+    committed golden, within 1e-5 of full scale (the FIR's float32
+    sums); the host filters alone bit-equal to the golden's sha256."""
+    z = np.load(fx.AUDIO_CODECS)
+    inputs = fx.audio_chain_inputs()
+    host = fx.run_audio_chain(lambda t: parse_graph(t, device=cuda), name,
+                              inputs, resample=False)
+    fx.audio_chain_host_check(host, z, name)
+    got = fx.run_audio_chain(lambda t: parse_graph(t, device=cuda), name,
+                             inputs)
+    cpu = fx.run_audio_chain(lambda t: parse_graph(t, device="cpu"), name,
+                             inputs)
+    for ref in (cpu, z[f"chain_{name}"]):
+        assert got.shape == ref.shape
+        assert float(np.abs(got - ref).max()) <= 1e-5

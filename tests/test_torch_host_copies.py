@@ -20,7 +20,12 @@ AC-3 bit allocation on seeded exponents; and the video filters' host
 copies: the .cube parser and identity LUT, the deblock thresholds, the
 sources' colour table, the colour parsers and plane names of video6,
 the luma, transfer, primaries and range tables of video5 and video7,
-the colorspace filter's matrices, and the frame aligner."""
+the colorspace filter's matrices, and the frame aligner; and the
+host copies of the last audio slice: the Opus range decoder, SILK, its
+resampler and tables and the Vorbis tables, and the audio filters of
+audio2-audio6, statement for statement (their code equals the
+reference's, the module docstring aside), the range decoder on every
+frame of the committed Opus streams and the resampler on seeded input."""
 
 import ctypes
 import dataclasses
@@ -952,7 +957,8 @@ def _same(a, b) -> bool:
 
 
 @pytest.mark.parametrize("name", ["mp3_tables", "ac3_tables", "eac3_tables",
-                                  "aacsbr_tables", "ps_tables"])
+                                  "aacsbr_tables", "ps_tables",
+                                  "vorbis_tables", "opus.tables_gen"])
 def test_audio_decoder_tables_equal_reference(name):
     import importlib
     ref = importlib.import_module(f"ffmpeg_tpu.codecs.{name}")
@@ -1074,3 +1080,101 @@ def test_video_filter_tables_equal_reference():
         out += [[f and f.pts for f in g] for g in fs.events()]
         got.append(out)
     assert got[0] == got[1] and len(got[0]) >= 3
+
+
+HOST_COPIES = ["codecs/vorbis_tables.py", "codecs/opus/tables_gen.py",
+               "codecs/opus/rc.py", "codecs/opus/silk.py",
+               "codecs/opus/silk_resample.py", "filters/audio2.py",
+               "filters/audio3.py", "filters/audio4.py", "filters/audio5.py",
+               "filters/audio6.py"]
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_copy_code_equals_reference(rel):
+    """The port's copy has the reference's code, statement for statement:
+    the syntax trees without the module docstring are equal."""
+    import ast
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+
+    def body(pkg):
+        tree = ast.parse((root / pkg / rel).read_text())
+        stmts = tree.body
+        if stmts and isinstance(stmts[0], ast.Expr) and \
+                isinstance(stmts[0].value, ast.Constant):
+            stmts = stmts[1:]
+        return [ast.dump(x) for x in stmts]
+    assert body("ffmpeg_tpu_torch") == body("ffmpeg_tpu")
+
+
+def _rc_walk(rc_mod, data: bytes) -> list:
+    """A fixed sequence of the range decoder's calls over one frame, with
+    its state after each."""
+    from ffmpeg_tpu_torch.codecs.opus import tables_gen as T
+    rc = rc_mod.RangeCoder(data)
+    out = [(rc.range, rc.value, rc.tell(), rc.tell_frac())]
+    for i in range(40):
+        op = i % 8
+        if op == 0:
+            v = rc.dec_log(1 + i % 15)
+        elif op == 1:
+            v = rc.dec_cdf(T.MODEL_SPREAD)
+        elif op == 2:
+            v = rc.dec_uint(3 + 37 * i)
+        elif op == 3:
+            v = rc.get_raw(1 + i % 9)
+        elif op == 4:
+            v = rc.dec_laplace(100 << 7, 60 << 6)
+        elif op == 5:
+            v = rc.dec_uint_step(1 + i % 3)
+        elif op == 6:
+            v = rc.dec_uint_tri(2 + i % 13)
+        else:
+            v = rc.dec_cdf(T.MODEL_ALLOC_TRIM)
+        out.append((v, rc.range, rc.value, rc.total_bits, rc.tell(),
+                    rc.tell_frac()))
+    return out
+
+
+def test_opus_range_decoder_equals_reference_on_recorded_packets():
+    """Both range decoders over every frame of every committed Opus stream
+    (tests/data/port/audio_codecs_streams.npz), the same calls in the
+    same order: the same symbols, range, value and bit counts."""
+    from ffmpeg_tpu.codecs import opus as ref_opus
+    from ffmpeg_tpu.codecs.opus import rc as ref_rc
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.codecs.opus import rc
+    frames = [f for n in fx.CELT_STREAM_NAMES + fx.SILK_STREAM_NAMES
+              for p in fx.codec_stream(n)["packets"]
+              for f in ref_opus.parse_packet(p)[2] if f]
+    assert len(frames) > 250
+    for f in frames:
+        assert _rc_walk(rc, f) == _rc_walk(ref_rc, f)
+    for v in (0, 1, 2, 99, 10 ** 6, 2 ** 40 + 7):
+        assert rc._isqrt(v) == ref_rc._isqrt(v)
+    enc, ref_enc = rc.RangeEncoder(), ref_rc.RangeEncoder()
+    for e in (enc, ref_enc):
+        for i in range(50):
+            e.enc_log(i % 3 == 0, 1 + i % 5)
+            e.enc_uint(i * 7 % 300, 300)
+            e.put_raw(i & 15, 4)
+    assert enc.finish() == ref_enc.finish()
+
+
+def test_silk_resampler_equals_reference():
+    """The SILK → 48 kHz banks, and convert / flush on seeded input carried
+    over three calls at each SILK rate."""
+    from ffmpeg_tpu.codecs.opus import silk_resample as ref_sr
+    from ffmpeg_tpu_torch.codecs.opus import silk_resample as sr
+    rng = np.random.default_rng(9)
+    for rate in (8000, 12000, 16000):
+        np.testing.assert_array_equal(sr._build_bank(48000 // rate),
+                                      ref_sr._build_bank(48000 // rate))
+        a, b = sr.SilkResampler(rate, 2), ref_sr.SilkResampler(rate, 2)
+        for n in (rate // 100, rate // 50, 7):
+            x = [rng.standard_normal(n).astype(np.float32) * 0.3
+                 for _ in range(2)]
+            for got, want in zip(a.convert(x, 960), b.convert(x, 960)):
+                np.testing.assert_array_equal(got, want)
+        for got, want in zip(a.flush(40), b.flush(40)):
+            np.testing.assert_array_equal(got, want)

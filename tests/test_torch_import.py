@@ -28,7 +28,10 @@ decoders (MPEG audio Layers I-III, AC-3 and E-AC-3, HE-AAC with SBR and
 PS) on the first packets of the committed audio streams, against the
 reference's committed PCM; then the video filters of video2-video8 and
 sources.py in four parsed chains and a source, and deblock_plane and
-apply_lut3d; all on the CPU."""
+apply_lut3d; then the rest of the audio: the AAC encoder on a seeded
+signal, the Vorbis and Opus decoders (CELT, SILK, hybrid) on the first
+packets of committed streams against the reference's committed PCM, and
+an audio filter chain of audio6; all on the CPU."""
 
 import re
 import subprocess
@@ -247,7 +250,7 @@ from ffmpeg_tpu_torch.utils.rational import Rational
 from ffmpeg_tpu_torch.ops.deblock import deblock_plane
 from ffmpeg_tpu_torch.scale.lut3d import apply_lut3d, identity_lut
 from ffmpeg_tpu_torch.testing import filter_clip
-assert len(filter_names()) == 96
+assert len(filter_names()) == 125
 vclip = filter_clip(0, 3, 32, 16, "yuv420p", interlaced=True)
 vin = [Frame.video(32, 16, "yuv420p", planes=p, pts=k,
                    time_base=Rational(1, 25), interlaced=True,
@@ -265,6 +268,23 @@ assert next(iter(src.generate(1))).planes[0].shape == (8, 16)
 assert deblock_plane(torch.zeros(16, 16, dtype=torch.uint8)).shape == (16, 16)
 assert apply_lut3d(torch.zeros(4, 3), torch.from_numpy(identity_lut(5))
                    ).shape == (4, 3)
+from ffmpeg_tpu_torch.testing import (AUDIO_CODECS, CODEC_PREFIX_PACKETS,
+                                      aac_decode, aac_encode, aac_signal,
+                                      audio_chain_inputs, codec_decode,
+                                      codec_stream, run_audio_chain)
+assert "aac" in encoder_names() and {"vorbis", "opus"} <= set(decoder_names())
+sig = aac_signal(3000, 48000, 2)
+apk, _aenc, _adec = aac_encode(sig, 48000, 2, "cpu")
+assert len(apk) == 4 and aac_decode(apk, 48000, "cpu").shape == (2, 4096)
+for name in ("vorbis_noise", "celt_noise", "silk_stereo", "hybrid_cfg13"):
+    cst = codec_stream(name)
+    cpcm = np.concatenate([f.audio_data for f in codec_decode(
+        cst, "cpu", n=CODEC_PREFIX_PACKETS)], axis=1)
+    assert cpcm.shape == cst["prefix"].shape, name
+    assert snr_db(cpcm, cst["prefix"]) >= 100, name
+chain = run_audio_chain(lambda t: parse_graph(t, device="cpu"), "audio6",
+                        audio_chain_inputs())
+assert chain.shape == np.load(AUDIO_CODECS)["chain_audio6"].shape
 assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
@@ -357,4 +377,19 @@ def test_audio_fixture_tool_takes_its_answers_from_the_reference():
                           r"(?:\s+import\s+(\w+))?", src, re.M))
     assert port == {("ffmpeg_tpu_torch", "testing")}, port
     assert re.search(r"^\s*from ffmpeg_tpu\.codecs import CodecContext",
+                     src, re.M)
+
+
+def test_audio_codecs_fixture_tool_takes_its_answers_from_the_reference():
+    """tools/gen_torch_audio_codecs_fixture.py runs the reference by
+    design, like the tools above: of the port it imports only
+    ffmpeg_tpu_torch.testing (names, seeded inputs, the chain runner),
+    and the encoder, decoders and filters it runs are the reference's."""
+    src = (REPO / "tools" / "gen_torch_audio_codecs_fixture.py").read_text()
+    port = set(re.findall(r"^\s*(?:from|import)\s+(ffmpeg_tpu_torch[\w.]*)"
+                          r"(?:\s+import\s+(\w+))?", src, re.M))
+    assert port == {("ffmpeg_tpu_torch", "testing")}, port
+    assert re.search(r"^\s*from ffmpeg_tpu\.codecs import CodecContext",
+                     src, re.M)
+    assert re.search(r"^\s*from ffmpeg_tpu\.filters import parse_graph",
                      src, re.M)
