@@ -53,7 +53,14 @@ Drives the port's paths through their user entry points at full size:
   Opus decoders (open_decoder("vorbis"), ("opus"): CELT, SILK, hybrid
   and a mode switch; the IMDCT on the card) on 19 committed streams, and
   one chain of each audio filter module (filters/audio2-audio6, host
-  numpy) through parse_graph on the card, each ending in aresample.
+  numpy) through parse_graph on the card, each ending in aresample;
+- the CLI: ffmpeg_tpu_torch.cli.ffmpeg.main(argv, device) in process,
+  demux -> decode -> filter graph -> encode -> mux on the card, on the
+  command lines of testing.cli_commands (the 1080p MJPEG to 224x224
+  rgb24, VP9 to framemd5, H.264 remuxed to Matroska and MP4 and decoded
+  to framemd5, a 1080p y4m to MPEG-2 with K2 in its motion search, AAC to
+  16 kHz mono float), and ffmpeg_tpu_torch.cli.ffprobe.main on the
+  outputs.
 
 Phases, one line each:
 
@@ -293,10 +300,25 @@ Phases, one line each:
    code; the two CPUs' difference measured 0) and with its aresample on
    the card against the golden and the CPU graph (within 1e-5), in ms per
    second of audio.
+26. the CLI on the card, each command of testing.cli_commands through
+   main(argv, device) in a temporary directory, each with its wall time,
+   frames/s (x-realtime for audio), K1 and K2 launches and device-to-host
+   copies of frame planes per frame: (a) the flagship fixture to 224x224
+   rgb24 byte-equal to open_decoder("mjpeg") + parse_graph on the card;
+   (b) VP9's framemd5 text and (c) the H.264 stream's Matroska and MP4
+   remuxes (sha256) and its first frame's framemd5 equal to the
+   reference CLI's committed goldens (testing.CLI_GOLDEN); (d) a y4m of
+   mpeg2_clip at 1920x1080 to MPEG-2 in Matroska, its packets byte-equal
+   to open_encoder("mpeg2video") on the card with the CLI's parameters
+   on the same frames, their sizes within 1% of the reference's, K2
+   launched; (e) the ADTS clip to 16 kHz mono f32le within phase 12's bar
+   of the frontend golden; (f) the probe of (c)'s and (d)'s files equal
+   to the reference's text ((d)'s apart from the packets' sizes and
+   positions).  The direct paths of (a) and (d) are timed beside them.
 Phases 9-16, 18 and 20-25 run PyTorch only: K1 and K2 are not on their
 paths, and each prints their launch counts over its run (0).  K2's launches
-in the JSON line count phases 7 and 17, K1's phases 4 and 19.  Phases
-13-25 print their wall times, and the script its own.
+in the JSON line count phases 7, 17 and 26 (d), K1's phases 4 and 19.
+Phases 13-26 print their wall times, and the script its own.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -529,8 +551,9 @@ def main() -> int:
     phase23_audio_decoders(dev, card)
     phase24_filters(dev, card)
     phase25_audio_codecs(dev, card)
+    k2_cli = phase26_cli(dev, card)
     launches += k1_enc
-    k2_launches += k2_enc
+    k2_launches += k2_enc + k2_cli
     print(f"whole script: {time.monotonic() - T0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -3254,6 +3277,207 @@ def phase25_audio_codecs(dev, card) -> None:
           flush=True)
     print(f"phase 25 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
+
+
+
+class PlaneCopies:
+    """Counts the device-to-host copies of frame planes while it is
+    entered: each call of core.frame.host_array on a tensor off the CPU,
+    in every module of the port that holds that function (Frame.numpy and
+    to_bytes, and the encoders that read planes on the host)."""
+
+    def __enter__(self):
+        import torch
+        from ffmpeg_tpu_torch.core import frame
+        self.n, self._orig = 0, frame.host_array
+
+        def counted(plane):
+            if isinstance(plane, torch.Tensor) and plane.device.type != "cpu":
+                self.n += 1
+            return self._orig(plane)
+        self._mods = [m for name, m in list(sys.modules.items())
+                      if name.startswith("ffmpeg_tpu_torch")
+                      and getattr(m, "host_array", None) is self._orig]
+        for m in self._mods:
+            m.host_array = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.host_array = self._orig
+
+
+def phase26_cli(dev, card) -> int:
+    """The port's CLI on the card (phase 26 in the module docstring);
+    returns K2's launches in command (d)."""
+    import contextlib
+    import hashlib
+    import io
+    import json
+    import tempfile
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.cli.ffmpeg import main as fftpu
+    from ffmpeg_tpu_torch.cli.ffprobe import main as fftpu_probe
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.filters import parse_graph
+    from ffmpeg_tpu_torch.io import open_input
+    from ffmpeg_tpu_torch.ops import huffman, me
+    t_phase = time.monotonic()
+    gold = json.loads(fx.CLI_GOLDEN.read_text())
+    rows = {}
+
+    def run(name: str, frames: int) -> dict:
+        zero_counts()
+        with PlaneCopies() as cp:
+            t = time.perf_counter()
+            rc = fftpu(cmds[name], device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        if rc != 0:
+            raise RuntimeError(f"phase 26 ({name}): fftpu-torch "
+                               f"{' '.join(cmds[name])} returned {rc}")
+        r = rows[name] = {"wall": wall, "frames": frames,
+                          "k1": huffman.KERNEL_LAUNCHES,
+                          "k2": me.KERNEL_LAUNCHES, "copies": cp.n}
+        return r
+
+    def report(name: str, what: str, check: str, direct: str = "") -> None:
+        r = rows[name]
+        rate = (f"{r['frames'] / r['wall']:.3f} frames/s" if r["frames"]
+                else "")
+        copies = (f"{r['copies']} plane copies to the host "
+                  f"({r['copies'] / r['frames']:.2f} a frame)"
+                  if r["frames"] else f"{r['copies']} plane copies")
+        print(f"phase 26 ({name}) [{card}]: fftpu-torch "
+              f"{' '.join(Path(a).name if '/' in a else a for a in cmds[name])}"
+              f": {what}; {check}; wall {r['wall'] * 1e3:.1f} ms"
+              f"{', ' + rate if rate else ''}{direct}; K1/K2 launches "
+              f"{r['k1']}/{r['k2']}; {copies}", flush=True)
+
+    def probe_text(path: Path) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fftpu_probe([*fx.CLI_PROBE_ARGS, str(path)], device=dev)
+        if rc != 0:
+            raise RuntimeError(f"phase 26 (f): fftpu-probe of {path.name} "
+                               f"returned {rc}")
+        return buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        cmds = fx.cli_commands(d)
+
+        # (a) MJPEG -> scale -> rgb24, against the direct path on the card
+        run("a", 8)
+        got = (d / "out.rgb").read_bytes()
+        dm = open_input(str(fx.FIXTURE))
+        pkts = list(dm.packets())
+        dm.close()
+        t = time.perf_counter()
+        frames = CodecContext.open_decoder(dm.streams[0].codecpar,
+                                           device=dev).decode_all(pkts)
+        out = parse_graph("scale=224:224,format=rgb24", device=dev).run(
+            frames)
+        want = b"".join(f.to_bytes() for f in out)
+        direct_ms = (time.perf_counter() - t) * 1e3
+        if got != want or len(got) != 8 * 224 * 224 * 3:
+            raise RuntimeError(f"phase 26 (a): {len(got)} bytes, not equal "
+                               f"to the direct path's {len(want)}")
+        report("a", f"{len(pkts)} frames of 1920x1080 MJPEG",
+               "byte-equal to open_decoder('mjpeg') + parse_graph('scale="
+               "224:224,format=rgb24') on the card",
+               f" (the direct path {direct_ms:.1f} ms)")
+
+        # (b) VP9 -> framemd5, against the reference CLI's text
+        run("b", 3)
+        if (d / "out_vp9.md5").read_text() != gold["b_framemd5"]:
+            raise RuntimeError("phase 26 (b): the framemd5 differs from "
+                               "the reference CLI's golden")
+        report("b", "3 frames of the 1920x1080 VP9 bench stream",
+               "framemd5 text equal to the reference CLI's golden")
+
+        # (c) H.264 remuxed, then its first frame decoded
+        npk = len(list(open_input(str(fx.H264_CABAC)).packets()))
+        for name, ext in (("c_mkv", "mkv"), ("c_mp4", "mp4")):
+            run(name, 0)
+            sha = hashlib.sha256((d / f"out.{ext}").read_bytes()).hexdigest()
+            if sha != gold[f"c_{ext}_sha256"]:
+                raise RuntimeError(f"phase 26 ({name}): the remux differs "
+                                   f"from the reference CLI's (sha256)")
+            report(name, f"{npk} packets of the 1920x1088 H.264 stream "
+                   f"copied", "sha256 equal to the reference CLI's remux")
+        run("c_md5", 1)
+        if (d / "out_h264.md5").read_text() != gold["c_framemd5"]:
+            raise RuntimeError("phase 26 (c_md5): the framemd5 differs "
+                               "from the reference CLI's golden")
+        report("c_md5", "the Matroska file's first frame decoded (the "
+               "decoder takes the pictures it needs to emit it)",
+               "framemd5 text equal to the reference CLI's golden")
+
+        # (d) a 1080p y4m -> MPEG-2 in Matroska, K2 in the motion search
+        y4m = fx.write_y4m(d / "mpeg2_clip.y4m", fx.mpeg2_clip(
+            fx.CLI_MPEG2_FRAMES, ENC_W, ENC_H))
+        r = run("d", fx.CLI_MPEG2_FRAMES)
+        if r["k2"] < 1:
+            raise RuntimeError("phase 26 (d): K2 not launched by the CLI's "
+                               "MPEG-2 encode")
+        dm = open_input(str(d / "out_mpeg2.mkv"))
+        got = [p.data for p in dm.packets()]
+        dm.close()
+        par, frames = fx.cli_encoder_input(y4m, "mpeg2video", dev)
+        t = time.perf_counter()
+        ctx = CodecContext.open_encoder(par, {}, device=dev)
+        want = [p.data for p in fx.encode_all(ctx, frames)]
+        torch.cuda.synchronize()
+        direct_ms = (time.perf_counter() - t) * 1e3
+        if got != want:
+            raise RuntimeError(f"phase 26 (d): packets {[len(x) for x in got]}"
+                               f" differ from the direct encode's "
+                               f"{[len(x) for x in want]}")
+        ref_bytes = gold["d_packet_bytes"]
+        rel = max(abs(len(a) / b - 1) for a, b in zip(got, ref_bytes))
+        if len(got) != len(ref_bytes) or rel > 0.01:
+            raise RuntimeError(f"phase 26 (d): sizes {[len(x) for x in got]}"
+                               f" not within 1% of the reference's "
+                               f"{ref_bytes}")
+        report("d", f"{len(got)} frames of mpeg2_clip at {ENC_W}x{ENC_H} "
+               f"to MPEG-2", f"packets {[len(x) for x in got]} B byte-equal "
+               f"to open_encoder('mpeg2video') on the card on the same "
+               f"frames, within {rel:.3%} of the reference's {ref_bytes}",
+               f" (the direct encode {direct_ms:.1f} ms)")
+
+        # (e) the audio frontend's command
+        run("e", 0)
+        got = np.fromfile(d / "out.f32", np.float32)[None]
+        note = _close_audio(got, np.load(fx.AUDIO_GOLDEN)["resampled"],
+                            "against the frontend golden:", AUDIO_TOL,
+                            AUDIO_MIN_SNR)
+        secs = got.shape[1] / 16000
+        report("e", f"{secs:.2f} s of 48 kHz stereo AAC to 16 kHz mono f32le",
+               f"{note}; {secs / rows['e']['wall']:.2f}x realtime")
+
+        # (f) the probe of the outputs
+        for ext in ("mkv", "mp4"):
+            if probe_text(d / f"out.{ext}") != gold[f"f_probe_{ext}"]:
+                raise RuntimeError(f"phase 26 (f): the probe of out.{ext} "
+                                   f"differs from the reference's")
+        text = probe_text(d / "out_mpeg2.mkv")
+        if fx.probe_without_sizes(text) != fx.probe_without_sizes(
+                gold["f_probe_mpeg2"]):
+            raise RuntimeError("phase 26 (f): the probe of the MPEG-2 file "
+                               "differs from the reference's beyond the "
+                               "packets' sizes")
+        print(f"phase 26 (f) [{card}]: fftpu-probe "
+              f"{' '.join(fx.CLI_PROBE_ARGS)} of out.mkv and out.mp4 equal "
+              f"to the reference's text, of out_mpeg2.mkv equal but for "
+              f"the packets' sizes and positions", flush=True)
+    if any(r["k1"] for r in rows.values()):
+        raise RuntimeError("phase 26 launched K1, which no CLI path runs")
+    print(f"phase 26 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    return rows["d"]["k2"]
 
 
 if __name__ == "__main__":

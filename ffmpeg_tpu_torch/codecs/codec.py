@@ -71,7 +71,9 @@ def _passes_backstop(e: BaseException) -> bool:
     """Errors the decode backstop passes through: the framework's own,
     and faults of the card, of a build or of the process, which must not
     read as malformed input: a CUDA error
-    (torch raises RuntimeError, or AcceleratorError where torch has it),
+    (torch raises RuntimeError, or AcceleratorError where torch has it;
+    a torch built without CUDA raises AssertionError for a tensor on the
+    card),
     running out of device or host memory, a native or CUDA build that
     failed, and the full-float32 precondition of the transforms."""
     if isinstance(e, (FFTPUError, MemoryError, RecursionError,
@@ -81,7 +83,7 @@ def _passes_backstop(e: BaseException) -> bool:
     accel = getattr(torch, "AcceleratorError", None)
     if accel is not None and isinstance(e, accel):
         return True
-    return isinstance(e, RuntimeError) and any(
+    return isinstance(e, (RuntimeError, AssertionError)) and any(
         s in str(e) for s in ("CUDA", "cuda", "full float32"))
 
 
@@ -108,6 +110,16 @@ class Codec(LogMixin):
 
     def flush_state(self) -> None:
         """Reset for seeking (avcodec_flush_buffers)."""
+
+
+class DeviceCodec(Codec):
+    """A codec that keeps the device open_decoder or open_encoder hands
+    it, for codecs whose constructor needs nothing else."""
+
+    def __init__(self, par, options: Optional[dict] = None, *,
+                 device: torch.device | str = "cuda"):
+        super().__init__(par, options)
+        self.device = torch.device(device)
 
 
 class CodecContext(LogMixin):

@@ -1,0 +1,210 @@
+"""The reference's demuxers that the port has not copied yet, as probe
+claims only: each keeps its name, extensions and probe (the reference's
+scores, copied from the module named beside it), so that the port's
+probe_format ranks a file as the reference's does.  Where one of these
+wins, the port raises DemuxerNotFound naming the module, where otherwise
+a ported demuxer with a lower score would take a file that is not its
+own (a raw H.264 demuxer would take an MPEG-TS file).
+
+REFERENCE_ORDER is the reference's order of registration: ties in score
+go to the first registered, there as here.  (The reference's codecs/av1.py
+registers "obu" when its codecs package loads, so there its place follows
+the order of imports; no other demuxer scores an OBU stream's head.)
+"""
+
+from __future__ import annotations
+
+import re
+
+# the reference registry's demuxer names, in its order of registration
+REFERENCE_ORDER = (
+    "exr_pipe", "webvtt", "wav", "yuv4mpegpipe", "rawvideo", "s16le",
+    "mjpeg", "image2", "image_pipe", "mpegvideo", "mov", "flac", "aac",
+    "matroska", "mpegts", "avi", "concat", "srt", "gif", "hls", "mp3",
+    "h264", "vvc", "hevc", "obu", "ac3", "eac3", "dts", "ivf", "dash",
+    "webp_pipe", "sdp", "rtsp", "ass", "ogg", "flv", "mlp", "truehd")
+
+
+class Claim:
+    """An unported demuxer: its name, extensions, module and probe."""
+
+    name = "?"
+    module = ""
+    extensions: tuple = ()
+
+    @classmethod
+    def probe(cls, head: bytes, filename: str = "") -> int:
+        return 0
+
+
+def _claim(name: str, module: str, extensions: tuple, probe):
+    return type(f"Claim_{name}", (Claim,), {
+        "name": name, "module": module, "extensions": extensions,
+        "probe": classmethod(probe)})
+
+
+def _sig(name: str, module: str, extensions: tuple, test, score: int):
+    """A claim whose probe scores `score` where `test(head)` holds."""
+    return _claim(name, module, extensions,
+                  lambda cls, head, filename="": score if test(head) else 0)
+
+
+def _mpegts_probe(cls, head: bytes, filename: str = "") -> int:
+    score = 0
+    for start in range(min(188, max(1, len(head) - 188 * 4))):
+        if all(start + i * 188 < len(head) and head[start + i * 188] == 0x47
+               for i in range(4)):
+            score = 50 if start else 100
+            break
+    return score
+
+
+def _text_probe(prefix: str, chars: int, score: int):
+    def probe(cls, head: bytes, filename: str = "") -> int:
+        try:
+            text = head.decode("utf-8-sig", "strict")[:chars]
+        except UnicodeDecodeError:
+            return 0
+        return score if text.startswith(prefix) else 0
+    return probe
+
+
+_SRT_TS = re.compile(
+    r"(\d+):(\d+):(\d+)[,.](\d+)\s*-->\s*(\d+):(\d+):(\d+)[,.](\d+)")
+
+
+def _srt_probe(cls, head: bytes, filename: str = "") -> int:
+    try:
+        text = head.decode("utf-8-sig", "strict")[:512]
+    except UnicodeDecodeError:
+        return 0
+    return 60 if _SRT_TS.search(text) else 0
+
+
+def _ass_probe(cls, head: bytes, filename: str = "") -> int:
+    text = head.decode("utf-8-sig", "replace").lstrip("\r\n \t")
+    return 60 if text.startswith("[Script Info]") else 0
+
+
+def _obu_types(data: bytes) -> list:
+    """The OBU types of a byte string in obu_has_size_field form
+    (codecs/av1.py split_obus); ValueError where it is malformed."""
+    out, pos, n = [], 0, len(data)
+    while pos < n:
+        hdr = data[pos]
+        pos += 1
+        if hdr & 0x80:
+            raise ValueError("obu_forbidden_bit")
+        if (hdr >> 2) & 1:
+            if pos >= n:
+                raise ValueError("truncated obu extension")
+            pos += 1
+        if (hdr >> 1) & 1:
+            size = 0
+            for i in range(8):
+                if pos >= n:
+                    raise ValueError("truncated leb128")
+                b = data[pos]
+                pos += 1
+                size |= (b & 0x7F) << (7 * i)
+                if not b & 0x80:
+                    break
+            else:
+                raise ValueError("leb128 too long")
+        else:
+            size = n - pos
+        if pos + size > n:
+            raise ValueError("obu overruns buffer")
+        out.append((hdr >> 3) & 0xF)
+        pos += size
+    return out
+
+
+def _obu_probe(cls, head: bytes, filename: str = "") -> int:
+    if len(head) >= 2 and head[0] == 0x12 and head[1] == 0x00:
+        try:
+            types = _obu_types(bytes(head[:64]))
+        except ValueError:
+            types = []
+        if 1 in types:                       # OBU_SEQUENCE_HEADER
+            return 75
+        return 25 if types else 0
+    return 0
+
+
+_DTS_RATES = [0, 8000, 16000, 32000, 0, 0, 11025, 22050, 44100, 0, 0,
+              12000, 24000, 48000, 96000, 192000]
+
+
+def _dts_frame_size(head: bytes):
+    """io/formats/dtsraw.py _frame_info's frame size, or None."""
+    if len(head) < 10 or head[:4] != b"\x7f\xfe\x80\x01":
+        return None
+    v = int.from_bytes(head[4:10], "big")
+    npcmblocks = ((v >> 34) & 0x7F) + 1
+    frame_size = ((v >> 20) & 0x3FFF) + 1
+    audio_mode = (v >> 14) & 0x3F
+    if frame_size < 96 or npcmblocks & 7 or audio_mode >= 16:
+        return None
+    if not _DTS_RATES[(v >> 10) & 0xF]:
+        return None
+    return frame_size
+
+
+def _dts_probe(cls, head: bytes, filename: str = "") -> int:
+    good = i = 0
+    while i + 11 <= len(head) and good < 4:
+        size = _dts_frame_size(head[i:i + 11])
+        if size is None:
+            break
+        good += 1
+        i += size
+    return 55 if good >= 3 else (25 if good == 2 else 0)
+
+
+def _mlp_probe(sync: bytes):
+    def probe(cls, head: bytes, filename: str = "") -> int:
+        i = head.find(sync)
+        return 55 if 4 <= i <= 4096 + 4 and i % 2 == 0 else 0
+    return probe
+
+
+CLAIMS = {c.name: c for c in (
+    _sig("exr_pipe", "io/formats/exrfmt.py", ("exr",),
+         lambda h: h[:4] == b"\x76\x2f\x31\x01", 99),
+    _claim("webvtt", "io/formats/webvtt.py", ("vtt",),
+           _text_probe("WEBVTT", 16, 100)),
+    _sig("flac", "io/formats/flac.py", ("flac",),
+         lambda h: h[:4] == b"fLaC", 100),
+    _claim("mpegts", "io/formats/mpegts.py", ("ts", "m2t", "m2ts", "mts"),
+           _mpegts_probe),
+    _sig("avi", "io/formats/avi.py", ("avi",),
+         lambda h: h[:4] == b"RIFF" and h[8:12] in (b"AVI ", b"AVIX"), 100),
+    _sig("concat", "io/formats/concat_seg.py", ("ffconcat", "concat"),
+         lambda h: h.startswith(b"ffconcat version 1.0"), 80),
+    _claim("srt", "io/formats/srt.py", ("srt",), _srt_probe),
+    _sig("gif", "io/formats/gif.py", ("gif",),
+         lambda h: h[:6] in (b"GIF87a", b"GIF89a"), 100),
+    _sig("hls", "io/formats/hls.py", ("m3u8", "m3u"),
+         lambda h: h.startswith(b"#EXTM3U"), 100),
+    _claim("obu", "codecs/av1.py", ("obu",), _obu_probe),
+    _claim("dts", "io/formats/dtsraw.py", ("dts",), _dts_probe),
+    _sig("dash", "io/formats/dash.py", ("mpd",),
+         lambda h: b"<MPD" in h[:2048], 100),
+    _sig("webp_pipe", "io/formats/webpfmt.py", ("webp",),
+         lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP", 99),
+    _sig("sdp", "io/formats/rtp.py", ("sdp",),
+         lambda h: h[:2] == b"v=" and b"\nm=" in h.replace(b"\r", b""), 60),
+    _claim("rtsp", "io/formats/rtp.py", (),
+           lambda cls, head, filename="":
+           100 if str(filename).startswith("rtsp://") else 0),
+    _claim("ass", "io/formats/assfmt.py", ("ass", "ssa"), _ass_probe),
+    _sig("ogg", "io/formats/ogg.py", ("ogg", "oga", "opus", "spx", "ogv"),
+         lambda h: h[:4] == b"OggS" and len(h) > 5 and h[4] == 0, 100),
+    _sig("flv", "io/formats/flv.py", ("flv",),
+         lambda h: h[:3] == b"FLV" and len(h) > 8 and h[3] == 1, 100),
+    _claim("mlp", "io/formats/mlpraw.py", ("mlp",),
+           _mlp_probe(b"\xf8\x72\x6f\xbb")),
+    _claim("truehd", "io/formats/mlpraw.py", ("thd",),
+           _mlp_probe(b"\xf8\x72\x6f\xba")),
+)}

@@ -63,6 +63,10 @@ both check the port against the JAX reference's committed answers:
   and read by `audio_stream`), the decode through the port's entry
   points (`audio_decode`), the bar (`audio_bar`), and the reference
   decoders' carried state moved into the port's (`transplant_audio_state`);
+- the CLI (`CLI_GOLDEN`, written by tools/gen_torch_cli_fixture.py):
+  the command lines of chip_smoke.py's phase 26 (`cli_commands`) and the
+  reference CLI's framemd5 text, remuxes' sha256 and probe text of them,
+  with the y4m of the MPEG-2 command (`write_y4m`);
 - the rest of the audio (`AUDIO_CODECS`, written by
   tools/gen_torch_audio_codecs_fixture.py): the Vorbis and Opus streams
   of the reference's tests (`codec_stream`, `codec_decode`) with the
@@ -258,6 +262,103 @@ def mpeg2_clip(n: int, w: int, h: int, seed: int = 0) -> list:
                                   planes=[y.astype(np.uint8), u, v],
                                   pts=i, time_base=Rational(1, 25)))
     return frames
+
+
+def cli_encoder_input(path, codec_id: str, device) -> tuple:
+    """What the CLI's video encoder of `codec_id` is opened with and fed
+    for a one-stream file: the input stream's parameters with the size,
+    format, codec and frame rate (from the time base) of the first frame
+    the port decodes on `device`, and those frames."""
+    from .codecs import CodecContext
+    from .io import open_input
+    d = open_input(str(path))
+    st = d.streams[0]
+    frames = CodecContext.open_decoder(st.codecpar, device=device
+                                       ).decode_all(list(d.packets()))
+    d.close()
+    par = st.codecpar.copy()
+    f = frames[0]
+    par.width, par.height, par.pix_fmt = f.width, f.height, f.format
+    par.codec_id = codec_id
+    par.framerate = f.time_base.inv()
+    return par, frames
+
+
+def encode_all(ctx, frames: list) -> list:
+    """Every packet an open encoder makes of `frames`, drained."""
+    from .utils.error import EndOfStream, TryAgain
+    out = []
+    for f in [*frames, None]:
+        ctx.send_frame(f)
+        while True:
+            try:
+                out.append(ctx.receive_packet())
+            except (TryAgain, EndOfStream):
+                break
+    return out
+
+
+def write_y4m(path, frames: list, rate: int = 25) -> Path:
+    """Frames of one size and format (host or device planes) as a y4m
+    file at `rate` frames/s, through the port's muxer."""
+    from .core.packet import Packet
+    from .io import open_output
+    from .io.stream import CodecParameters, MediaType
+    f0 = frames[0]
+    m = open_output(str(path), format="yuv4mpegpipe")
+    m.add_stream(CodecParameters(
+        codec_type=MediaType.VIDEO, codec_id="rawvideo", width=f0.width,
+        height=f0.height, pix_fmt=f0.format, framerate=Rational(rate, 1)),
+        time_base=Rational(1, rate))
+    for i, f in enumerate(frames):
+        m.write_packet(Packet(data=f.to_bytes(), pts=i, dts=i, duration=1))
+    m.write_trailer()
+    m.close()
+    return Path(path)
+
+
+# --- the CLI: chip_smoke.py's phase 26 and its goldens ----------------------
+
+CLI_GOLDEN = DATA / "cli_golden.json"
+# frames of mpeg2_clip at 1920x1080 in command (d)
+CLI_MPEG2_FRAMES = 2
+CLI_PROBE_ARGS = ["-show_streams", "-show_packets", "-of", "json"]
+
+
+def cli_commands(d) -> dict:
+    """Phase 26's command lines, writing into directory `d`: (a) the
+    flagship's MJPEG to 224x224 rgb24, (b) three VP9 frames to framemd5,
+    (c) the H.264 stream remuxed to Matroska and MP4 and its first frame
+    from the Matroska file to framemd5, (d) the MPEG-2 encode of
+    d/mpeg2_clip.y4m (CLI_MPEG2_FRAMES frames of mpeg2_clip) into
+    Matroska (the reference has no raw MPEG video muxer), (e) the audio
+    frontend's 16 kHz mono float."""
+    d = str(d)
+    return {
+        "a": ["-i", str(FIXTURE), "-vf", "scale=224:224", "-pix_fmt",
+              "rgb24", "-f", "rawvideo", f"{d}/out.rgb"],
+        "b": ["-i", str(VP9_BENCH), "-frames:v", "3", "-f", "framemd5",
+              f"{d}/out_vp9.md5"],
+        "c_mkv": ["-i", str(H264_CABAC), "-c", "copy", f"{d}/out.mkv"],
+        "c_mp4": ["-i", str(H264_CABAC), "-c", "copy", f"{d}/out.mp4"],
+        "c_md5": ["-i", f"{d}/out.mkv", "-frames:v", "1", "-f", "framemd5",
+                  f"{d}/out_h264.md5"],
+        "d": ["-i", f"{d}/mpeg2_clip.y4m", "-c:v", "mpeg2video",
+              f"{d}/out_mpeg2.mkv"],
+        "e": ["-i", str(AAC_CLIP), "-ar", "16000", "-ac", "1", "-f", "f32le",
+              f"{d}/out.f32"],
+    }
+
+
+def probe_without_sizes(text: str) -> dict:
+    """A -show_packets JSON probe with each packet's size and pos left
+    out: what two encoders' streams of one clip share."""
+    import json
+    doc = json.loads(text)
+    for p in doc.get("packets", []):
+        p.pop("size", None)
+        p.pop("pos", None)
+    return doc
 
 
 def filter_clip(seed: int, n: int = 8, w: int = 1920, h: int = 1080,

@@ -36,9 +36,21 @@ class EncoderNotFound(FFTPUError):
     pass
 
 
+class DemuxerNotFound(FFTPUError):
+    pass
+
+
+class MuxerNotFound(FFTPUError):
+    pass
+
+
 class FilterNotFound(FFTPUError):
     pass
 
 
 class OptionNotFound(FFTPUError):
+    pass
+
+
+class ProtocolNotFound(FFTPUError):
     pass

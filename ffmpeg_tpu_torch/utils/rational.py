@@ -150,3 +150,11 @@ def rescale_q_rnd(a: int, bq: Rational, cq: Rational,
 
 def rescale_q(a: int, bq: Rational, cq: Rational) -> int:
     return rescale_q_rnd(a, bq, cq, Rounding.NEAR_INF)
+
+
+def compare_ts(ts_a: int, tb_a: Rational, ts_b: int, tb_b: Rational) -> int:
+    """av_compare_ts (mathematics.c:147): -1, 0 or 1, the order of two
+    timestamps in different time bases, exact."""
+    a = ts_a * tb_a.num * tb_b.den
+    b = ts_b * tb_b.num * tb_a.den
+    return (a > b) - (a < b)

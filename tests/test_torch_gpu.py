@@ -18,7 +18,10 @@ and apply_lut3d against the CPU; the transforms of the last audio slice
 at its sizes, the AAC encoder against the reference's committed packets
 and decisions, the Vorbis and Opus streams against the CPU and the
 reference's committed PCM, and chip_smoke.py phase 25's audio filter
-chains against the CPU and the committed golden.  Marked
+chains against the CPU and the committed golden; and the CLI
+(ffmpeg_tpu_torch.cli.ffmpeg.main on the card) on phase 26's command (b)
+at the crafted VP9 stream against the reference CLI's committed text.
+Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
 card and without jax they run without tests/conftest.py (which imports
@@ -895,3 +898,16 @@ def test_audio_chains_on_card_match_golden(cuda, name):
     for ref in (cpu, z[f"chain_{name}"]):
         assert got.shape == ref.shape
         assert float(np.abs(got - ref).max()) <= 1e-5
+
+
+def test_cli_vp9_framemd5_on_card_matches_reference(cuda, tmp_path):
+    """Command (b) of chip_smoke.py's phase 26 on the crafted 96x72 VP9
+    stream: demux, decode on the card, the rawvideo encoder's one copy
+    to the host, framemd5, equal to the reference CLI's text."""
+    import json
+    from ffmpeg_tpu_torch.cli.ffmpeg import main
+    argv = [str(fx.VP9_SMALL) if a == str(fx.VP9_BENCH) else a
+            for a in fx.cli_commands(tmp_path)["b"]]
+    assert main(argv, device=cuda) == 0
+    assert (tmp_path / "out_vp9.md5").read_text() == json.loads(
+        fx.CLI_GOLDEN.read_text())["b_small_framemd5"]

@@ -25,7 +25,8 @@ host copies of the last audio slice: the Opus range decoder, SILK, its
 resampler and tables and the Vorbis tables, and the audio filters of
 audio2-audio6, statement for statement (their code equals the
 reference's, the module docstring aside), the range decoder on every
-frame of the committed Opus streams and the resampler on seeded input."""
+frame of the committed Opus streams and the resampler on seeded input;
+and the I/O layer's error classes and timestamp comparison."""
 
 import ctypes
 import dataclasses
@@ -163,6 +164,25 @@ def test_errors_packet_frame_mirror_reference():
     assert (f.format, f.width, f.height, f.pts) == ("yuv420p", 4, 2, 3)
     g = f.clone_props()
     assert g.planes == f.planes and g.planes is not f.planes
+
+
+def test_io_errors_and_compare_ts_mirror_reference():
+    """The I/O layer's error classes (DemuxerNotFound, MuxerNotFound,
+    ProtocolNotFound: their names, bases and docs) and av_compare_ts."""
+    from ffmpeg_tpu.utils.rational import compare_ts as ref_compare_ts
+    from ffmpeg_tpu_torch.utils.rational import compare_ts
+    for name in ("DemuxerNotFound", "MuxerNotFound", "ProtocolNotFound"):
+        cls, ref = getattr(error, name), getattr(ref_error, name)
+        assert [b.__name__ for b in cls.__mro__] == \
+            [b.__name__ for b in ref.__mro__]
+        assert cls.__doc__ == ref.__doc__
+    rng = np.random.default_rng(4)
+    for _ in range(200):
+        a, b = (int(x) for x in rng.integers(-10**6, 10**6, 2))
+        n1, d1, n2, d2 = (int(x) for x in rng.integers(1, 90001, 4))
+        assert compare_ts(a, Rational(n1, d1), b, Rational(n2, d2)) == \
+            ref_compare_ts(a, RefRational(n1, d1), b, RefRational(n2, d2))
+    assert compare_ts(3, Rational(1, 3), 1, Rational(1, 1)) == 0
 
 
 def _split(lib, scan, nmcu):

@@ -31,7 +31,11 @@ sources.py in four parsed chains and a source, and deblock_plane and
 apply_lut3d; then the rest of the audio: the AAC encoder on a seeded
 signal, the Vorbis and Opus decoders (CELT, SILK, hybrid) on the first
 packets of committed streams against the reference's committed PCM, and
-an audio filter chain of audio6; all on the CPU."""
+an audio filter chain of audio6; then the CLI and I/O layer: every module
+of cli/, io/ (avio, demux, mux, unported and the 14 format modules) and
+the rawvideo and PCM codecs imported, the crafted VP9 stream through
+main() to framemd5 and the crafted H.264 stream remuxed to Matroska and
+probed; all on the CPU."""
 
 import re
 import subprocess
@@ -285,6 +289,36 @@ for name in ("vorbis_noise", "celt_noise", "silk_stereo", "hybrid_cfg13"):
 chain = run_audio_chain(lambda t: parse_graph(t, device="cpu"), "audio6",
                         audio_chain_inputs())
 assert chain.shape == np.load(AUDIO_CODECS)["chain_audio6"].shape
+import importlib
+import contextlib
+import io
+import json
+import tempfile
+from pathlib import Path
+for mod in ("cli.ffmpeg", "cli.ffprobe", "cli.sync_queue", "cli.textformat",
+            "io.avio", "io.demux", "io.mux", "io.unported",
+            "codecs.rawvideo", "codecs.pcm",
+            *(f"io.formats.{m}" for m in (
+                "y4m", "rawvideo", "wav", "hashenc", "img_mjpeg", "ivf",
+                "h26x", "adts", "mp3raw", "ac3raw", "matroska",
+                "matroskaenc", "mov", "movenc"))):
+    importlib.import_module(f"ffmpeg_tpu_torch.{mod}")
+from ffmpeg_tpu_torch.cli.ffmpeg import main as cli_main
+from ffmpeg_tpu_torch.cli.ffprobe import main as probe_main
+from ffmpeg_tpu_torch.testing import CLI_GOLDEN, H264_SMALL, cli_commands
+with tempfile.TemporaryDirectory() as tmp:
+    argv = [str(VP9_SMALL) if a.endswith("vp9_1080p_100.ivf") else a
+            for a in cli_commands(tmp)["b"]]
+    assert cli_main(argv, device="cpu") == 0
+    assert Path(tmp, "out_vp9.md5").read_text() == json.loads(
+        CLI_GOLDEN.read_text())["b_small_framemd5"]
+    assert cli_main(["-i", str(H264_SMALL), "-c", "copy", f"{tmp}/o.mkv"],
+                    device="cpu") == 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert probe_main(["-show_streams", "-of", "json", f"{tmp}/o.mkv"],
+                          device="cpu") == 0
+    assert json.loads(buf.getvalue())["streams"][0]["codec_name"] == "h264"
 assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
@@ -392,4 +426,19 @@ def test_audio_codecs_fixture_tool_takes_its_answers_from_the_reference():
     assert re.search(r"^\s*from ffmpeg_tpu\.codecs import CodecContext",
                      src, re.M)
     assert re.search(r"^\s*from ffmpeg_tpu\.filters import parse_graph",
+                     src, re.M)
+
+
+def test_cli_fixture_tool_takes_its_answers_from_the_reference():
+    """tools/gen_torch_cli_fixture.py runs the reference's CLI by design,
+    like the tools above: of the port it imports only
+    ffmpeg_tpu_torch.testing (the command lines, paths and the seeded
+    clip), and the CLI, probe and muxer it runs are the reference's."""
+    src = (REPO / "tools" / "gen_torch_cli_fixture.py").read_text()
+    port = set(re.findall(r"^\s*(?:from|import)\s+(ffmpeg_tpu_torch[\w.]*)"
+                          r"(?:\s+import\s+(\w+))?", src, re.M))
+    assert port == {("ffmpeg_tpu_torch", "testing")}, port
+    assert re.search(r"^\s*from ffmpeg_tpu\.cli\.ffmpeg import main", src,
+                     re.M)
+    assert re.search(r"^\s*from ffmpeg_tpu\.cli\.ffprobe import main",
                      src, re.M)

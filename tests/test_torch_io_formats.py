@@ -1,0 +1,515 @@
+"""The port's I/O layer (ffmpeg_tpu_torch/io/: avio, demux, mux and the
+14 format modules of io/formats/, with codecs/rawvideo.py and pcm.py)
+against the reference's, on the CPU.
+
+- Each module is the reference's code: its top-level statements equal the
+  reference's as syntax trees, but for those named here, which the tests
+  below hold to the reference's behaviour.
+- Each ported muxer, fed the same packets as the reference's, writes the
+  same bytes (or raises the same error where the reference refuses a
+  codec).
+- Each ported demuxer gives the same streams (CodecParameters, time base,
+  durations) and the same packets (data, pts, dts, duration, flags,
+  stream index, position, side data) on the files the reference's muxers
+  wrote and on the committed fixtures; seeking lands on the same packets.
+- probe_format picks the reference's demuxer wherever that one is
+  ported, and nothing on an MPEG-TS or Ogg file, which only unported
+  demuxers claim: open_input raises DemuxerNotFound there.
+- The port's older readers io/adts.py, io/ivf.py and io/mjpeg.py give the
+  packets of the new demuxers.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+
+from ffmpeg_tpu.core.packet import Packet as RefPacket
+from ffmpeg_tpu.formats.channel_layout import default_layout as ref_layout
+from ffmpeg_tpu.io import open_input as ref_open_input
+from ffmpeg_tpu.io import open_output as ref_open_output
+from ffmpeg_tpu.io import probe_format as ref_probe
+from ffmpeg_tpu.io.stream import CodecParameters as RefPar
+from ffmpeg_tpu.io.stream import MediaType as RefType
+from ffmpeg_tpu.utils.rational import Rational as RefRational
+from ffmpeg_tpu_torch.io import (avio, demuxer_names, muxer_names,
+                                 open_input, open_output, probe_format)
+from ffmpeg_tpu_torch.io.adts import read_adts
+from ffmpeg_tpu_torch.io.ivf import read_ivf
+from ffmpeg_tpu_torch.io.mjpeg import split_packets
+from ffmpeg_tpu_torch.utils.error import (DemuxerNotFound, FFTPUError,
+                                          MuxerNotFound, NotSupported,
+                                          ProtocolNotFound)
+
+from torch_io_util import DATA, differing, opus_ogg, plain, to_port
+
+FORMATS = ["y4m", "rawvideo", "wav", "hashenc", "img_mjpeg", "ivf", "h26x",
+           "adts", "ac3raw", "matroska", "matroskaenc", "mov", "movenc"]
+
+# the top-level statements of each port module that differ from the
+# reference's; every other module is the reference's code
+CHANGED = {
+    "io/avio.py": {"open_read", "open_write", "_no_protocols"},
+    "io/demux.py": {"<imports>", "open_input", "probe_format",
+                    "_probe_order", "_unported"},
+    "io/mux.py": set(),
+    "io/formats/mp3raw.py": {"<imports>", "Mp3Demuxer"},
+    "codecs/rawvideo.py": {"<imports>", "RawVideoDecoder",
+                           "RawVideoEncoder", "WrappedFrameDecoder"},
+    "codecs/pcm.py": {"<imports>", "_make_decoder", "_make_encoder",
+                      "_make_law_decoder"},
+    **{f"io/formats/{m}.py": set() for m in FORMATS},
+}
+
+
+@pytest.mark.parametrize("rel", sorted(CHANGED))
+def test_module_is_the_reference_code_but_where_named(rel):
+    assert differing(rel) == CHANGED[rel]
+
+
+# --- the reference's packets, from seeded data and the fixtures -----------
+
+def _raw_video():
+    rng = np.random.default_rng(1)
+    par = RefPar(codec_type=RefType.VIDEO, codec_id="rawvideo", width=64,
+                 height=48, pix_fmt="yuv420p", framerate=RefRational(25, 1))
+    pkts = [RefPacket(data=rng.integers(0, 256, 64 * 48 * 3 // 2,
+                                        np.uint8).tobytes(),
+                      pts=i, dts=i, duration=1, flags=1,
+                      time_base=RefRational(1, 25)) for i in range(3)]
+    return [(par, RefRational(1, 25))], pkts
+
+
+def _pcm(codec_id, fmt, dtype, channels=1):
+    rng = np.random.default_rng(2)
+    par = RefPar(codec_type=RefType.AUDIO, codec_id=codec_id,
+                 sample_rate=8000, sample_fmt=fmt,
+                 ch_layout=ref_layout(channels),
+                 block_align=channels * np.dtype(dtype).itemsize,
+                 bits_per_coded_sample=8 * np.dtype(dtype).itemsize)
+    x = rng.standard_normal((4 * 1000, channels)) * 0.2
+    if dtype == "<i2":
+        x = x * 32767
+    data = x.astype(dtype)
+    pkts = [RefPacket(data=data[k * 1000:(k + 1) * 1000].tobytes(),
+                      pts=1000 * k, dts=1000 * k, duration=1000, flags=1,
+                      time_base=RefRational(1, 8000)) for k in range(4)]
+    return [(par, RefRational(1, 8000))], pkts
+
+
+def _demuxed(path, n=None, **kw):
+    d = ref_open_input(str(path), **kw)
+    pkts = []
+    for p in d.packets():
+        pkts.append(p)
+        if n is not None and len(pkts) == n:
+            break
+    d.close()
+    return [(st.codecpar, st.time_base) for st in d.streams], pkts
+
+
+def _mjpeg():
+    par = RefPar(codec_type=RefType.VIDEO, codec_id="mjpeg", width=1920,
+                 height=1080, pix_fmt="yuvj420p",
+                 framerate=RefRational(25, 1))
+    data = (DATA / "port" / "flagship_1080p_8.mjpeg").read_bytes()
+    a = data.index(b"\xff\xd9") + 2
+    b = data.index(b"\xff\xd9", a) + 2
+    pkts = [RefPacket(data=d, pts=i, dts=i, duration=1, flags=1,
+                      time_base=RefRational(1, 25))
+            for i, d in enumerate((data[:a], data[a:b]))]
+    return [(par, RefRational(1, 25))], pkts
+
+
+def _av():
+    vs, vp = _demuxed(DATA / "port" / "h264_crafted_small.h264")
+    as_, ap = _demuxed(DATA / "bench" / "aac48k.adts", n=12)
+    for p in ap:
+        p.stream_index = 1
+    return vs + as_, sorted(vp + ap, key=lambda p: (
+        p.pts * p.time_base.num / p.time_base.den, p.stream_index))
+
+
+SOURCES = {
+    "rawvideo": _raw_video,
+    "h264": lambda: _demuxed(DATA / "port" / "h264_crafted_small.h264"),
+    "vp9": lambda: _demuxed(DATA / "port" / "vp9_crafted_96x72.ivf"),
+    "aac": lambda: _demuxed(DATA / "bench" / "aac48k.adts", n=20),
+    "pcm_s16le": lambda: _pcm("pcm_s16le", "s16", "<i2"),
+    "pcm_s16le_stereo": lambda: _pcm("pcm_s16le", "s16", "<i2", 2),
+    "pcm_f32le": lambda: _pcm("pcm_f32le", "flt", "<f4"),
+    "mjpeg": _mjpeg,
+    "av": _av,
+}
+
+# (format, file name, source)
+MUXES = [
+    ("yuv4mpegpipe", "o.y4m", "rawvideo"), ("rawvideo", "o.yuv", "rawvideo"),
+    ("framecrc", "o.crc", "rawvideo"), ("framemd5", "o.md5", "av"),
+    ("framemd5", "a.md5", "pcm_s16le"), ("md5", "o.md5", "rawvideo"),
+    ("crc", "o.crc", "aac"), ("null", "o.null", "rawvideo"),
+    ("hash", "o.hash", "pcm_s16le"), ("mjpeg", "o.mjpeg", "mjpeg"),
+    ("adts", "o.aac", "aac"), ("s16le", "o.sw", "pcm_s16le"),
+    ("f32le", "o.f32", "pcm_f32le"), ("wav", "o.wav", "pcm_s16le"),
+    ("wav", "s.wav", "pcm_s16le_stereo"), ("wav", "f.wav", "pcm_f32le"),
+    ("ivf", "o.ivf", "vp9"), ("matroska", "h.mkv", "h264"),
+    ("matroska", "v.mkv", "vp9"), ("matroska", "av.mkv", "av"),
+    ("matroska", "p.mkv", "pcm_s16le"), ("matroska", "j.mkv", "mjpeg"),
+    ("matroska", "a.mka", "aac"), ("mov", "h.mp4", "h264"),
+    ("mov", "a.m4a", "aac"), ("mov", "av.mp4", "av"),
+    ("mov", "j.mov", "mjpeg"), ("mov", "p.mov", "pcm_s16le"),
+    ("mov", "v.mp4", "vp9"), ("image2", "img-%03d.jpg", "mjpeg"),
+]
+
+
+def _mux(tmp_path, side, fmt, name, streams, pkts):
+    """Write the packets through one package's muxer; the file's bytes
+    (the files' for image2), or the error's class name."""
+    d = tmp_path / side
+    d.mkdir(exist_ok=True)
+    conv = to_port if side == "port" else copy.deepcopy
+    opener = open_output if side == "port" else ref_open_output
+    try:
+        m = opener(str(d / name), format=fmt)
+        for par, tb in streams:
+            m.add_stream(conv(par), time_base=conv(tb))
+        for p in pkts:
+            m.write_packet(conv(p))
+        m.write_trailer()
+        m.close()
+    except FFTPUError as e:
+        return type(e).__name__
+    return {f.name: f.read_bytes() for f in sorted(d.iterdir())}
+
+
+@pytest.fixture(scope="module")
+def written(tmp_path_factory):
+    """Each case of MUXES written by both packages' muxers."""
+    out = {}
+    for fmt, name, src in MUXES:
+        streams, pkts = SOURCES[src]()
+        tmp = tmp_path_factory.mktemp(f"{fmt}_{src}")
+        out[(fmt, name, src)] = (tmp, _mux(tmp, "ref", fmt, name, streams,
+                                           pkts),
+                                 _mux(tmp, "port", fmt, name, streams,
+                                      pkts))
+    return out
+
+
+@pytest.mark.parametrize("case", MUXES, ids=lambda c: f"{c[0]}-{c[2]}")
+def test_muxer_writes_the_reference_bytes(written, case):
+    _tmp, ref, port = written[case]
+    assert port == ref
+    if case[2] != "vp9" or case[0] != "mov":
+        assert isinstance(ref, dict) and ref, ref
+        assert all(ref.values()) or case[0] == "null"
+
+
+def _demux_all(opener, url, **kw):
+    d = opener(url, **kw)
+    head = {"name": d.name, "streams": d.streams, "metadata": d.metadata,
+            "chapters": d.chapters, "duration": d.duration,
+            "start_time": d.start_time, "bit_rate": d.bit_rate}
+    pkts = list(d.packets())
+    d.close()
+    return plain(head), plain(pkts)
+
+
+def _assert_same_demux(url, n_min=1, **kw):
+    ref_kw = {k: (RefRational(v.num, v.den) if hasattr(v, "den") else v)
+              for k, v in kw.items()}
+    want = _demux_all(ref_open_input, url, **ref_kw)
+    got = _demux_all(open_input, url, **kw)
+    assert got[0] == want[0]
+    assert len(got[1]) == len(want[1]) >= n_min
+    assert got[1] == want[1]
+
+
+# the reference's outputs of MUXES that a ported demuxer reads, with the
+# options a headerless format needs
+DEMUX_WRITTEN = [
+    (("yuv4mpegpipe", "o.y4m", "rawvideo"), {}),
+    (("rawvideo", "o.yuv", "rawvideo"),
+     {"format": "rawvideo", "video_size": (64, 48),
+      "pixel_format": "yuv420p"}),
+    (("mjpeg", "o.mjpeg", "mjpeg"), {}),
+    (("adts", "o.aac", "aac"), {}),
+    (("s16le", "o.sw", "pcm_s16le"),
+     {"format": "s16le", "sample_rate": 8000, "channels": 1}),
+    (("wav", "o.wav", "pcm_s16le"), {}), (("wav", "s.wav",
+                                           "pcm_s16le_stereo"), {}),
+    (("wav", "f.wav", "pcm_f32le"), {}), (("ivf", "o.ivf", "vp9"), {}),
+    (("matroska", "h.mkv", "h264"), {}), (("matroska", "v.mkv", "vp9"), {}),
+    (("matroska", "av.mkv", "av"), {}), (("matroska", "p.mkv", "pcm_s16le"),
+                                         {}),
+    (("matroska", "j.mkv", "mjpeg"), {}), (("matroska", "a.mka", "aac"), {}),
+    (("mov", "h.mp4", "h264"), {}), (("mov", "a.m4a", "aac"), {}),
+    (("mov", "av.mp4", "av"), {}), (("mov", "j.mov", "mjpeg"), {}),
+    (("mov", "p.mov", "pcm_s16le"), {}),
+]
+
+
+@pytest.mark.parametrize("case,opts", DEMUX_WRITTEN,
+                         ids=lambda c: f"{c[0]}-{c[2]}"
+                         if isinstance(c, tuple) else "")
+def test_demuxer_reads_the_reference_muxers_files(written, case, opts):
+    tmp = written[case][0]
+    _assert_same_demux(str(tmp / "ref" / case[1]), **opts)
+
+
+def test_image2_demuxer_reads_patterns_and_globs(written):
+    tmp = written[("image2", "img-%03d.jpg", "mjpeg")][0]
+    _assert_same_demux(str(tmp / "ref" / "img-%03d.jpg"), n_min=2)
+    _assert_same_demux(str(tmp / "ref" / "img-*.jpg"), n_min=2)
+    _assert_same_demux(str(tmp / "ref" / "img-001.jpg"), format="image2")
+
+
+def _audio_stream_file(tmp_path, name, ext):
+    z = np.load(DATA / "port" / "audio_streams.npz")
+    p = tmp_path / f"{name}.{ext}"
+    p.write_bytes(z[f"{name}_data"].tobytes())
+    return p
+
+
+FIXTURES = ["port/flagship_1080p_8.mjpeg", "port/vp9_crafted_96x72.ivf",
+            "port/vp9_1080p_lf.ivf", "bench/vp9_1080p_100.ivf",
+            "port/h264_crafted_small.h264", "port/h264_1080p_cabac.h264",
+            "port/hevc_crafted_64x64.hevc", "bench/hevc_1080p.hevc",
+            "port/hevc_1080p_sao_deblock.hevc", "bench/aac48k.adts"]
+RAW_AUDIO = [("eac3_5_1", "eac3"), ("ac3_stereo", "ac3"),
+             ("eac3_aht_spx", "ec3"), ("mp3_reservoir", "mp3"),
+             ("mp2_stereo", "mp2"), ("mp1_stereo", "mp2")]
+
+
+@pytest.mark.parametrize("rel", FIXTURES)
+def test_demuxer_reads_the_fixtures_as_the_reference(rel):
+    _assert_same_demux(str(DATA / rel))
+
+
+@pytest.mark.parametrize("name,ext", RAW_AUDIO)
+def test_raw_audio_demuxers_read_the_committed_streams(tmp_path, name, ext):
+    _assert_same_demux(str(_audio_stream_file(tmp_path, name, ext)), 20)
+
+
+def test_mpegvideo_and_image_pipe_demuxers(tmp_path):
+    """A raw MPEG-2 stream (the port's encoder's packets, three pictures)
+    and a single image that only its signature identifies."""
+    from ffmpeg_tpu_torch.codecs import CodecContext, EncoderParameters
+    from ffmpeg_tpu_torch.testing import mpeg2_clip
+    enc = CodecContext.open_encoder(EncoderParameters("mpeg2video", 48, 32),
+                                    {"qscale": 6}, device="cpu")
+    data = b""
+    for f in mpeg2_clip(3, 48, 32):
+        enc.send_frame(f)
+        data += enc.receive_packet().data
+    (tmp_path / "c.m2v").write_bytes(data)
+    _assert_same_demux(str(tmp_path / "c.m2v"), n_min=3)
+    (tmp_path / "i.png").write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(range(40)))
+    _assert_same_demux(str(tmp_path / "i.png"))
+
+
+def test_id3_tagged_mp3_raises_not_supported(tmp_path):
+    """io/id3v2.py is not ported: a tagged file raises the named error."""
+    z = np.load(DATA / "port" / "audio_streams.npz")
+    tag = b"ID3\x04\x00\x00\x00\x00\x00\x0a" + bytes(10)
+    p = tmp_path / "t.mp3"
+    p.write_bytes(tag + z["mp3_reservoir_data"].tobytes())
+    assert ref_open_input(str(p)).name == "mp3"
+    with pytest.raises(NotSupported, match="id3v2"):
+        open_input(str(p))
+
+
+@pytest.mark.parametrize("case,stream,pos", [
+    (("matroska", "av.mkv", "av"), 0, 6), (("mov", "h.mp4", "h264"), 0, 5),
+    (("ivf", "o.ivf", "vp9"), 0, 4), (("yuv4mpegpipe", "o.y4m",
+                                        "rawvideo"), 0, 2)],
+    ids=lambda c: c[0] if isinstance(c, tuple) else str(c))
+def test_seek_lands_on_the_reference_packets(written, case, stream, pos):
+    url = str(written[case][0] / "ref" / case[1])
+    out = []
+    for opener in (ref_open_input, open_input):
+        d = opener(url)
+        st = d.streams[stream]
+        d.seek(stream, pos * st.time_base.den // (25 * st.time_base.num))
+        out.append(plain(list(d.packets())))
+        d.close()
+    assert out[1] == out[0] and out[0]
+
+
+def _heads(tmp_path, written):
+    files = [DATA / r for r in FIXTURES]
+    files += [_audio_stream_file(tmp_path, n, e) for n, e in RAW_AUDIO]
+    for (_fmt, name, _src), (tmp, ref, _port) in written.items():
+        if isinstance(ref, dict):
+            files += [tmp / "ref" / f for f in ref]
+    return files
+
+
+def test_probe_picks_the_reference_demuxer_where_ported(tmp_path, written):
+    seen = set()
+    for f in _heads(tmp_path, written):
+        head = f.read_bytes()[:4096]
+        ref_cls = ref_probe(head, str(f))
+        want = ref_cls.name if ref_cls is not None else None
+        if want is not None and want not in demuxer_names():
+            with pytest.raises(DemuxerNotFound):
+                probe_format(head, str(f))
+            continue
+        cls = probe_format(head, str(f))
+        assert (cls.name if cls is not None else None) == want, f
+        seen.add(want)
+    assert {"mjpeg", "ivf", "h264", "hevc", "aac", "ac3", "mp3",
+            "yuv4mpegpipe", "wav", "matroska", "mov"} <= seen
+
+
+CLAIM_HEADS = [
+    b"\x76\x2f\x31\x01" + bytes(60), b"\xef\xbb\xbfWEBVTT\n\n",
+    b"WEBVTT", b"fLaC\0\0\0\x22", bytes([0x47] + [0] * 187) * 5,
+    bytes(7) + bytes([0x47] + [0] * 187) * 5, b"RIFF\0\0\0\0AVI LIST",
+    b"RIFF\0\0\0\0WEBPVP8 ", b"ffconcat version 1.0\nfile a",
+    b"1\n00:00:01,000 --> 00:00:02,500\nhi\n", b"\xff\xfe00:00",
+    b"GIF89a" + bytes(8), b"#EXTM3U\n#EXT-X-VERSION:3",
+    b"\x12\x00\x0a\x0b\x00\x00\x00\x24\xc4\xff\xdf\x00\x68\x02",
+    b"\x12\x00\x32\x02\x10\x00", b"\x12\x00\x7f",
+    b"<?xml?><MPD xmlns>", b"v=0\r\no=- 0 0 IN IP4 0\r\nm=audio 0",
+    b"  [Script Info]\nTitle: x", b"OggS\0\2" + bytes(20),
+    b"FLV\x01\x05\0\0\0\x09", bytes(4) + b"\xf8\x72\x6f\xbb" + bytes(8),
+    bytes(6) + b"\xf8\x72\x6f\xba", b"\xf8\x72\x6f\xbb",
+    (b"\x7f\xfe\x80\x01\x00\x3c\x3f\xf0\xb4\x00" + bytes(1014)) * 4,
+    (b"\x7f\xfe\x80\x01\x00\x3c\x3f\xf0\xb4\x00" + bytes(1014)) * 2,
+    b"\x12\x00\x0a\x02\x00\x00",
+]
+
+
+@pytest.mark.parametrize("k", range(len(CLAIM_HEADS)))
+def test_unported_claims_score_as_the_reference_probes(k):
+    """Each claim of io/unported.py scores a head as the reference's
+    demuxer of that name does (with and without its extension and an
+    rtsp:// name)."""
+    from ffmpeg_tpu.io import demux as ref_demux
+    from ffmpeg_tpu_torch.io.unported import CLAIMS, REFERENCE_ORDER
+    # obu registers when the reference's codecs package loads, before or
+    # within io's registrations as the imports fall: its place varies
+    assert [n for n in ref_demux._DEMUXERS if n != "obu"] == \
+        [n for n in REFERENCE_ORDER if n != "obu"]
+    assert set(CLAIMS) == set(REFERENCE_ORDER) - set(demuxer_names())
+    head = CLAIM_HEADS[k]
+    for name, claim in CLAIMS.items():
+        ref = ref_demux._DEMUXERS[name]
+        assert claim.extensions == ref.extensions
+        for fn in ("x.bin", f"x.{(ref.extensions or ('',))[0]}",
+                   "rtsp://h/x"):
+            assert claim.probe(head, fn) == ref.probe(head, fn), (name, fn)
+
+
+def test_probe_refuses_files_only_unported_demuxers_claim(tmp_path):
+    """An MPEG-TS file written by the reference's muxer and an Ogg Opus
+    file: the reference opens them, the port raises DemuxerNotFound."""
+    streams, pkts = SOURCES["h264"]()
+    ts = tmp_path / "o.ts"
+    m = ref_open_output(str(ts))
+    for par, tb in streams:
+        m.add_stream(par, time_base=tb)
+    for p in pkts:
+        m.write_packet(p)
+    m.write_trailer()
+    m.close()
+    ogg = tmp_path / "o.ogg"
+    ogg.write_bytes(opus_ogg())
+    for path, name in ((ts, "mpegts"), (ogg, "ogg")):
+        d = ref_open_input(str(path))
+        assert d.name == name and list(d.packets())
+        d.close()
+        head = path.read_bytes()[:4096]
+        assert ref_probe(head, str(path)).name == name
+        for call in (lambda: probe_format(head, str(path)),
+                     lambda: open_input(str(path)),
+                     lambda: open_input(str(path), format=name)):
+            with pytest.raises(DemuxerNotFound,
+                               match=f"io/formats/{name}.py"):
+                call()
+    with pytest.raises(MuxerNotFound):
+        open_output(str(tmp_path / "x.ts"))
+    with pytest.raises(MuxerNotFound):
+        open_output(str(tmp_path / "x.avi"), format="avi")
+    with pytest.raises(DemuxerNotFound, match="io/formats/rtp.py"):
+        open_input("rtsp://localhost:1/x")
+
+
+def test_registries_hold_the_ported_formats():
+    assert demuxer_names() == [
+        "aac", "ac3", "eac3", "h264", "hevc", "image2", "image_pipe", "ivf",
+        "matroska", "mjpeg", "mov", "mp3", "mpegvideo", "rawvideo", "s16le",
+        "vvc", "wav", "yuv4mpegpipe"]
+    assert muxer_names() == [
+        "adts", "crc", "f32le", "framecrc", "framemd5", "hash", "image2",
+        "ivf", "matroska", "md5", "mjpeg", "mov", "null", "rawvideo",
+        "s16le", "wav", "yuv4mpegpipe"]
+
+
+@pytest.mark.parametrize("url", ["concat:a.y4m|b.y4m", "subfile,,start,0,"
+                                 "end,10,,:a.y4m", "cache:a.y4m",
+                                 "async:a.y4m", "http://localhost:1/a.y4m"])
+def test_unported_protocols_raise_protocol_not_found(url):
+    with pytest.raises(ProtocolNotFound, match="io/protocols.py"):
+        avio.open_read(url)
+    if "://" in url:
+        with pytest.raises(ProtocolNotFound, match="io/protocols.py"):
+            avio.open_write(url)
+
+
+def test_avio_reads_bytes_and_file_objects_as_the_reference(tmp_path):
+    import io as _io
+    from ffmpeg_tpu.io import avio as ref_avio
+    data = bytes(range(256)) * 3
+    for src in (data, _io.BytesIO(data)):
+        out = []
+        for mod in (ref_avio, avio):
+            r = mod.open_read(copy.copy(src) if isinstance(src, bytes)
+                              else _io.BytesIO(data))
+            out.append((r.peek(5), r.u8(), r.rl16(), r.rb24(), r.rl32(),
+                        r.rb64(), r.tag(), r.tell(), r.read(7),
+                        r.seekable, r.size))
+        assert out[0] == out[1]
+    p = tmp_path / "w.bin"
+    w = avio.open_write(str(p))
+    w.u8(1), w.wl16(2), w.wb24(3), w.wl32(4), w.wb64(5), w.tag("abcd")
+    w.close()
+    assert p.read_bytes() == b"\x01\x02\x00\x00\x00\x03\x04\x00\x00\x00" \
+        + bytes(7) + b"\x05abcd"
+
+
+def test_old_readers_give_the_demuxers_packets(written):
+    """io/adts.py, io/ivf.py and io/mjpeg.py, beside the registry, read
+    the committed fixtures (and the muxers' files) into the packets of
+    AdtsDemuxer, IvfDemuxer and MjpegDemuxer."""
+    def demuxed(url):
+        d = open_input(str(url))
+        pk = list(d.packets())
+        d.close()
+        return d, pk
+
+    def fields(p):
+        return plain((p.data, p.pts, p.dts, p.duration, p.flags,
+                      p.stream_index, p.time_base))
+    for url in (DATA / "bench" / "aac48k.adts",
+                written[("adts", "o.aac", "aac")][0] / "ref" / "o.aac"):
+        par, pkts = read_adts(url.read_bytes())
+        d, want = demuxed(url)
+        assert plain(par) == plain(d.streams[0].codecpar)
+        assert [fields(p) for p in pkts] == [fields(p) for p in want]
+    for url in (DATA / "port" / "vp9_crafted_96x72.ivf",
+                DATA / "port" / "vp9_1080p_lf.ivf",
+                DATA / "bench" / "vp9_1080p_100.ivf"):
+        par, tb, pkts = read_ivf(url.read_bytes())
+        d, want = demuxed(url)
+        st = d.streams[0]
+        assert (par.codec_id, par.width, par.height) == (
+            st.codecpar.codec_id, st.codecpar.width, st.codecpar.height)
+        assert plain(tb) == plain(st.time_base)
+        assert [fields(p) for p in pkts] == [fields(p) for p in want]
+    for url in (DATA / "port" / "flagship_1080p_8.mjpeg",
+                written[("mjpeg", "o.mjpeg", "mjpeg")][0] / "ref" /
+                "o.mjpeg"):
+        d, want = demuxed(url)
+        assert split_packets(url.read_bytes()) == [p.data for p in want]
