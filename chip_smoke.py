@@ -60,7 +60,13 @@ Drives the port's paths through their user entry points at full size:
   rgb24, VP9 to framemd5, H.264 remuxed to Matroska and MP4 and decoded
   to framemd5, a 1080p y4m to MPEG-2 with K2 in its motion search, AAC to
   16 kHz mono float), and ffmpeg_tpu_torch.cli.ffprobe.main on the
-  outputs.
+  outputs;
+- the CLI through the containers of io/formats/avi.py, mpegts.py and
+  ogg.py, on the command lines of testing.cli_container_commands: the
+  1080p MJPEG copied into AVI and decoded and scaled from it, the 1080p
+  MPEG-2 copied into MPEG-TS and decoded from it, the AAC clip copied
+  into MPEG-TS and decoded and resampled from it, and Ogg Vorbis and
+  Opus files (CELT, SILK, hybrid) decoded.
 
 Phases, one line each:
 
@@ -315,10 +321,28 @@ Phases, one line each:
    of the frontend golden; (f) the probe of (c)'s and (d)'s files equal
    to the reference's text ((d)'s apart from the packets' sizes and
    positions).  The direct paths of (a) and (d) are timed beside them.
-Phases 9-16, 18 and 20-25 run PyTorch only: K1 and K2 are not on their
-paths, and each prints their launch counts over its run (0).  K2's launches
-in the JSON line count phases 7, 17 and 26 (d), K1's phases 4 and 19.
-Phases 13-26 print their wall times, and the script its own.
+27. the CLI through the new containers on the card, in phase 26's
+   directory and on its outputs, each command of
+   testing.cli_container_commands with phase 26's figures: (g) the
+   flagship fixture copied into AVI, sha256 equal to the reference CLI's
+   (testing.CLI_GOLDEN), and the AVI to 224x224 rgb24 byte-equal to
+   (a)'s output with (a)'s plane copies; (h) (d)'s MPEG-2 Matroska file
+   copied into MPEG-TS, its packets equal to the Matroska file's in
+   payload and in pts in seconds, and the TS to framemd5, each frame's
+   md5 that of open_decoder("mpeg2video") on the card on the Matroska
+   file's packets, with the rawvideo encoder's plane copies only; (i)
+   the ADTS clip copied into MPEG-TS (sha256 equal to the reference
+   CLI's) and the TS to 16 kHz mono f32le byte-equal to (e)'s output;
+   (j) Ogg files of the committed Vorbis, CELT, SILK and hybrid packets
+   (testing.write_cli_ogg) to f32le, within phase 25's bar of
+   open_decoder on the same packets on the card, with the reference
+   CLI's sample counts; (k) the probe of the AVI, the two TS files and an
+   Ogg file equal to the reference's text (the MPEG-2 TS but for the
+   packets' sizes and positions).  K1 and K2 launch 0 times.
+Phases 9-16, 18, 20-25 and 27 run PyTorch only: K1 and K2 are not on
+their paths, and each prints their launch counts over its run (0).  K2's
+launches in the JSON line count phases 7, 17 and 26 (d), K1's phases 4
+and 19.  Phases 13-27 print their wall times, and the script its own.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -551,9 +575,12 @@ def main() -> int:
     phase23_audio_decoders(dev, card)
     phase24_filters(dev, card)
     phase25_audio_codecs(dev, card)
-    k2_cli = phase26_cli(dev, card)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        rows26 = phase26_cli(dev, card, Path(tmp))
+        phase27_containers(dev, card, Path(tmp), rows26)
     launches += k1_enc
-    k2_launches += k2_enc + k2_cli
+    k2_launches += k2_enc + rows26["d"]["k2"]
     print(f"whole script: {time.monotonic() - T0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -842,7 +869,10 @@ def profile_device(fn, warm: bool = True,
     operator events out of the trace (a VP9 keyframe queues some 10^5
     kernels, and each operator event costs the trace's post-processing
     time); the launch calls are counted where the trace has the CUDA
-    runtime's events."""
+    runtime's events.  The trace is read from the profiler's own event
+    records: prof.events() would first build a Python object and a tree
+    for each of them, some 30-40 s for a VP9 keyframe's 6e5 events, for
+    the same names and durations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     if warm:
@@ -853,10 +883,10 @@ def profile_device(fn, warm: bool = True,
         fn()
         torch.cuda.synchronize()
     device, api = [], 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            device.append((e.name, e.time_range.elapsed_us()))
-        elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            device.append((e.name(), e.duration_ns() / 1e3))
+        elif e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel")):
             api += 1
     return device, api
 
@@ -1443,7 +1473,7 @@ def phase13_vp9(dev, card) -> dict:
     if len(pkts) != 100 or (par.width, par.height) != (1920, 1080):
         raise RuntimeError(f"bench stream: {len(pkts)} packets at "
                            f"{par.width}x{par.height}")
-    vp9_decode(pkts[:2], dev)                     # warm: not in the pass
+    card_frames = vp9_decode(pkts[:2], dev)       # warm: not in the pass
 
     # the main path: the first VP9_FRAMES frames once, each checked
     dec = CodecContext.open_decoder(par, device=dev)
@@ -1497,9 +1527,9 @@ def phase13_vp9(dev, card) -> dict:
           f"{statistics.median(dev_inter):.2f} ms, sum "
           f"{sum(dev_inter):.1f} ms", flush=True)
 
-    # frames 0 and 1 on the card against the port's CPU run
+    # frames 0 and 1 on the card (the warm decode's) against the port's
+    # CPU run
     cpu = vp9_decode(pkts[:2], "cpu")
-    card_frames = vp9_decode(pkts[:2], dev)
     for i, (a, b) in enumerate(zip(cpu, card_frames)):
         for pl, (x, y) in enumerate(zip(a.planes, b.planes)):
             if not torch.equal(x, y.cpu()):
@@ -3307,177 +3337,332 @@ class PlaneCopies:
             m.host_array = self._orig
 
 
-def phase26_cli(dev, card) -> int:
-    """The port's CLI on the card (phase 26 in the module docstring);
-    returns K2's launches in command (d)."""
-    import contextlib
-    import hashlib
-    import io
-    import json
-    import tempfile
-    import numpy as np
-    import torch
-    from ffmpeg_tpu_torch import testing as fx
-    from ffmpeg_tpu_torch.cli.ffmpeg import main as fftpu
-    from ffmpeg_tpu_torch.cli.ffprobe import main as fftpu_probe
-    from ffmpeg_tpu_torch.codecs import CodecContext
-    from ffmpeg_tpu_torch.filters import parse_graph
-    from ffmpeg_tpu_torch.io import open_input
-    from ffmpeg_tpu_torch.ops import huffman, me
-    t_phase = time.monotonic()
-    gold = json.loads(fx.CLI_GOLDEN.read_text())
-    rows = {}
+class CliRuns:
+    """One phase's runs of the port's CLI in process (phases 26-27): each
+    command of `cmds` by name, timed on the host's clock up to a
+    synchronize, with K1's and K2's launches and the plane copies to the
+    host (PlaneCopies) in `rows`, and its report line."""
 
-    def run(name: str, frames: int) -> dict:
+    def __init__(self, phase: int, dev, card: str, cmds: dict):
+        self.phase, self.dev, self.card, self.cmds = phase, dev, card, cmds
+        self.rows: dict = {}
+
+    def run(self, name: str, frames: int = 0, secs: float = 0.0) -> dict:
+        """Runs command `name`; `frames` (video) or `secs` (audio) give
+        the report its rate."""
+        import torch
+        from ffmpeg_tpu_torch.cli.ffmpeg import main as fftpu
+        from ffmpeg_tpu_torch.ops import huffman, me
         zero_counts()
         with PlaneCopies() as cp:
             t = time.perf_counter()
-            rc = fftpu(cmds[name], device=dev)
+            rc = fftpu(self.cmds[name], device=self.dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         if rc != 0:
-            raise RuntimeError(f"phase 26 ({name}): fftpu-torch "
-                               f"{' '.join(cmds[name])} returned {rc}")
-        r = rows[name] = {"wall": wall, "frames": frames,
-                          "k1": huffman.KERNEL_LAUNCHES,
-                          "k2": me.KERNEL_LAUNCHES, "copies": cp.n}
+            raise RuntimeError(f"phase {self.phase} ({name}): fftpu-torch "
+                               f"{' '.join(self.cmds[name])} returned {rc}")
+        r = self.rows[name] = {"wall": wall, "frames": frames, "secs": secs,
+                               "k1": huffman.KERNEL_LAUNCHES,
+                               "k2": me.KERNEL_LAUNCHES, "copies": cp.n}
         return r
 
-    def report(name: str, what: str, check: str, direct: str = "") -> None:
-        r = rows[name]
-        rate = (f"{r['frames'] / r['wall']:.3f} frames/s" if r["frames"]
-                else "")
-        copies = (f"{r['copies']} plane copies to the host "
-                  f"({r['copies'] / r['frames']:.2f} a frame)"
-                  if r["frames"] else f"{r['copies']} plane copies")
-        print(f"phase 26 ({name}) [{card}]: fftpu-torch "
-              f"{' '.join(Path(a).name if '/' in a else a for a in cmds[name])}"
-              f": {what}; {check}; wall {r['wall'] * 1e3:.1f} ms"
-              f"{', ' + rate if rate else ''}{direct}; K1/K2 launches "
-              f"{r['k1']}/{r['k2']}; {copies}", flush=True)
+    def report(self, name: str, what: str, check: str,
+               direct: str = "") -> None:
+        r = self.rows[name]
+        rate = (f", {r['frames'] / r['wall']:.3f} frames/s" if r["frames"]
+                else f", {r['secs'] / r['wall']:.2f}x realtime"
+                if r["secs"] else "")
+        per = (f" ({r['copies'] / r['frames']:.2f} a frame)" if r["frames"]
+               else "")
+        args = " ".join(Path(a).name if "/" in a else a
+                        for a in self.cmds[name])
+        print(f"phase {self.phase} ({name}) [{self.card}]: fftpu-torch "
+              f"{args}: {what}; {check}; wall {r['wall'] * 1e3:.1f} ms"
+              f"{rate}{direct}; K1/K2 launches {r['k1']}/{r['k2']}; "
+              f"{r['copies']} plane copies to the host{per}", flush=True)
 
-    def probe_text(path: Path) -> str:
+    def probe_text(self, path: Path) -> str:
+        """fftpu-probe's text of `path` with testing.CLI_PROBE_ARGS."""
+        import contextlib
+        import io
+        from ffmpeg_tpu_torch import testing as fx
+        from ffmpeg_tpu_torch.cli.ffprobe import main as fftpu_probe
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = fftpu_probe([*fx.CLI_PROBE_ARGS, str(path)], device=dev)
+            rc = fftpu_probe([*fx.CLI_PROBE_ARGS, str(path)],
+                             device=self.dev)
         if rc != 0:
-            raise RuntimeError(f"phase 26 (f): fftpu-probe of {path.name} "
-                               f"returned {rc}")
+            raise RuntimeError(f"phase {self.phase}: fftpu-probe of "
+                               f"{path.name} returned {rc}")
         return buf.getvalue()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        d = Path(tmp)
-        cmds = fx.cli_commands(d)
 
-        # (a) MJPEG -> scale -> rgb24, against the direct path on the card
-        run("a", 8)
-        got = (d / "out.rgb").read_bytes()
-        dm = open_input(str(fx.FIXTURE))
-        pkts = list(dm.packets())
-        dm.close()
-        t = time.perf_counter()
-        frames = CodecContext.open_decoder(dm.streams[0].codecpar,
-                                           device=dev).decode_all(pkts)
-        out = parse_graph("scale=224:224,format=rgb24", device=dev).run(
-            frames)
-        want = b"".join(f.to_bytes() for f in out)
-        direct_ms = (time.perf_counter() - t) * 1e3
-        if got != want or len(got) != 8 * 224 * 224 * 3:
-            raise RuntimeError(f"phase 26 (a): {len(got)} bytes, not equal "
-                               f"to the direct path's {len(want)}")
-        report("a", f"{len(pkts)} frames of 1920x1080 MJPEG",
-               "byte-equal to open_decoder('mjpeg') + parse_graph('scale="
-               "224:224,format=rgb24') on the card",
-               f" (the direct path {direct_ms:.1f} ms)")
+def phase26_cli(dev, card, d: Path) -> dict:
+    """The port's CLI on the card (phase 26 in the module docstring), in
+    directory `d`; returns each command's wall time, frames, K1 and K2
+    launches and plane copies."""
+    import hashlib
+    import json
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.filters import parse_graph
+    from ffmpeg_tpu_torch.io import open_input
+    t_phase = time.monotonic()
+    gold = json.loads(fx.CLI_GOLDEN.read_text())
+    cli = CliRuns(26, dev, card, fx.cli_commands(d))
+    run, report, rows = cli.run, cli.report, cli.rows
 
-        # (b) VP9 -> framemd5, against the reference CLI's text
-        run("b", 3)
-        if (d / "out_vp9.md5").read_text() != gold["b_framemd5"]:
-            raise RuntimeError("phase 26 (b): the framemd5 differs from "
-                               "the reference CLI's golden")
-        report("b", "3 frames of the 1920x1080 VP9 bench stream",
-               "framemd5 text equal to the reference CLI's golden")
+    # (a) MJPEG -> scale -> rgb24, against the direct path on the card
+    run("a", 8)
+    got = (d / "out.rgb").read_bytes()
+    dm = open_input(str(fx.FIXTURE))
+    pkts = list(dm.packets())
+    dm.close()
+    t = time.perf_counter()
+    frames = CodecContext.open_decoder(dm.streams[0].codecpar,
+                                       device=dev).decode_all(pkts)
+    out = parse_graph("scale=224:224,format=rgb24", device=dev).run(
+        frames)
+    want = b"".join(f.to_bytes() for f in out)
+    direct_ms = (time.perf_counter() - t) * 1e3
+    if got != want or len(got) != 8 * 224 * 224 * 3:
+        raise RuntimeError(f"phase 26 (a): {len(got)} bytes, not equal "
+                           f"to the direct path's {len(want)}")
+    report("a", f"{len(pkts)} frames of 1920x1080 MJPEG",
+           "byte-equal to open_decoder('mjpeg') + parse_graph('scale="
+           "224:224,format=rgb24') on the card",
+           f" (the direct path {direct_ms:.1f} ms)")
 
-        # (c) H.264 remuxed, then its first frame decoded
-        npk = len(list(open_input(str(fx.H264_CABAC)).packets()))
-        for name, ext in (("c_mkv", "mkv"), ("c_mp4", "mp4")):
-            run(name, 0)
-            sha = hashlib.sha256((d / f"out.{ext}").read_bytes()).hexdigest()
-            if sha != gold[f"c_{ext}_sha256"]:
-                raise RuntimeError(f"phase 26 ({name}): the remux differs "
-                                   f"from the reference CLI's (sha256)")
-            report(name, f"{npk} packets of the 1920x1088 H.264 stream "
-                   f"copied", "sha256 equal to the reference CLI's remux")
-        run("c_md5", 1)
-        if (d / "out_h264.md5").read_text() != gold["c_framemd5"]:
-            raise RuntimeError("phase 26 (c_md5): the framemd5 differs "
-                               "from the reference CLI's golden")
-        report("c_md5", "the Matroska file's first frame decoded (the "
-               "decoder takes the pictures it needs to emit it)",
-               "framemd5 text equal to the reference CLI's golden")
+    # (b) VP9 -> framemd5, against the reference CLI's text
+    run("b", 3)
+    if (d / "out_vp9.md5").read_text() != gold["b_framemd5"]:
+        raise RuntimeError("phase 26 (b): the framemd5 differs from "
+                           "the reference CLI's golden")
+    report("b", "3 frames of the 1920x1080 VP9 bench stream",
+           "framemd5 text equal to the reference CLI's golden")
 
-        # (d) a 1080p y4m -> MPEG-2 in Matroska, K2 in the motion search
-        y4m = fx.write_y4m(d / "mpeg2_clip.y4m", fx.mpeg2_clip(
-            fx.CLI_MPEG2_FRAMES, ENC_W, ENC_H))
-        r = run("d", fx.CLI_MPEG2_FRAMES)
-        if r["k2"] < 1:
-            raise RuntimeError("phase 26 (d): K2 not launched by the CLI's "
-                               "MPEG-2 encode")
-        dm = open_input(str(d / "out_mpeg2.mkv"))
-        got = [p.data for p in dm.packets()]
-        dm.close()
-        par, frames = fx.cli_encoder_input(y4m, "mpeg2video", dev)
-        t = time.perf_counter()
-        ctx = CodecContext.open_encoder(par, {}, device=dev)
-        want = [p.data for p in fx.encode_all(ctx, frames)]
-        torch.cuda.synchronize()
-        direct_ms = (time.perf_counter() - t) * 1e3
-        if got != want:
-            raise RuntimeError(f"phase 26 (d): packets {[len(x) for x in got]}"
-                               f" differ from the direct encode's "
-                               f"{[len(x) for x in want]}")
-        ref_bytes = gold["d_packet_bytes"]
-        rel = max(abs(len(a) / b - 1) for a, b in zip(got, ref_bytes))
-        if len(got) != len(ref_bytes) or rel > 0.01:
-            raise RuntimeError(f"phase 26 (d): sizes {[len(x) for x in got]}"
-                               f" not within 1% of the reference's "
-                               f"{ref_bytes}")
-        report("d", f"{len(got)} frames of mpeg2_clip at {ENC_W}x{ENC_H} "
-               f"to MPEG-2", f"packets {[len(x) for x in got]} B byte-equal "
-               f"to open_encoder('mpeg2video') on the card on the same "
-               f"frames, within {rel:.3%} of the reference's {ref_bytes}",
-               f" (the direct encode {direct_ms:.1f} ms)")
+    # (c) H.264 remuxed, then its first frame decoded
+    npk = len(list(open_input(str(fx.H264_CABAC)).packets()))
+    for name, ext in (("c_mkv", "mkv"), ("c_mp4", "mp4")):
+        run(name, 0)
+        sha = hashlib.sha256((d / f"out.{ext}").read_bytes()).hexdigest()
+        if sha != gold[f"c_{ext}_sha256"]:
+            raise RuntimeError(f"phase 26 ({name}): the remux differs "
+                               f"from the reference CLI's (sha256)")
+        report(name, f"{npk} packets of the 1920x1088 H.264 stream "
+               f"copied", "sha256 equal to the reference CLI's remux")
+    run("c_md5", 1)
+    if (d / "out_h264.md5").read_text() != gold["c_framemd5"]:
+        raise RuntimeError("phase 26 (c_md5): the framemd5 differs "
+                           "from the reference CLI's golden")
+    report("c_md5", "the Matroska file's first frame decoded (the "
+           "decoder takes the pictures it needs to emit it)",
+           "framemd5 text equal to the reference CLI's golden")
 
-        # (e) the audio frontend's command
-        run("e", 0)
-        got = np.fromfile(d / "out.f32", np.float32)[None]
-        note = _close_audio(got, np.load(fx.AUDIO_GOLDEN)["resampled"],
-                            "against the frontend golden:", AUDIO_TOL,
-                            AUDIO_MIN_SNR)
-        secs = got.shape[1] / 16000
-        report("e", f"{secs:.2f} s of 48 kHz stereo AAC to 16 kHz mono f32le",
-               f"{note}; {secs / rows['e']['wall']:.2f}x realtime")
+    # (d) a 1080p y4m -> MPEG-2 in Matroska, K2 in the motion search
+    y4m = fx.write_y4m(d / "mpeg2_clip.y4m", fx.mpeg2_clip(
+        fx.CLI_MPEG2_FRAMES, ENC_W, ENC_H))
+    r = run("d", fx.CLI_MPEG2_FRAMES)
+    if r["k2"] < 1:
+        raise RuntimeError("phase 26 (d): K2 not launched by the CLI's "
+                           "MPEG-2 encode")
+    dm = open_input(str(d / "out_mpeg2.mkv"))
+    got = [p.data for p in dm.packets()]
+    dm.close()
+    par, frames = fx.cli_encoder_input(y4m, "mpeg2video", dev)
+    t = time.perf_counter()
+    ctx = CodecContext.open_encoder(par, {}, device=dev)
+    want = [p.data for p in fx.encode_all(ctx, frames)]
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t) * 1e3
+    if got != want:
+        raise RuntimeError(f"phase 26 (d): packets {[len(x) for x in got]}"
+                           f" differ from the direct encode's "
+                           f"{[len(x) for x in want]}")
+    ref_bytes = gold["d_packet_bytes"]
+    rel = max(abs(len(a) / b - 1) for a, b in zip(got, ref_bytes))
+    if len(got) != len(ref_bytes) or rel > 0.01:
+        raise RuntimeError(f"phase 26 (d): sizes {[len(x) for x in got]}"
+                           f" not within 1% of the reference's "
+                           f"{ref_bytes}")
+    report("d", f"{len(got)} frames of mpeg2_clip at {ENC_W}x{ENC_H} "
+           f"to MPEG-2", f"packets {[len(x) for x in got]} B byte-equal "
+           f"to open_encoder('mpeg2video') on the card on the same "
+           f"frames, within {rel:.3%} of the reference's {ref_bytes}",
+           f" (the direct encode {direct_ms:.1f} ms)")
 
-        # (f) the probe of the outputs
-        for ext in ("mkv", "mp4"):
-            if probe_text(d / f"out.{ext}") != gold[f"f_probe_{ext}"]:
-                raise RuntimeError(f"phase 26 (f): the probe of out.{ext} "
-                                   f"differs from the reference's")
-        text = probe_text(d / "out_mpeg2.mkv")
-        if fx.probe_without_sizes(text) != fx.probe_without_sizes(
-                gold["f_probe_mpeg2"]):
-            raise RuntimeError("phase 26 (f): the probe of the MPEG-2 file "
-                               "differs from the reference's beyond the "
-                               "packets' sizes")
-        print(f"phase 26 (f) [{card}]: fftpu-probe "
-              f"{' '.join(fx.CLI_PROBE_ARGS)} of out.mkv and out.mp4 equal "
-              f"to the reference's text, of out_mpeg2.mkv equal but for "
-              f"the packets' sizes and positions", flush=True)
+    # (e) the audio frontend's command
+    run("e", 0)
+    got = np.fromfile(d / "out.f32", np.float32)[None]
+    note = _close_audio(got, np.load(fx.AUDIO_GOLDEN)["resampled"],
+                        "against the frontend golden:", AUDIO_TOL,
+                        AUDIO_MIN_SNR)
+    secs = got.shape[1] / 16000
+    report("e", f"{secs:.2f} s of 48 kHz stereo AAC to 16 kHz mono f32le",
+           f"{note}; {secs / rows['e']['wall']:.2f}x realtime")
+
+    # (f) the probe of the outputs
+    for ext in ("mkv", "mp4"):
+        if cli.probe_text(d / f"out.{ext}") != gold[f"f_probe_{ext}"]:
+            raise RuntimeError(f"phase 26 (f): the probe of out.{ext} "
+                               f"differs from the reference's")
+    text = cli.probe_text(d / "out_mpeg2.mkv")
+    if fx.probe_without_sizes(text) != fx.probe_without_sizes(
+            gold["f_probe_mpeg2"]):
+        raise RuntimeError("phase 26 (f): the probe of the MPEG-2 file "
+                           "differs from the reference's beyond the "
+                           "packets' sizes")
+    print(f"phase 26 (f) [{card}]: fftpu-probe "
+          f"{' '.join(fx.CLI_PROBE_ARGS)} of out.mkv and out.mp4 equal "
+          f"to the reference's text, of out_mpeg2.mkv equal but for "
+          f"the packets' sizes and positions", flush=True)
     if any(r["k1"] for r in rows.values()):
         raise RuntimeError("phase 26 launched K1, which no CLI path runs")
     print(f"phase 26 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
-    return rows["d"]["k2"]
+    return rows
+
+
+def _framemd5s(text: str) -> list:
+    """The md5 column of a framemd5 file's frame lines."""
+    return [ln.rsplit(",", 1)[1].strip() for ln in text.splitlines()
+            if ln and not ln.startswith("#")]
+
+
+def phase27_containers(dev, card, d: Path, rows26: dict) -> None:
+    """The CLI through the containers of io/formats/avi.py, mpegts.py and
+    ogg.py on the card (phase 27 in the module docstring), in phase 26's
+    directory `d`, on its outputs."""
+    import hashlib
+    import json
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.io import open_input
+    t_phase = time.monotonic()
+    gold = json.loads(fx.CLI_GOLDEN.read_text())
+    cli = CliRuns(27, dev, card, fx.cli_container_commands(d))
+    run, report, rows = cli.run, cli.report, cli.rows
+
+    def sha(path: Path) -> str:
+        return hashlib.sha256(path.read_bytes()).hexdigest()
+
+    # (g) MJPEG into AVI, then the AVI as command (a)
+    run("g_avi")
+    if sha(d / "out.avi") != gold["g_avi_sha256"]:
+        raise RuntimeError("phase 27 (g_avi): out.avi differs from the "
+                           "reference CLI's (sha256)")
+    report("g_avi", "the 8 frames of 1920x1080 MJPEG copied into AVI",
+           "sha256 equal to the reference CLI's")
+    r = run("g_rgb", 8)
+    if (d / "out_avi.rgb").read_bytes() != (d / "out.rgb").read_bytes():
+        raise RuntimeError("phase 27 (g_rgb): differs from phase 26 (a)'s "
+                           "out.rgb")
+    if r["copies"] != rows26["a"]["copies"]:
+        raise RuntimeError(f"phase 27 (g_rgb): {r['copies']} plane copies, "
+                           f"phase 26 (a) {rows26['a']['copies']}")
+    report("g_rgb", "the AVI to 224x224 rgb24", "byte-equal to phase 26 "
+           f"(a)'s out.rgb, its plane copies as (a)'s (wall "
+           f"{rows26['a']['wall'] * 1e3:.1f} ms there)")
+
+    # (h) the MPEG-2 Matroska file into MPEG-TS, then the TS to framemd5
+    run("h_ts")
+    pk, par = {}, {}
+    for ext in ("mkv", "ts"):
+        dm = open_input(str(d / f"out_mpeg2.{ext}"))
+        pk[ext] = list(dm.packets())
+        dm.close()
+        par[ext] = dm.streams[0].codecpar
+    if [p.data for p in pk["ts"]] != [p.data for p in pk["mkv"]] or [
+            p.pts * p.time_base.num / p.time_base.den for p in pk["ts"]] != [
+            p.pts * p.time_base.num / p.time_base.den for p in pk["mkv"]]:
+        raise RuntimeError("phase 27 (h_ts): the TS's packets differ from "
+                           "the Matroska file's in payload or pts")
+    report("h_ts", f"{len(pk['ts'])} MPEG-2 packets of phase 26 (d) copied "
+           "into MPEG-TS", "packets equal to the Matroska file's in payload "
+           f"and in pts (seconds; {pk['ts'][0].time_base} against "
+           f"{pk['mkv'][0].time_base})")
+    n = len(pk["mkv"])
+    r = run("h_md5", n)
+    dec = CodecContext.open_decoder(par["mkv"], device=dev)
+    t = time.perf_counter()
+    frames = dec.decode_all(pk["mkv"])
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t) * 1e3
+    want = [hashlib.md5(f.to_bytes()).hexdigest() for f in frames]
+    got = _framemd5s((d / "out_ts.md5").read_text())
+    if got != want or len(got) != n:
+        raise RuntimeError(f"phase 27 (h_md5): frame md5s {got} differ from "
+                           f"open_decoder('mpeg2video')'s {want}")
+    planes = len(frames[0].planes)
+    if r["copies"] != planes * n:
+        raise RuntimeError(f"phase 27 (h_md5): {r['copies']} plane copies, "
+                           f"not the rawvideo encoder's {planes} a frame")
+    report("h_md5", f"the TS's {n} 1920x1080 MPEG-2 pictures to framemd5",
+           f"each frame's md5 equal to open_decoder('mpeg2video') on the "
+           f"card on the Matroska file's packets ({direct_ms:.1f} ms)")
+
+    # (i) the ADTS clip into MPEG-TS, then the TS as command (e)
+    run("i_ts")
+    if sha(d / "out_aac.ts") != gold["i_ts_sha256"]:
+        raise RuntimeError("phase 27 (i_ts): out_aac.ts differs from the "
+                           "reference CLI's (sha256)")
+    report("i_ts", "the 20.03 s ADTS clip copied into MPEG-TS",
+           "sha256 equal to the reference CLI's")
+    secs = (d / "out.f32").stat().st_size / 4 / 16000
+    run("i_f32", secs=secs)
+    if (d / "out_ts.f32").read_bytes() != (d / "out.f32").read_bytes():
+        raise RuntimeError("phase 27 (i_f32): differs from phase 26 (e)'s "
+                           "out.f32")
+    report("i_f32", f"the TS's AAC to 16 kHz mono f32le ({secs:.2f} s)",
+           f"byte-equal to phase 26 (e)'s out.f32 (there "
+           f"{rows26['e']['wall'] * 1e3:.1f} ms)")
+
+    # (j) the Ogg files, each against the direct decode on the card
+    fx.write_cli_ogg(d)
+    for name in fx.CLI_OGG_STREAMS:
+        st = fx.codec_stream(name)
+        ch = st["channels"]
+        r = run(f"j_{name}")
+        got = np.fromfile(d / f"{name}.f32", np.float32).reshape(-1, ch).T
+        r["secs"] = got.shape[1] / st["sample_rate"]
+        if got.shape[1] != gold["j_samples"][name]:
+            raise RuntimeError(f"phase 27 (j_{name}): {got.shape[1]} samples,"
+                               f" the reference CLI {gold['j_samples'][name]}")
+        want = np.concatenate([f.audio_data for f in fx.codec_decode(
+            st, dev)], 1)
+        m = min(got.shape[1], want.shape[1])
+        note = _close_audio(np.ascontiguousarray(got[:, :m]),
+                            np.ascontiguousarray(want[:, :m]),
+                            "against open_decoder on the same packets on "
+                            "the card:", fx.AUDIO_DECODE_TOL,
+                            fx.AUDIO_DECODE_MIN_SNR)
+        report(f"j_{name}", f"Ogg {st['codec_id']}, {ch} ch, "
+               f"{len(st['packets'])} packets", f"{note}; "
+               f"{got.shape[1]} samples as the reference CLI's")
+
+    # (k) the probe of the outputs
+    for f in fx.CLI_PROBE_FILES:
+        text, want = cli.probe_text(d / f), gold["k_probe"][f]
+        if f == "out_mpeg2.ts":
+            text, want = (fx.probe_without_sizes(text),
+                          fx.probe_without_sizes(want))
+        if text != want:
+            raise RuntimeError(f"phase 27 (k): the probe of {f} differs "
+                               f"from the reference's")
+    print(f"phase 27 (k) [{card}]: fftpu-probe {' '.join(fx.CLI_PROBE_ARGS)}"
+          f" of {', '.join(fx.CLI_PROBE_FILES)} equal to the reference's "
+          f"text (out_mpeg2.ts but for the packets' sizes and positions)",
+          flush=True)
+    if any(r["k1"] or r["k2"] for r in rows.values()):
+        raise RuntimeError("phase 27 launched K1 or K2, which no command "
+                           "here runs")
+    print(f"phase 27 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,8 @@ The port's copy of ffmpeg_tpu/io/demux.py, held equal to it by
 tests/test_torch_io_formats.py.  The registry holds the formats that
 io/__init__.py imports.  Probing ranks them beside the reference's
 unported demuxers (io/unported.py), and a file that one of those wins,
-a format name of one of them, or an rtsp:// URL raises DemuxerNotFound
-naming the module to port.
+or a format name of one of them, raises DemuxerNotFound naming the
+module to port.
 """
 
 from __future__ import annotations
@@ -230,8 +230,6 @@ def open_input(url, format: Optional[str] = None, **options) -> Demuxer:
         _read_header_guarded(d)
         return d
     elif isinstance(url, str) and url.startswith("rtsp://"):
-        if "rtsp" not in _DEMUXERS:
-            raise _unported("rtsp")
         d = _DEMUXERS["rtsp"](None, url=url)
         for k, v in options.items():
             setattr(d, k, v)

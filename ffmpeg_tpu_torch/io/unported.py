@@ -3,8 +3,9 @@ claims only: each keeps its name, extensions and probe (the reference's
 scores, copied from the module named beside it), so that the port's
 probe_format ranks a file as the reference's does.  Where one of these
 wins, the port raises DemuxerNotFound naming the module, where otherwise
-a ported demuxer with a lower score would take a file that is not its
-own (a raw H.264 demuxer would take an MPEG-TS file).
+a ported demuxer with a lower score could take a file that is not its
+own.  Left are FLAC, GIF, HLS, AV1's OBU stream, DTS and the DASH
+manifest, each waiting for its codec or protocol module.
 
 REFERENCE_ORDER is the reference's order of registration: ties in score
 go to the first registered, there as here.  (The reference's codecs/av1.py
@@ -13,8 +14,6 @@ the order of imports; no other demuxer scores an OBU stream's head.)
 """
 
 from __future__ import annotations
-
-import re
 
 # the reference registry's demuxer names, in its order of registration
 REFERENCE_ORDER = (
@@ -47,43 +46,6 @@ def _sig(name: str, module: str, extensions: tuple, test, score: int):
     """A claim whose probe scores `score` where `test(head)` holds."""
     return _claim(name, module, extensions,
                   lambda cls, head, filename="": score if test(head) else 0)
-
-
-def _mpegts_probe(cls, head: bytes, filename: str = "") -> int:
-    score = 0
-    for start in range(min(188, max(1, len(head) - 188 * 4))):
-        if all(start + i * 188 < len(head) and head[start + i * 188] == 0x47
-               for i in range(4)):
-            score = 50 if start else 100
-            break
-    return score
-
-
-def _text_probe(prefix: str, chars: int, score: int):
-    def probe(cls, head: bytes, filename: str = "") -> int:
-        try:
-            text = head.decode("utf-8-sig", "strict")[:chars]
-        except UnicodeDecodeError:
-            return 0
-        return score if text.startswith(prefix) else 0
-    return probe
-
-
-_SRT_TS = re.compile(
-    r"(\d+):(\d+):(\d+)[,.](\d+)\s*-->\s*(\d+):(\d+):(\d+)[,.](\d+)")
-
-
-def _srt_probe(cls, head: bytes, filename: str = "") -> int:
-    try:
-        text = head.decode("utf-8-sig", "strict")[:512]
-    except UnicodeDecodeError:
-        return 0
-    return 60 if _SRT_TS.search(text) else 0
-
-
-def _ass_probe(cls, head: bytes, filename: str = "") -> int:
-    text = head.decode("utf-8-sig", "replace").lstrip("\r\n \t")
-    return 60 if text.startswith("[Script Info]") else 0
 
 
 def _obu_types(data: bytes) -> list:
@@ -162,27 +124,9 @@ def _dts_probe(cls, head: bytes, filename: str = "") -> int:
     return 55 if good >= 3 else (25 if good == 2 else 0)
 
 
-def _mlp_probe(sync: bytes):
-    def probe(cls, head: bytes, filename: str = "") -> int:
-        i = head.find(sync)
-        return 55 if 4 <= i <= 4096 + 4 and i % 2 == 0 else 0
-    return probe
-
-
 CLAIMS = {c.name: c for c in (
-    _sig("exr_pipe", "io/formats/exrfmt.py", ("exr",),
-         lambda h: h[:4] == b"\x76\x2f\x31\x01", 99),
-    _claim("webvtt", "io/formats/webvtt.py", ("vtt",),
-           _text_probe("WEBVTT", 16, 100)),
     _sig("flac", "io/formats/flac.py", ("flac",),
          lambda h: h[:4] == b"fLaC", 100),
-    _claim("mpegts", "io/formats/mpegts.py", ("ts", "m2t", "m2ts", "mts"),
-           _mpegts_probe),
-    _sig("avi", "io/formats/avi.py", ("avi",),
-         lambda h: h[:4] == b"RIFF" and h[8:12] in (b"AVI ", b"AVIX"), 100),
-    _sig("concat", "io/formats/concat_seg.py", ("ffconcat", "concat"),
-         lambda h: h.startswith(b"ffconcat version 1.0"), 80),
-    _claim("srt", "io/formats/srt.py", ("srt",), _srt_probe),
     _sig("gif", "io/formats/gif.py", ("gif",),
          lambda h: h[:6] in (b"GIF87a", b"GIF89a"), 100),
     _sig("hls", "io/formats/hls.py", ("m3u8", "m3u"),
@@ -191,20 +135,4 @@ CLAIMS = {c.name: c for c in (
     _claim("dts", "io/formats/dtsraw.py", ("dts",), _dts_probe),
     _sig("dash", "io/formats/dash.py", ("mpd",),
          lambda h: b"<MPD" in h[:2048], 100),
-    _sig("webp_pipe", "io/formats/webpfmt.py", ("webp",),
-         lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP", 99),
-    _sig("sdp", "io/formats/rtp.py", ("sdp",),
-         lambda h: h[:2] == b"v=" and b"\nm=" in h.replace(b"\r", b""), 60),
-    _claim("rtsp", "io/formats/rtp.py", (),
-           lambda cls, head, filename="":
-           100 if str(filename).startswith("rtsp://") else 0),
-    _claim("ass", "io/formats/assfmt.py", ("ass", "ssa"), _ass_probe),
-    _sig("ogg", "io/formats/ogg.py", ("ogg", "oga", "opus", "spx", "ogv"),
-         lambda h: h[:4] == b"OggS" and len(h) > 5 and h[4] == 0, 100),
-    _sig("flv", "io/formats/flv.py", ("flv",),
-         lambda h: h[:3] == b"FLV" and len(h) > 8 and h[3] == 1, 100),
-    _claim("mlp", "io/formats/mlpraw.py", ("mlp",),
-           _mlp_probe(b"\xf8\x72\x6f\xbb")),
-    _claim("truehd", "io/formats/mlpraw.py", ("thd",),
-           _mlp_probe(b"\xf8\x72\x6f\xba")),
 )}

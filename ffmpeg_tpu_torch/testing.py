@@ -64,9 +64,13 @@ both check the port against the JAX reference's committed answers:
   points (`audio_decode`), the bar (`audio_bar`), and the reference
   decoders' carried state moved into the port's (`transplant_audio_state`);
 - the CLI (`CLI_GOLDEN`, written by tools/gen_torch_cli_fixture.py):
-  the command lines of chip_smoke.py's phase 26 (`cli_commands`) and the
-  reference CLI's framemd5 text, remuxes' sha256 and probe text of them,
-  with the y4m of the MPEG-2 command (`write_y4m`);
+  the command lines of chip_smoke.py's phases 26 and 27 (`cli_commands`,
+  `cli_container_commands`) and the reference CLI's framemd5 text,
+  remuxes' sha256, sample counts and probe text of them, with the y4m of
+  the MPEG-2 command (`write_y4m`) and the Ogg files of the Vorbis and
+  Opus command (`write_cli_ogg`: `ogg_stream`, the page writer, on the
+  committed packets of `AUDIO_CODECS`, since the reference has no Ogg
+  muxer);
 - the rest of the audio (`AUDIO_CODECS`, written by
   tools/gen_torch_audio_codecs_fixture.py): the Vorbis and Opus streams
   of the reference's tests (`codec_stream`, `codec_decode`) with the
@@ -1361,6 +1365,158 @@ def codec_decode(st: dict, device, stats=None, n=None) -> list:
     dec = codec_decoder(st, device)
     dec.codec.stats = stats
     return dec.decode_all(codec_packets(st, n))
+
+
+# --- Ogg pages: the reference has no Ogg muxer ------------------------------
+
+def _ogg_crc_table() -> list:
+    table = []
+    for i in range(256):
+        c = i << 24
+        for _ in range(8):
+            c = ((c << 1) ^ 0x04C11DB7 if c & 0x80000000 else c << 1) \
+                & 0xFFFFFFFF
+        table.append(c)
+    return table
+
+
+_OGG_CRC = _ogg_crc_table()
+
+
+def ogg_page(data: bytes, lacing, serial: int, seq: int, htype: int,
+             granule: int) -> bytes:
+    """One Ogg page (RFC 3533): `data`, the concatenated segments whose
+    sizes are `lacing` (at most 255 of them, each at most 255 bytes; a
+    segment below 255 ends a packet), with its CRC."""
+    lacing = bytes(lacing)
+    assert len(lacing) <= 255 and sum(lacing) == len(data)
+    page = bytearray(b"OggS" + bytes([0, htype])
+                     + granule.to_bytes(8, "little", signed=True)
+                     + serial.to_bytes(4, "little")
+                     + seq.to_bytes(4, "little") + bytes(4)
+                     + bytes([len(lacing)]) + lacing + data)
+    crc = 0
+    for b in page:
+        crc = ((crc << 8) & 0xFFFFFFFF) ^ _OGG_CRC[(crc >> 24) ^ b]
+    page[22:26] = crc.to_bytes(4, "little")
+    return bytes(page)
+
+
+def ogg_stream(headers, packets, granules, serial: int = 1,
+               page_bytes: int = 4096, eos_granule=None) -> bytes:
+    """A logical Ogg bitstream (RFC 3533; RFC 7845 for Opus, the Vorbis I
+    spec's section A for Vorbis): the first header packet alone on the
+    BOS page, each other header packet on a page of its own, then
+    `packets` laced into pages of at most `page_bytes` bytes and 255
+    segments.  A packet that does not fit continues on the next page
+    (its header_type flags the continuation); a packet of a multiple of
+    255 bytes ends with a 0-byte segment.  Each page's granule position
+    is `granules[i]` of the last packet `i` it completes, -1 where it
+    completes none.  The last page is flagged EOS, with `eos_granule` in
+    place of the last packet's where given (an end trim)."""
+    pages = []
+
+    def emit(data, lacing, htype, granule):
+        pages.append([data, lacing, htype, granule])
+
+    for i, h in enumerate(headers):
+        lacing = [255] * (len(h) // 255) + [len(h) % 255]
+        assert len(lacing) <= 255
+        emit(h, lacing, 2 if i == 0 else 0, 0)
+    data, lacing, cont, granule = b"", [], 0, -1
+    for i, pkt in enumerate(packets):
+        segs = [255] * (len(pkt) // 255) + [len(pkt) % 255]
+        pos = 0
+        for k, n in enumerate(segs):
+            if len(lacing) == 255 or len(data) + n > page_bytes and lacing:
+                emit(data, lacing, cont, granule)
+                data, lacing, granule = b"", [], -1
+                cont = 1 if k else 0
+            data += pkt[pos:pos + n]
+            lacing.append(n)
+            pos += n
+        granule = granules[i]
+    if lacing:
+        emit(data, lacing, cont, granule)
+    pages[-1][2] |= 4
+    if eos_granule is not None:
+        pages[-1][3] = eos_granule
+    return b"".join(ogg_page(d, la, serial, seq, ht, g)
+                    for seq, (d, la, ht, g) in enumerate(pages))
+
+
+OPUS_TAGS = b"OpusTags" + (7).to_bytes(4, "little") + b"fftpu-t" \
+    + bytes(4)
+
+
+def codec_stream_ogg(st: dict, page_bytes: int = 4096,
+                     eos_granule=None) -> bytes:
+    """A codec_stream as an Ogg Vorbis or Ogg Opus file (ogg_stream).
+    Opus: OpusHead (the extradata) and OpusTags, granule positions in
+    48 kHz samples, the pre-skip's included (RFC 7845 section 4).
+    Vorbis: the three header packets of the xiph-laced extradata, each
+    packet's granule position the next packet's start in samples (its
+    pts, in ms, at the stream's rate; the last packet one packet's step
+    further)."""
+    from .codecs.vorbis import _split_xiph
+    from .io.formats.ogg import _opus_packet_duration
+    pkts = st["packets"]
+    if st["codec_id"] == "opus":
+        headers = [st["extradata"], OPUS_TAGS]
+        pos, granules = 0, []
+        for p in pkts:
+            pos += _opus_packet_duration(p)
+            granules.append(pos)
+    else:
+        headers = _split_xiph(st["extradata"])
+        tb, rate = st["time_base"], st["sample_rate"]
+        ends = st["pts"][1:] + [2 * st["pts"][-1] - st["pts"][-2]]
+        granules = [t * tb.num * rate // tb.den for t in ends]
+    return ogg_stream(headers, pkts, granules, page_bytes=page_bytes,
+                      eos_granule=eos_granule)
+
+
+# --- the CLI's containers: chip_smoke.py's phase 27 --------------------------
+
+# the Ogg files of phase 27's command (j): every Vorbis and CELT stream of
+# AUDIO_CODECS, one SILK and one hybrid
+CLI_OGG_STREAMS = VORBIS_STREAM_NAMES + CELT_STREAM_NAMES + (
+    "silk_cfg1_20ms", "hybrid_cfg13")
+# the files phase 27's command (k) probes, in its directory
+CLI_PROBE_FILES = ("out.avi", "out_aac.ts", "out_mpeg2.ts",
+                   "vorbis_sine.ogg")
+
+
+def cli_container_commands(d) -> dict:
+    """Phase 27's command lines, in phase 26's directory `d` and on its
+    outputs: (g) the flagship's MJPEG copied into AVI, and the AVI to
+    224x224 rgb24 as command (a); (h) command (d)'s MPEG-2 Matroska file
+    copied into MPEG-TS, and the TS to framemd5; (i) the ADTS clip copied
+    into MPEG-TS, and the TS to 16 kHz mono float as command (e); (j)
+    each Ogg file of CLI_OGG_STREAMS (write_cli_ogg) to float."""
+    d = str(d)
+    return {
+        "g_avi": ["-i", str(FIXTURE), "-c", "copy", f"{d}/out.avi"],
+        "g_rgb": ["-i", f"{d}/out.avi", "-vf", "scale=224:224",
+                  "-pix_fmt", "rgb24", "-f", "rawvideo",
+                  f"{d}/out_avi.rgb"],
+        "h_ts": ["-i", f"{d}/out_mpeg2.mkv", "-c", "copy",
+                 f"{d}/out_mpeg2.ts"],
+        "h_md5": ["-i", f"{d}/out_mpeg2.ts", "-f", "framemd5",
+                  f"{d}/out_ts.md5"],
+        "i_ts": ["-i", str(AAC_CLIP), "-c", "copy", f"{d}/out_aac.ts"],
+        "i_f32": ["-i", f"{d}/out_aac.ts", "-ar", "16000", "-ac", "1",
+                  "-f", "f32le", f"{d}/out_ts.f32"],
+        **{f"j_{n}": ["-i", f"{d}/{n}.ogg", "-f", "f32le",
+                      f"{d}/{n}.f32"] for n in CLI_OGG_STREAMS},
+    }
+
+
+def write_cli_ogg(d) -> None:
+    """The Ogg files of command (j) in directory `d`, `<name>.ogg`."""
+    for name in CLI_OGG_STREAMS:
+        Path(d, f"{name}.ogg").write_bytes(codec_stream_ogg(
+            codec_stream(name)))
 
 
 # The audio filter chains that chip_smoke.py runs on the card through

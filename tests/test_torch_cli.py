@@ -411,8 +411,8 @@ def test_help_lists_the_ported_formats_and_codecs(capsys):
     assert main([]) == 0
     text = capsys.readouterr().out
     assert text.startswith("usage: fftpu-torch")
-    for line in ("demuxers: aac, ac3, eac3, h264, hevc, image2",
-                 "muxers: adts, crc, f32le, framecrc, framemd5",
+    for line in ("demuxers: aac, ac3, ass, avi, concat, eac3, exr_pipe",
+                 "muxers: adts, ass, avi, crc, dash, f32le, fifo, flv",
                  "pcm_s16le", "rawvideo", "mpeg2video", "scale"):
         assert line in text
 

@@ -911,3 +911,49 @@ def test_cli_vp9_framemd5_on_card_matches_reference(cuda, tmp_path):
     assert main(argv, device=cuda) == 0
     assert (tmp_path / "out_vp9.md5").read_text() == json.loads(
         fx.CLI_GOLDEN.read_text())["b_small_framemd5"]
+
+
+@pytest.mark.parametrize("name", ["vorbis_noise", "celt_sine",
+                                  "hybrid_cfg13"])
+def test_cli_ogg_on_card_matches_golden_and_direct_decode(cuda, tmp_path,
+                                                          name):
+    """Command (j) of chip_smoke.py's phase 27 on one Ogg file: demux,
+    decode on the card, f32le; the reference CLI's sample count and
+    open_decoder's samples on the same packets on the card within the
+    audio bar."""
+    import json
+    from ffmpeg_tpu_torch.cli.ffmpeg import main
+    fx.write_cli_ogg(tmp_path)
+    assert main(fx.cli_container_commands(tmp_path)[f"j_{name}"],
+                device=cuda) == 0
+    st = fx.codec_stream(name)
+    got = np.fromfile(tmp_path / f"{name}.f32", np.float32).reshape(
+        -1, st["channels"]).T
+    assert got.shape[1] == json.loads(fx.CLI_GOLDEN.read_text())[
+        "j_samples"][name]
+    want = np.concatenate([f.audio_data for f in fx.codec_decode(st, cuda)],
+                          1)
+    n = min(got.shape[1], want.shape[1])
+    assert np.abs(got[:, :n] - want[:, :n]).max() <= fx.AUDIO_DECODE_TOL
+    assert fx.snr_db(got[:, :n], want[:, :n]) >= fx.AUDIO_DECODE_MIN_SNR
+
+
+def test_cli_ts_and_avi_remux_and_decode_on_card(cuda, tmp_path):
+    """Commands (g) and (i) of phase 27 at small size: the crafted H.264
+    stream copied into MPEG-TS and the MJPEG fixture's first frames into
+    AVI, each decoded on the card from the new container to framemd5,
+    equal to the same decode from the source file."""
+    from ffmpeg_tpu_torch.cli.ffmpeg import main
+    for src, ext, extra in ((fx.H264_SMALL, "ts", []),
+                            (fx.FIXTURE, "avi", ["-frames:v", "2"])):
+        box = tmp_path / f"o.{ext}"
+        assert main(["-i", str(src), *extra, "-c", "copy", str(box)],
+                    device=cuda) == 0
+        md5 = []
+        for inp in (src, box):
+            out = tmp_path / f"{inp.name}.md5"
+            assert main(["-i", str(inp), "-frames:v", "2", "-f",
+                         "framemd5", str(out)], device=cuda) == 0
+            md5.append([ln.rsplit(",", 1)[1] for ln in out.read_text()
+                        .splitlines() if ln and not ln.startswith("#")])
+        assert md5[0] == md5[1] and len(md5[0]) == 2

@@ -32,10 +32,11 @@ apply_lut3d; then the rest of the audio: the AAC encoder on a seeded
 signal, the Vorbis and Opus decoders (CELT, SILK, hybrid) on the first
 packets of committed streams against the reference's committed PCM, and
 an audio filter chain of audio6; then the CLI and I/O layer: every module
-of cli/, io/ (avio, demux, mux, unported and the 14 format modules) and
-the rawvideo and PCM codecs imported, the crafted VP9 stream through
-main() to framemd5 and the crafted H.264 stream remuxed to Matroska and
-probed; all on the CPU."""
+of cli/, io/ (avio, demux, mux, unported, parsers and the 29 format
+modules) and the rawvideo and PCM codecs imported, the crafted VP9 stream
+through main() to framemd5, the crafted H.264 stream remuxed to
+Matroska and probed and remuxed to MPEG-TS and from it to FLV, and an
+Ogg Opus file decoded; all on the CPU."""
 
 import re
 import subprocess
@@ -296,12 +297,15 @@ import json
 import tempfile
 from pathlib import Path
 for mod in ("cli.ffmpeg", "cli.ffprobe", "cli.sync_queue", "cli.textformat",
-            "io.avio", "io.demux", "io.mux", "io.unported",
+            "io.avio", "io.demux", "io.mux", "io.unported", "io.parsers",
             "codecs.rawvideo", "codecs.pcm",
             *(f"io.formats.{m}" for m in (
                 "y4m", "rawvideo", "wav", "hashenc", "img_mjpeg", "ivf",
                 "h26x", "adts", "mp3raw", "ac3raw", "matroska",
-                "matroskaenc", "mov", "movenc"))):
+                "matroskaenc", "mov", "movenc", "ogg", "mpegts", "avi",
+                "flv", "mlpraw", "webpfmt", "exrfmt", "srt", "webvtt",
+                "assfmt", "concat_seg", "tee_fifo", "dashenc", "rtp",
+                "rtpenc"))):
     importlib.import_module(f"ffmpeg_tpu_torch.{mod}")
 from ffmpeg_tpu_torch.cli.ffmpeg import main as cli_main
 from ffmpeg_tpu_torch.cli.ffprobe import main as probe_main
@@ -319,6 +323,16 @@ with tempfile.TemporaryDirectory() as tmp:
         assert probe_main(["-show_streams", "-of", "json", f"{tmp}/o.mkv"],
                           device="cpu") == 0
     assert json.loads(buf.getvalue())["streams"][0]["codec_name"] == "h264"
+    from ffmpeg_tpu_torch.testing import codec_stream, codec_stream_ogg
+    cst = codec_stream("celt_mono")
+    Path(tmp, "c.ogg").write_bytes(codec_stream_ogg(cst))
+    assert cli_main(["-i", f"{tmp}/c.ogg", "-f", "f32le", f"{tmp}/c.f32"],
+                    device="cpu") == 0
+    assert Path(tmp, "c.f32").stat().st_size == 4 * 23880
+    assert cli_main(["-i", str(H264_SMALL), "-c", "copy", f"{tmp}/o.ts"],
+                    device="cpu") == 0
+    assert cli_main(["-i", f"{tmp}/o.ts", "-c", "copy", f"{tmp}/o.flv"],
+                    device="cpu") == 0
 assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")

@@ -1,6 +1,8 @@
 """The port's I/O layer (ffmpeg_tpu_torch/io/: avio, demux, mux and the
-14 format modules of io/formats/, with codecs/rawvideo.py and pcm.py)
-against the reference's, on the CPU.
+14 format modules of io/formats/ that came with the CLI, with
+codecs/rawvideo.py and pcm.py) against the reference's, on the CPU
+(test_torch_io_containers.py and test_torch_io_streaming.py hold the
+later ones).
 
 - Each module is the reference's code: its top-level statements equal the
   reference's as syntax trees, but for those named here, which the tests
@@ -13,8 +15,8 @@ against the reference's, on the CPU.
   stream index, position, side data) on the files the reference's muxers
   wrote and on the committed fixtures; seeking lands on the same packets.
 - probe_format picks the reference's demuxer wherever that one is
-  ported, and nothing on an MPEG-TS or Ogg file, which only unported
-  demuxers claim: open_input raises DemuxerNotFound there.
+  ported, and nothing on a GIF file or an HLS playlist, which only
+  unported demuxers claim: open_input raises DemuxerNotFound there.
 - The port's older readers io/adts.py, io/ivf.py and io/mjpeg.py give the
   packets of the new demuxers.
 """
@@ -24,24 +26,19 @@ import copy
 import numpy as np
 import pytest
 
-from ffmpeg_tpu.core.packet import Packet as RefPacket
-from ffmpeg_tpu.formats.channel_layout import default_layout as ref_layout
 from ffmpeg_tpu.io import open_input as ref_open_input
 from ffmpeg_tpu.io import open_output as ref_open_output
 from ffmpeg_tpu.io import probe_format as ref_probe
-from ffmpeg_tpu.io.stream import CodecParameters as RefPar
-from ffmpeg_tpu.io.stream import MediaType as RefType
-from ffmpeg_tpu.utils.rational import Rational as RefRational
 from ffmpeg_tpu_torch.io import (avio, demuxer_names, muxer_names,
                                  open_input, open_output, probe_format)
 from ffmpeg_tpu_torch.io.adts import read_adts
 from ffmpeg_tpu_torch.io.ivf import read_ivf
 from ffmpeg_tpu_torch.io.mjpeg import split_packets
-from ffmpeg_tpu_torch.utils.error import (DemuxerNotFound, FFTPUError,
-                                          MuxerNotFound, NotSupported,
+from ffmpeg_tpu_torch.utils.error import (DemuxerNotFound, NotSupported,
                                           ProtocolNotFound)
 
-from torch_io_util import DATA, differing, opus_ogg, plain, to_port
+from torch_io_util import (DATA, SOURCES, assert_same_demux, differing,
+                           mux_with, plain)
 
 FORMATS = ["y4m", "rawvideo", "wav", "hashenc", "img_mjpeg", "ivf", "h26x",
            "adts", "ac3raw", "matroska", "matroskaenc", "mov", "movenc"]
@@ -67,81 +64,6 @@ def test_module_is_the_reference_code_but_where_named(rel):
     assert differing(rel) == CHANGED[rel]
 
 
-# --- the reference's packets, from seeded data and the fixtures -----------
-
-def _raw_video():
-    rng = np.random.default_rng(1)
-    par = RefPar(codec_type=RefType.VIDEO, codec_id="rawvideo", width=64,
-                 height=48, pix_fmt="yuv420p", framerate=RefRational(25, 1))
-    pkts = [RefPacket(data=rng.integers(0, 256, 64 * 48 * 3 // 2,
-                                        np.uint8).tobytes(),
-                      pts=i, dts=i, duration=1, flags=1,
-                      time_base=RefRational(1, 25)) for i in range(3)]
-    return [(par, RefRational(1, 25))], pkts
-
-
-def _pcm(codec_id, fmt, dtype, channels=1):
-    rng = np.random.default_rng(2)
-    par = RefPar(codec_type=RefType.AUDIO, codec_id=codec_id,
-                 sample_rate=8000, sample_fmt=fmt,
-                 ch_layout=ref_layout(channels),
-                 block_align=channels * np.dtype(dtype).itemsize,
-                 bits_per_coded_sample=8 * np.dtype(dtype).itemsize)
-    x = rng.standard_normal((4 * 1000, channels)) * 0.2
-    if dtype == "<i2":
-        x = x * 32767
-    data = x.astype(dtype)
-    pkts = [RefPacket(data=data[k * 1000:(k + 1) * 1000].tobytes(),
-                      pts=1000 * k, dts=1000 * k, duration=1000, flags=1,
-                      time_base=RefRational(1, 8000)) for k in range(4)]
-    return [(par, RefRational(1, 8000))], pkts
-
-
-def _demuxed(path, n=None, **kw):
-    d = ref_open_input(str(path), **kw)
-    pkts = []
-    for p in d.packets():
-        pkts.append(p)
-        if n is not None and len(pkts) == n:
-            break
-    d.close()
-    return [(st.codecpar, st.time_base) for st in d.streams], pkts
-
-
-def _mjpeg():
-    par = RefPar(codec_type=RefType.VIDEO, codec_id="mjpeg", width=1920,
-                 height=1080, pix_fmt="yuvj420p",
-                 framerate=RefRational(25, 1))
-    data = (DATA / "port" / "flagship_1080p_8.mjpeg").read_bytes()
-    a = data.index(b"\xff\xd9") + 2
-    b = data.index(b"\xff\xd9", a) + 2
-    pkts = [RefPacket(data=d, pts=i, dts=i, duration=1, flags=1,
-                      time_base=RefRational(1, 25))
-            for i, d in enumerate((data[:a], data[a:b]))]
-    return [(par, RefRational(1, 25))], pkts
-
-
-def _av():
-    vs, vp = _demuxed(DATA / "port" / "h264_crafted_small.h264")
-    as_, ap = _demuxed(DATA / "bench" / "aac48k.adts", n=12)
-    for p in ap:
-        p.stream_index = 1
-    return vs + as_, sorted(vp + ap, key=lambda p: (
-        p.pts * p.time_base.num / p.time_base.den, p.stream_index))
-
-
-SOURCES = {
-    "rawvideo": _raw_video,
-    "h264": lambda: _demuxed(DATA / "port" / "h264_crafted_small.h264"),
-    "vp9": lambda: _demuxed(DATA / "port" / "vp9_crafted_96x72.ivf"),
-    "aac": lambda: _demuxed(DATA / "bench" / "aac48k.adts", n=20),
-    "pcm_s16le": lambda: _pcm("pcm_s16le", "s16", "<i2"),
-    "pcm_s16le_stereo": lambda: _pcm("pcm_s16le", "s16", "<i2", 2),
-    "pcm_f32le": lambda: _pcm("pcm_f32le", "flt", "<f4"),
-    "mjpeg": _mjpeg,
-    "av": _av,
-}
-
 # (format, file name, source)
 MUXES = [
     ("yuv4mpegpipe", "o.y4m", "rawvideo"), ("rawvideo", "o.yuv", "rawvideo"),
@@ -162,26 +84,6 @@ MUXES = [
 ]
 
 
-def _mux(tmp_path, side, fmt, name, streams, pkts):
-    """Write the packets through one package's muxer; the file's bytes
-    (the files' for image2), or the error's class name."""
-    d = tmp_path / side
-    d.mkdir(exist_ok=True)
-    conv = to_port if side == "port" else copy.deepcopy
-    opener = open_output if side == "port" else ref_open_output
-    try:
-        m = opener(str(d / name), format=fmt)
-        for par, tb in streams:
-            m.add_stream(conv(par), time_base=conv(tb))
-        for p in pkts:
-            m.write_packet(conv(p))
-        m.write_trailer()
-        m.close()
-    except FFTPUError as e:
-        return type(e).__name__
-    return {f.name: f.read_bytes() for f in sorted(d.iterdir())}
-
-
 @pytest.fixture(scope="module")
 def written(tmp_path_factory):
     """Each case of MUXES written by both packages' muxers."""
@@ -189,9 +91,9 @@ def written(tmp_path_factory):
     for fmt, name, src in MUXES:
         streams, pkts = SOURCES[src]()
         tmp = tmp_path_factory.mktemp(f"{fmt}_{src}")
-        out[(fmt, name, src)] = (tmp, _mux(tmp, "ref", fmt, name, streams,
+        out[(fmt, name, src)] = (tmp, mux_with(tmp, "ref", fmt, name, streams,
                                            pkts),
-                                 _mux(tmp, "port", fmt, name, streams,
+                                 mux_with(tmp, "port", fmt, name, streams,
                                       pkts))
     return out
 
@@ -203,26 +105,6 @@ def test_muxer_writes_the_reference_bytes(written, case):
     if case[2] != "vp9" or case[0] != "mov":
         assert isinstance(ref, dict) and ref, ref
         assert all(ref.values()) or case[0] == "null"
-
-
-def _demux_all(opener, url, **kw):
-    d = opener(url, **kw)
-    head = {"name": d.name, "streams": d.streams, "metadata": d.metadata,
-            "chapters": d.chapters, "duration": d.duration,
-            "start_time": d.start_time, "bit_rate": d.bit_rate}
-    pkts = list(d.packets())
-    d.close()
-    return plain(head), plain(pkts)
-
-
-def _assert_same_demux(url, n_min=1, **kw):
-    ref_kw = {k: (RefRational(v.num, v.den) if hasattr(v, "den") else v)
-              for k, v in kw.items()}
-    want = _demux_all(ref_open_input, url, **ref_kw)
-    got = _demux_all(open_input, url, **kw)
-    assert got[0] == want[0]
-    assert len(got[1]) == len(want[1]) >= n_min
-    assert got[1] == want[1]
 
 
 # the reference's outputs of MUXES that a ported demuxer reads, with the
@@ -254,14 +136,14 @@ DEMUX_WRITTEN = [
                          if isinstance(c, tuple) else "")
 def test_demuxer_reads_the_reference_muxers_files(written, case, opts):
     tmp = written[case][0]
-    _assert_same_demux(str(tmp / "ref" / case[1]), **opts)
+    assert_same_demux(str(tmp / "ref" / case[1]), **opts)
 
 
 def test_image2_demuxer_reads_patterns_and_globs(written):
     tmp = written[("image2", "img-%03d.jpg", "mjpeg")][0]
-    _assert_same_demux(str(tmp / "ref" / "img-%03d.jpg"), n_min=2)
-    _assert_same_demux(str(tmp / "ref" / "img-*.jpg"), n_min=2)
-    _assert_same_demux(str(tmp / "ref" / "img-001.jpg"), format="image2")
+    assert_same_demux(str(tmp / "ref" / "img-%03d.jpg"), n_min=2)
+    assert_same_demux(str(tmp / "ref" / "img-*.jpg"), n_min=2)
+    assert_same_demux(str(tmp / "ref" / "img-001.jpg"), format="image2")
 
 
 def _audio_stream_file(tmp_path, name, ext):
@@ -283,12 +165,12 @@ RAW_AUDIO = [("eac3_5_1", "eac3"), ("ac3_stereo", "ac3"),
 
 @pytest.mark.parametrize("rel", FIXTURES)
 def test_demuxer_reads_the_fixtures_as_the_reference(rel):
-    _assert_same_demux(str(DATA / rel))
+    assert_same_demux(str(DATA / rel))
 
 
 @pytest.mark.parametrize("name,ext", RAW_AUDIO)
 def test_raw_audio_demuxers_read_the_committed_streams(tmp_path, name, ext):
-    _assert_same_demux(str(_audio_stream_file(tmp_path, name, ext)), 20)
+    assert_same_demux(str(_audio_stream_file(tmp_path, name, ext)), 20)
 
 
 def test_mpegvideo_and_image_pipe_demuxers(tmp_path):
@@ -303,9 +185,9 @@ def test_mpegvideo_and_image_pipe_demuxers(tmp_path):
         enc.send_frame(f)
         data += enc.receive_packet().data
     (tmp_path / "c.m2v").write_bytes(data)
-    _assert_same_demux(str(tmp_path / "c.m2v"), n_min=3)
+    assert_same_demux(str(tmp_path / "c.m2v"), n_min=3)
     (tmp_path / "i.png").write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(range(40)))
-    _assert_same_demux(str(tmp_path / "i.png"))
+    assert_same_demux(str(tmp_path / "i.png"))
 
 
 def test_id3_tagged_mp3_raises_not_supported(tmp_path):
@@ -402,21 +284,28 @@ def test_unported_claims_score_as_the_reference_probes(k):
             assert claim.probe(head, fn) == ref.probe(head, fn), (name, fn)
 
 
+def test_each_remaining_claim_scores_one_of_the_heads():
+    """CLAIM_HEADS holds a head that each claim left in io/unported.py
+    (FLAC, GIF, HLS, OBU, DTS, the DASH manifest) scores, so the test
+    above compares every claim where it wins."""
+    from ffmpeg_tpu_torch.io.unported import CLAIMS
+    assert set(CLAIMS) == {"flac", "gif", "hls", "obu", "dts", "dash"}
+    for name, claim in CLAIMS.items():
+        assert any(claim.probe(h, "x.bin") > 0 for h in CLAIM_HEADS), name
+
+
 def test_probe_refuses_files_only_unported_demuxers_claim(tmp_path):
-    """An MPEG-TS file written by the reference's muxer and an Ogg Opus
-    file: the reference opens them, the port raises DemuxerNotFound."""
-    streams, pkts = SOURCES["h264"]()
-    ts = tmp_path / "o.ts"
-    m = ref_open_output(str(ts))
-    for par, tb in streams:
-        m.add_stream(par, time_base=tb)
-    for p in pkts:
-        m.write_packet(p)
-    m.write_trailer()
-    m.close()
-    ogg = tmp_path / "o.ogg"
-    ogg.write_bytes(opus_ogg())
-    for path, name in ((ts, "mpegts"), (ogg, "ogg")):
+    """A GIF file and an HLS playlist written by the reference's muxers:
+    the reference opens them, the port raises DemuxerNotFound naming the
+    module to port (io/formats/gif.py waits for codecs/gif.py, hls.py
+    for io/protocols.py)."""
+    from ffmpeg_tpu.cli.ffmpeg import main as ref_main
+    from ffmpeg_tpu_torch.testing import mpeg2_clip, write_y4m
+    y4m = write_y4m(tmp_path / "c.y4m", mpeg2_clip(2, 32, 24))
+    gif, hls = tmp_path / "o.gif", tmp_path / "o.m3u8"
+    assert ref_main(["-i", str(y4m), "-pix_fmt", "rgb24", str(gif)]) == 0
+    assert ref_main(["-i", str(y4m), "-c:v", "mpeg2video", str(hls)]) == 0
+    for path, name in ((gif, "gif"), (hls, "hls")):
         d = ref_open_input(str(path))
         assert d.name == name and list(d.packets())
         d.close()
@@ -428,23 +317,51 @@ def test_probe_refuses_files_only_unported_demuxers_claim(tmp_path):
             with pytest.raises(DemuxerNotFound,
                                match=f"io/formats/{name}.py"):
                 call()
-    with pytest.raises(MuxerNotFound):
-        open_output(str(tmp_path / "x.ts"))
-    with pytest.raises(MuxerNotFound):
-        open_output(str(tmp_path / "x.avi"), format="avi")
-    with pytest.raises(DemuxerNotFound, match="io/formats/rtp.py"):
-        open_input("rtsp://localhost:1/x")
+
+
+def test_ts_and_avi_outputs_and_rtsp_urls_open_as_the_reference(tmp_path):
+    """Once refused while their modules were unported: .ts and -f avi
+    outputs open the reference's muxers, and an rtsp:// URL opens the
+    RTSP demuxer, which fails as the reference's does where no server
+    listens."""
+    for name, fmt, want in (("x.ts", None, "mpegts"),
+                            ("x.avi", "avi", "avi")):
+        for opener, side in ((ref_open_output, "ref"), (open_output,
+                                                         "port")):
+            m = opener(str(tmp_path / f"{side}_{name}"), format=fmt)
+            assert m.name == want
+            m.close()
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    url = f"rtsp://127.0.0.1:{s.getsockname()[1]}/x"
+    errors = []
+    for opener in (ref_open_input, open_input):
+        with pytest.raises(Exception) as e:
+            opener(url, listen_timeout=1.0)
+        errors.append((type(e.value).__name__, str(e.value)))
+    s.close()
+    assert errors[1] == errors[0]
+    assert errors[0][0] == "InvalidData" and "RtspListenDemuxer" in \
+        errors[0][1]
 
 
 def test_registries_hold_the_ported_formats():
     assert demuxer_names() == [
-        "aac", "ac3", "eac3", "h264", "hevc", "image2", "image_pipe", "ivf",
-        "matroska", "mjpeg", "mov", "mp3", "mpegvideo", "rawvideo", "s16le",
-        "vvc", "wav", "yuv4mpegpipe"]
-    assert muxer_names() == [
-        "adts", "crc", "f32le", "framecrc", "framemd5", "hash", "image2",
-        "ivf", "matroska", "md5", "mjpeg", "mov", "null", "rawvideo",
-        "s16le", "wav", "yuv4mpegpipe"]
+        "aac", "ac3", "ass", "avi", "concat", "eac3", "exr_pipe", "flv",
+        "h264", "hevc", "image2", "image_pipe", "ivf", "matroska", "mjpeg",
+        "mlp", "mov", "mp3", "mpegts", "mpegvideo", "ogg", "rawvideo",
+        "rtsp", "s16le", "sdp", "srt", "truehd", "vvc", "wav", "webp_pipe",
+        "webvtt", "yuv4mpegpipe"]
+    # io/formats/rtpenc.py registers "rtp" and "rtsp" when it is
+    # imported, as the reference's does
+    assert [n for n in muxer_names() if n not in ("rtp", "rtsp")] == [
+        "adts", "ass", "avi", "crc", "dash", "f32le", "fifo", "flv",
+        "framecrc", "framemd5", "hash", "image2", "ivf", "matroska", "md5",
+        "mjpeg", "mov", "mpegts", "null", "rawvideo", "s16le", "segment",
+        "srt", "tee", "wav", "webp", "webvtt", "yuv4mpegpipe"]
+    from ffmpeg_tpu_torch.io.formats import rtpenc  # noqa: F401
+    assert {"rtp", "rtsp"} <= set(muxer_names())
 
 
 @pytest.mark.parametrize("url", ["concat:a.y4m|b.y4m", "subfile,,start,0,"

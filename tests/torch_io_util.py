@@ -1,10 +1,15 @@
 """Helpers of the port's I/O and CLI tests (test_torch_io_formats.py,
-test_torch_cli.py): both packages' objects as plain values, reference
-objects carried over into the port's classes, the structural comparison
-of a port module with its reference counterpart, and the seeded inputs
-both packages read."""
+test_torch_io_containers.py, test_torch_io_streaming.py,
+test_torch_cli.py, test_torch_cli_commands.py): both packages' objects
+as plain values, reference objects carried over into the port's
+classes, the structural comparison of a port module with its reference
+counterpart, the seeded inputs both packages read, the reference's
+packets of seeded data and the fixtures (SOURCES), and the two
+packages' muxers and demuxers run side by side (mux_with,
+assert_same_demux)."""
 
 import ast
+import copy
 import dataclasses
 import struct
 from pathlib import Path
@@ -14,12 +19,19 @@ import torch
 
 from ffmpeg_tpu.core.packet import Packet as RefPacket
 from ffmpeg_tpu.formats.channel_layout import ChannelLayout as RefLayout
+from ffmpeg_tpu.formats.channel_layout import default_layout as ref_layout
+from ffmpeg_tpu.io import open_input as ref_open_input
+from ffmpeg_tpu.io import open_output as ref_open_output
 from ffmpeg_tpu.io.stream import CodecParameters as RefPar
+from ffmpeg_tpu.io.stream import MediaType as RefType
 from ffmpeg_tpu.io.stream import StreamInfo as RefStream
+from ffmpeg_tpu.utils.error import FFTPUError as RefError
 from ffmpeg_tpu.utils.rational import Rational as RefRational
 from ffmpeg_tpu_torch.core.packet import Packet
 from ffmpeg_tpu_torch.formats.channel_layout import ChannelLayout
+from ffmpeg_tpu_torch.io import open_input, open_output
 from ffmpeg_tpu_torch.io.stream import CodecParameters, StreamInfo
+from ffmpeg_tpu_torch.utils.error import FFTPUError
 from ffmpeg_tpu_torch.utils.rational import Rational
 
 REPO = Path(__file__).resolve().parent.parent
@@ -117,35 +129,136 @@ def seeded_wav(path, rate=8000, n=4000, channels=1, seed=0) -> Path:
     return Path(path)
 
 
-def _ogg_crc(data: bytes) -> int:
-    crc = 0
-    for b in data:
-        crc ^= b << 24
-        for _ in range(8):
-            crc = (crc << 1) ^ 0x04C11DB7 if crc & 0x80000000 else crc << 1
-            crc &= 0xFFFFFFFF
-    return crc
+# --- the reference's packets, from seeded data and the fixtures -----------
+
+def raw_video_source():
+    """Three seeded 64x48 yuv420p frames as rawvideo packets at 25/s:
+    [(par, time base)], packets (the reference's classes, as every
+    source of SOURCES)."""
+    rng = np.random.default_rng(1)
+    par = RefPar(codec_type=RefType.VIDEO, codec_id="rawvideo", width=64,
+                 height=48, pix_fmt="yuv420p", framerate=RefRational(25, 1))
+    pkts = [RefPacket(data=rng.integers(0, 256, 64 * 48 * 3 // 2,
+                                        np.uint8).tobytes(),
+                      pts=i, dts=i, duration=1, flags=1,
+                      time_base=RefRational(1, 25)) for i in range(3)]
+    return [(par, RefRational(1, 25))], pkts
 
 
-def ogg_page(packet: bytes, serial: int, seq: int, htype: int,
-             granule: int) -> bytes:
-    """One Ogg page (RFC 3533) holding one packet of < 255 bytes."""
-    assert len(packet) < 255
-    hdr = (b"OggS" + bytes([0, htype]) + struct.pack("<qII", granule,
-                                                      serial, seq)
-           + b"\0\0\0\0" + bytes([1, len(packet)]))
-    page = hdr + packet
-    crc = _ogg_crc(page)
-    return page[:22] + struct.pack("<I", crc) + page[26:]
+def pcm_source(codec_id, fmt, dtype, channels=1):
+    """Four packets of 1000 seeded samples at 8 kHz."""
+    rng = np.random.default_rng(2)
+    par = RefPar(codec_type=RefType.AUDIO, codec_id=codec_id,
+                 sample_rate=8000, sample_fmt=fmt,
+                 ch_layout=ref_layout(channels),
+                 block_align=channels * np.dtype(dtype).itemsize,
+                 bits_per_coded_sample=8 * np.dtype(dtype).itemsize)
+    x = rng.standard_normal((4 * 1000, channels)) * 0.2
+    if dtype == "<i2":
+        x = x * 32767
+    data = x.astype(dtype)
+    pkts = [RefPacket(data=data[k * 1000:(k + 1) * 1000].tobytes(),
+                      pts=1000 * k, dts=1000 * k, duration=1000, flags=1,
+                      time_base=RefRational(1, 8000)) for k in range(4)]
+    return [(par, RefRational(1, 8000))], pkts
 
 
-def opus_ogg() -> bytes:
-    """A minimal Ogg Opus file: OpusHead, OpusTags and one silent CELT
-    packet (the reference has no Ogg muxer, so the test writes the
-    pages)."""
-    head = b"OpusHead" + bytes([1, 1]) + struct.pack("<HIhB", 312, 48000,
-                                                      0, 0)
-    tags = b"OpusTags" + struct.pack("<I", 4) + b"test" + \
-        struct.pack("<I", 0)
-    return (ogg_page(head, 7, 0, 2, 0) + ogg_page(tags, 7, 1, 0, 0)
-            + ogg_page(b"\xf8\xff\xfe", 7, 2, 4, 960))
+def demuxed(path, n=None, **kw):
+    """The reference demuxer's streams and its first `n` (all) packets."""
+    d = ref_open_input(str(path), **kw)
+    pkts = []
+    for p in d.packets():
+        pkts.append(p)
+        if n is not None and len(pkts) == n:
+            break
+    d.close()
+    return [(st.codecpar, st.time_base) for st in d.streams], pkts
+
+
+def mjpeg_source():
+    """The flagship fixture's first two 1920x1080 JPEG packets."""
+    par = RefPar(codec_type=RefType.VIDEO, codec_id="mjpeg", width=1920,
+                 height=1080, pix_fmt="yuvj420p",
+                 framerate=RefRational(25, 1))
+    data = (DATA / "port" / "flagship_1080p_8.mjpeg").read_bytes()
+    a = data.index(b"\xff\xd9") + 2
+    b = data.index(b"\xff\xd9", a) + 2
+    pkts = [RefPacket(data=d, pts=i, dts=i, duration=1, flags=1,
+                      time_base=RefRational(1, 25))
+            for i, d in enumerate((data[:a], data[a:b]))]
+    return [(par, RefRational(1, 25))], pkts
+
+
+def av_source():
+    """The small H.264 stream and 12 AAC packets, interleaved by time."""
+    vs, vp = demuxed(DATA / "port" / "h264_crafted_small.h264")
+    as_, ap = demuxed(DATA / "bench" / "aac48k.adts", n=12)
+    for p in ap:
+        p.stream_index = 1
+    return vs + as_, sorted(vp + ap, key=lambda p: (
+        p.pts * p.time_base.num / p.time_base.den, p.stream_index))
+
+
+def mjpeg_pcm_source():
+    """The two JPEG packets and the 8 kHz PCM, interleaved by time."""
+    vs, vp = mjpeg_source()
+    as_, ap = pcm_source("pcm_s16le", "s16", "<i2")
+    for p in ap:
+        p.stream_index = 1
+    return vs + as_, sorted(vp + ap, key=lambda p: (
+        p.pts * p.time_base.num / p.time_base.den, p.stream_index))
+
+
+SOURCES = {
+    "rawvideo": raw_video_source,
+    "h264": lambda: demuxed(DATA / "port" / "h264_crafted_small.h264"),
+    "vp9": lambda: demuxed(DATA / "port" / "vp9_crafted_96x72.ivf"),
+    "aac": lambda: demuxed(DATA / "bench" / "aac48k.adts", n=20),
+    "pcm_s16le": lambda: pcm_source("pcm_s16le", "s16", "<i2"),
+    "pcm_s16le_stereo": lambda: pcm_source("pcm_s16le", "s16", "<i2", 2),
+    "pcm_f32le": lambda: pcm_source("pcm_f32le", "flt", "<f4"),
+    "mjpeg": mjpeg_source,
+    "av": av_source,
+    "mjpeg_pcm": mjpeg_pcm_source,
+}
+
+
+def mux_with(tmp_path, side, fmt, name, streams, pkts, **opts):
+    """Write the packets through one package's muxer (with the muxer's
+    options `opts`); the bytes of each file in its directory (one but for
+    image2, segment, dash and tee), or the error's class name."""
+    d = tmp_path / side
+    d.mkdir(exist_ok=True)
+    conv = to_port if side == "port" else copy.deepcopy
+    opener = open_output if side == "port" else ref_open_output
+    try:
+        m = opener(str(d / name), format=fmt, **opts)
+        for par, tb in streams:
+            m.add_stream(conv(par), time_base=conv(tb))
+        for p in pkts:
+            m.write_packet(conv(p))
+        m.write_trailer()
+        m.close()
+    except (FFTPUError, RefError) as e:
+        return type(e).__name__
+    return {f.name: f.read_bytes() for f in sorted(d.iterdir())}
+
+
+def demux_all(opener, url, **kw):
+    d = opener(url, **kw)
+    head = {"name": d.name, "streams": d.streams, "metadata": d.metadata,
+            "chapters": d.chapters, "duration": d.duration,
+            "start_time": d.start_time, "bit_rate": d.bit_rate}
+    pkts = list(d.packets())
+    d.close()
+    return plain(head), plain(pkts)
+
+
+def assert_same_demux(url, n_min=1, **kw):
+    ref_kw = {k: (RefRational(v.num, v.den) if hasattr(v, "den") else v)
+              for k, v in kw.items()}
+    want = demux_all(ref_open_input, url, **ref_kw)
+    got = demux_all(open_input, url, **kw)
+    assert got[0] == want[0]
+    assert len(got[1]) == len(want[1]) >= n_min
+    assert got[1] == want[1]

@@ -20,7 +20,14 @@ writes tests/data/port/cli_golden.json:
   packets' sizes;
 - `e_max_abs_diff`: command (e)'s float output against the committed
   aac48k_frontend_golden.npz `resampled`, which stays command (e)'s
-  golden (the tool fails if they differ by more than 1e-5).
+  golden (the tool fails if they differ by more than 1e-5);
+- phase 27 (testing.cli_container_commands, in the same directory):
+  `g_avi_sha256` and `i_ts_sha256`, the sha256 of the flagship's MJPEG
+  copied into AVI and of the ADTS clip copied into MPEG-TS; `j_samples`,
+  the samples per channel of each Ogg file's float output (the Ogg files
+  of testing.write_cli_ogg); `k_probe`, `-show_streams -show_packets -of
+  json` of each file of testing.CLI_PROBE_FILES, `out_mpeg2.ts` being the
+  reference's own command (d) copied into MPEG-TS.
 
 The card's machine has no JAX, so the reference's answers are committed.
 About four minutes on the CPU, nearly all of it the reference's H.264
@@ -81,6 +88,25 @@ def probe_text(path: Path) -> str:
     return buf.getvalue()
 
 
+def containers(d: Path, out: dict) -> None:
+    """Phase 27's goldens, in the directory of phase 26's commands (with
+    command (d)'s output there)."""
+    fx.write_cli_ogg(d)
+    cmds = fx.cli_container_commands(d)
+    for name in ("g_avi", "h_ts", "i_ts") + tuple(
+            f"j_{n}" for n in fx.CLI_OGG_STREAMS):
+        assert ref_main(cmds[name]) == 0, name
+    out["g_avi_sha256"] = hashlib.sha256(
+        (d / "out.avi").read_bytes()).hexdigest()
+    out["i_ts_sha256"] = hashlib.sha256(
+        (d / "out_aac.ts").read_bytes()).hexdigest()
+    out["j_samples"] = {
+        n: (d / f"{n}.f32").stat().st_size // 4 // fx.codec_stream(n)[
+            "channels"] for n in fx.CLI_OGG_STREAMS}
+    out["k_probe"] = {f: probe_text(d / f) for f in fx.CLI_PROBE_FILES}
+    print("phase 27 goldens done", flush=True)
+
+
 def main() -> int:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -110,6 +136,7 @@ def main() -> int:
         dm = open_input(str(d / "out_mpeg2.mkv"))
         out["d_packet_bytes"] = [len(p.data) for p in dm.packets()]
         dm.close()
+        containers(d, out)
     fx.CLI_GOLDEN.write_text(json.dumps(out, indent=1, sort_keys=True)
                              + "\n")
     print(f"wrote {fx.CLI_GOLDEN} ({fx.CLI_GOLDEN.stat().st_size} bytes); "
