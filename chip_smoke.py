@@ -66,7 +66,13 @@ Drives the port's paths through their user entry points at full size:
   1080p MJPEG copied into AVI and decoded and scaled from it, the 1080p
   MPEG-2 copied into MPEG-TS and decoded from it, the AAC clip copied
   into MPEG-TS and decoded and resampled from it, and Ogg Vorbis and
-  Opus files (CELT, SILK, hybrid) decoded.
+  Opus files (CELT, SILK, hybrid) decoded;
+- the CLI through the protocols and the host codecs, on the command lines
+  of testing.cli_protocol_commands: the 1080p MJPEG read over HTTP, the
+  AAC clip segmented into HLS, encrypted with AES-128 and read over
+  HTTP, published to and played from an RTMP relay, and encoded to FLAC
+  and back; a GIF decoded to framemd5 and scaled; DTS 5.1, TrueHD, MLP,
+  ADPCM IMA and MS and FLAC streams decoded; a tagged MP3 probed.
 
 Phases, one line each:
 
@@ -339,10 +345,37 @@ Phases, one line each:
    CLI's sample counts; (k) the probe of the AVI, the two TS files and an
    Ogg file equal to the reference's text (the MPEG-2 TS but for the
    packets' sizes and positions).  K1 and K2 launch 0 times.
-Phases 9-16, 18, 20-25 and 27 run PyTorch only: K1 and K2 are not on
+28. the CLI through the protocols and the host codecs on the card, in
+   phase 26's directory and on the outputs of phases 26-27, each command
+   of testing.cli_protocol_commands with the same figures, against a
+   loopback HTTP server of that directory and tests/data
+   (testing.serve_http) and an RTMP relay (testing.rtmp_relay), each in
+   a thread joined at the end: (l) the flagship fixture over HTTP to
+   224x224 rgb24 byte-equal to (a)'s output with (a)'s plane copies;
+   (m) (i)'s MPEG-TS copied into HLS, the playlist and segments and
+   their AES-128 copy (testing.write_hls_aes, made by
+   testing.hls_aes_files in a child process on the CPU that phase 1
+   starts, since CBC encryption takes about 100 s) equal to the
+   reference CLI's (sha256), and the encrypted playlist over HTTP to
+   16 kHz mono
+   f32le byte-equal to (i)'s output; (n) the TS published as FLV to the
+   relay and played back from it to f32le byte-equal to (i)'s output,
+   with the reference's message count; (o) the TS to 16 kHz mono FLAC
+   and back to s16le, byte-equal to the TS's direct s16le (lossless),
+   the file's STREAMINFO equal to the reference's; (p) a GIF of
+   testing.gif_clip written by the port's encoder on the CPU, equal to
+   the reference's (sha256), to framemd5 equal to the reference CLI's
+   text with one upload a frame and the rawvideo encoder's plane copies
+   only, and to 224x224 rgb24 byte-equal to open_decoder("gif") +
+   parse_graph on the card; (q) the committed DTS 5.1, TrueHD, MLP,
+   ADPCM IMA and MS WAV and FLAC streams (testing.HOST_CODECS), each
+   decode's sha256 equal to the reference CLI's, and fftpu-probe
+   -show_format -show_chapters of an ID3v2-tagged MP3 equal to the
+   reference's text but for the path.  K1 and K2 launch 0 times.
+Phases 9-16, 18, 20-25, 27 and 28 run PyTorch only: K1 and K2 are not on
 their paths, and each prints their launch counts over its run (0).  K2's
 launches in the JSON line count phases 7, 17 and 26 (d), K1's phases 4
-and 19.  Phases 13-27 print their wall times, and the script its own.
+and 19.  Phases 13-28 print their wall times, and the script its own.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -461,6 +494,7 @@ def main() -> int:
     print(f"phase 1 device: {card} (torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible)",
           flush=True)
+    hls = _hls_aes_start()
 
     # 2. build K1 and K2 from the checkout's sources
     t = time.monotonic()
@@ -578,7 +612,8 @@ def main() -> int:
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         rows26 = phase26_cli(dev, card, Path(tmp))
-        phase27_containers(dev, card, Path(tmp), rows26)
+        rows27 = phase27_containers(dev, card, Path(tmp), rows26)
+        phase28_protocols(dev, card, Path(tmp), rows26, rows27, hls)
     launches += k1_enc
     k2_launches += k2_enc + rows26["d"]["k2"]
     print(f"whole script: {time.monotonic() - T0:.1f} s", flush=True)
@@ -3532,10 +3567,11 @@ def _framemd5s(text: str) -> list:
             if ln and not ln.startswith("#")]
 
 
-def phase27_containers(dev, card, d: Path, rows26: dict) -> None:
+def phase27_containers(dev, card, d: Path, rows26: dict) -> dict:
     """The CLI through the containers of io/formats/avi.py, mpegts.py and
     ogg.py on the card (phase 27 in the module docstring), in phase 26's
-    directory `d`, on its outputs."""
+    directory `d`, on its outputs; returns each command's figures as
+    phase26_cli does."""
     import hashlib
     import json
     import numpy as np
@@ -3662,6 +3698,281 @@ def phase27_containers(dev, card, d: Path, rows26: dict) -> None:
         raise RuntimeError("phase 27 launched K1 or K2, which no command "
                            "here runs")
     print(f"phase 27 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    return rows
+
+
+def _hls_aes_start():
+    """testing.hls_aes_files in a child process on the CPU, in a new
+    temporary directory: phase 28 (m)'s AES-128 HLS files, whose CBC
+    encryption (the port's utils/aes.py, a block at a time: about 100 s)
+    runs beside phases 2-27.  Returns (the child, its directory); at exit
+    the child is killed if it still runs and the directory removed."""
+    import atexit
+    import shutil
+    import tempfile
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_hls_"))
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import sys; from ffmpeg_tpu_torch import "
+         "testing; testing.hls_aes_files(sys.argv[1])", str(d)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        shutil.rmtree(d, ignore_errors=True)
+    atexit.register(stop)
+    return child, d
+
+
+def _hls_aes_result(hls, d: Path) -> float:
+    """Waits for _hls_aes_start's child (600 s at most) and copies its
+    encrypted playlist, segments and key into `d`; returns the seconds
+    waited."""
+    import shutil
+    child, src = hls
+    t = time.monotonic()
+    try:
+        _, err = child.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.communicate()
+        raise
+    if child.returncode != 0:
+        raise RuntimeError(f"phase 28's AES-128 child exited "
+                           f"{child.returncode}: {err[-3000:]}")
+    for f in [*src.glob("aac_enc*"), src / "aac.key"]:
+        shutil.copy(f, d / f.name)
+    return time.monotonic() - t
+
+
+class GifUploads:
+    """Counts the GIF decoder's uploads of a frame to its device
+    (codecs/gif.py upload_rgba) while it is entered."""
+
+    def __enter__(self):
+        from ffmpeg_tpu_torch.codecs import gif
+        self.n, self._mod, self._orig = 0, gif, gif.upload_rgba
+
+        def counted(canvas, device):
+            self.n += 1
+            return self._orig(canvas, device)
+        gif.upload_rgba = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.upload_rgba = self._orig
+
+
+def phase28_protocols(dev, card, d: Path, rows26: dict, rows27: dict,
+                      hls) -> None:
+    """The CLI through the protocols and the host codecs on the card
+    (phase 28 in the module docstring), in phase 26's directory `d`, on
+    the outputs of phases 26-27; `hls` is _hls_aes_start's child, which
+    encrypts command (m)'s HLS files."""
+    import contextlib
+    import hashlib
+    import io
+    import json
+    import threading
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.cli.ffprobe import main as fftpu_probe
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.filters import parse_graph
+    from ffmpeg_tpu_torch.io import open_input
+    from ffmpeg_tpu_torch.io.rtmp import RtmpServer
+    t_phase = time.monotonic()
+    gold = json.loads(fx.CLI_GOLDEN.read_text())
+
+    def sha(path: Path) -> str:
+        return hashlib.sha256(path.read_bytes()).hexdigest()
+
+    srv, srv_thread, base = fx.serve_http(d, fx.DATA.parent)
+    relay, relayed = RtmpServer(), {}
+    relay_thread = None
+    cli = CliRuns(28, dev, card, fx.cli_protocol_commands(
+        d, base, f"rtmp://127.0.0.1:{relay.port}/live/k"))
+    run, report, rows = cli.run, cli.report, cli.rows
+    ts_f32 = (d / "out_ts.f32").read_bytes()
+    secs = len(ts_f32) / 4 / 16000
+    try:
+        # (l) the flagship over HTTP, as command (a)
+        r = run("l", 8)
+        if (d / "out_http.rgb").read_bytes() != (d / "out.rgb").read_bytes():
+            raise RuntimeError("phase 28 (l): differs from phase 26 (a)'s "
+                               "out.rgb")
+        if r["copies"] != rows26["a"]["copies"]:
+            raise RuntimeError(f"phase 28 (l): {r['copies']} plane copies, "
+                               f"phase 26 (a) {rows26['a']['copies']}")
+        report("l", "the 8 frames of 1920x1080 MJPEG over HTTP to 224x224 "
+               "rgb24", "byte-equal to phase 26 (a)'s out.rgb, its plane "
+               f"copies as (a)'s (wall {rows26['a']['wall'] * 1e3:.1f} ms "
+               "there)")
+
+        # (m) the TS into HLS, its AES-128 copy over HTTP
+        run("m_hls")
+        got = {p.name: sha(p) for p in sorted(d.glob("aac*"))
+               if "_enc" not in p.name}
+        if got != gold["m_hls_sha256"]:
+            raise RuntimeError("phase 28 (m_hls): the playlist or segments "
+                               "differ from the reference CLI's (sha256)")
+        report("m_hls", f"(i)'s MPEG-TS copied into HLS, {len(got) - 1} "
+               "segments", "playlist and segments equal to the reference "
+               "CLI's (sha256)")
+        waited = _hls_aes_result(hls, d)
+        got = {p.name: sha(p) for p in sorted(d.glob("aac_enc*"))}
+        got["aac.key"] = sha(d / "aac.key")
+        if got != gold["m_enc_sha256"]:
+            raise RuntimeError("phase 28 (m): the AES-128 playlist or "
+                               "segments differ from the reference's")
+        run("m_f32", secs=secs)
+        if (d / "out_hls.f32").read_bytes() != ts_f32 or not \
+                gold["m_f32_equals_ts"]:
+            raise RuntimeError("phase 28 (m_f32): differs from phase 27 "
+                               "(i)'s out_ts.f32")
+        report("m_f32", f"the AES-128 HLS playlist over HTTP to 16 kHz "
+               f"mono f32le ({secs:.2f} s)", "the encrypted files (made "
+               "beside phases 2-27 by testing.hls_aes_files on the CPU, "
+               f"{waited:.1f} s waited for) equal to the reference's "
+               "(sha256), the output byte-equal to phase 27 (i)'s "
+               f"out_ts.f32 (there {rows27['i_f32']['wall'] * 1e3:.1f} ms),"
+               " as the reference CLI's is")
+
+        # (n) the TS published to an RTMP relay and played from it
+        relay_thread = threading.Thread(target=fx.rtmp_relay,
+                                        args=(relay, relayed, 120.0))
+        relay_thread.start()
+        run("n_pub", secs=secs)
+        run("n_f32", secs=secs)
+        relay_thread.join(30)
+        if relay_thread.is_alive() or "error" in relayed:
+            raise RuntimeError(f"phase 28 (n): the RTMP relay failed: "
+                               f"{relayed.get('error', 'still running')}")
+        n_media = len(relayed["media"])
+        if n_media != gold["n_media"]:
+            raise RuntimeError(f"phase 28 (n_pub): {n_media} messages "
+                               f"relayed, the reference {gold['n_media']}")
+        report("n_pub", "(i)'s MPEG-TS published as FLV to the RTMP "
+               "relay", f"{n_media} messages relayed, as the reference "
+               "CLI's")
+        if (d / "out_rtmp.f32").read_bytes() != ts_f32 or not \
+                gold["n_f32_equals_ts"]:
+            raise RuntimeError("phase 28 (n_f32): differs from phase 27 "
+                               "(i)'s out_ts.f32")
+        report("n_f32", "the RTMP stream played from the relay to 16 kHz "
+               "mono f32le", "byte-equal to phase 27 (i)'s out_ts.f32, as "
+               "the reference CLI's is")
+
+        # (o) FLAC and back, against the direct s16le
+        for name in ("o_flac", "o_s16", "o_direct"):
+            run(name, secs=secs)
+        flac = (d / "out.flac").read_bytes()
+        if (d / "out_flac.s16").read_bytes() != \
+                (d / "out_direct.s16").read_bytes() or not gold["o_lossless"]:
+            raise RuntimeError("phase 28 (o): the FLAC's decode differs "
+                               "from the direct s16le")
+        if flac[:42].hex() != gold["o_streaminfo"]:
+            raise RuntimeError(f"phase 28 (o_flac): STREAMINFO "
+                               f"{fx.flac_streaminfo(flac)} differs from "
+                               f"the reference's")
+        info = fx.flac_streaminfo(flac)
+        report("o_flac", "(i)'s AAC to 16 kHz mono FLAC", f"STREAMINFO "
+               f"equal to the reference's ({info['rate']} Hz, "
+               f"{info['channels']} ch, {info['bits']} bits, MD5 "
+               f"{'unset' if set(info['md5']) == {'0'} else info['md5']}"
+               f" as the reference's encoder leaves it)")
+        report("o_s16", "the FLAC to s16le", "byte-equal to the direct "
+               "s16le below (lossless)")
+        report("o_direct", "(i)'s AAC to 16 kHz mono s16le", "the direct "
+               "path of (o)")
+    finally:
+        relay.close()
+        if relay_thread is not None:
+            relay_thread.join(10)
+        srv.shutdown()
+        srv.server_close()
+        srv_thread.join(10)
+    if srv_thread.is_alive() or (relay_thread is not None
+                                 and relay_thread.is_alive()):
+        raise RuntimeError("phase 28: a server thread did not end")
+
+    # (p) the port's GIF, to framemd5 and to 224x224 rgb24
+    fx.write_cli_gif(d / "clip.gif")
+    if sha(d / "clip.gif") != gold["p_gif_sha256"]:
+        raise RuntimeError("phase 28 (p): clip.gif differs from the "
+                           "reference encoder's (sha256)")
+    n = fx.GIF_FRAMES
+    with GifUploads() as up:
+        r = run("p_md5", n)
+    if (d / "out_gif.md5").read_text() != gold["p_framemd5"]:
+        raise RuntimeError("phase 28 (p_md5): the framemd5 differs from "
+                           "the reference CLI's golden")
+    if up.n != n or r["copies"] != 4 * n:
+        raise RuntimeError(f"phase 28 (p_md5): {up.n} uploads and "
+                           f"{r['copies']} plane copies for {n} frames, "
+                           f"not one upload and the rawvideo encoder's 4 "
+                           f"planes a frame")
+    report("p_md5", f"the port's GIF ({n} frames, {fx.GIF_W}x{fx.GIF_H}, "
+           f"equal to the reference encoder's) to framemd5",
+           f"framemd5 text equal to the reference CLI's golden; {up.n} "
+           f"uploads of rgba planes")
+    r = run("p_rgb", n)
+    dm = open_input(str(d / "clip.gif"))
+    pkts = list(dm.packets())
+    dm.close()
+    t = time.perf_counter()
+    frames = CodecContext.open_decoder(dm.streams[0].codecpar,
+                                       device=dev).decode_all(pkts)
+    out = parse_graph("scale=224:224,format=rgb24", device=dev).run(frames)
+    want = b"".join(f.to_bytes() for f in out)
+    direct_ms = (time.perf_counter() - t) * 1e3
+    if (d / "out_gif.rgb").read_bytes() != want or \
+            len(want) != n * 224 * 224 * 3:
+        raise RuntimeError("phase 28 (p_rgb): differs from the direct "
+                           "path's")
+    if r["copies"] != 3 * n:
+        raise RuntimeError(f"phase 28 (p_rgb): {r['copies']} plane copies, "
+                           f"not the rawvideo encoder's 3 a frame")
+    report("p_rgb", "the GIF to 224x224 rgb24", "byte-equal to open_decoder"
+           "('gif') + parse_graph('scale=224:224,format=rgb24') on the "
+           "card", f" (the direct path {direct_ms:.1f} ms)")
+
+    # (q) the host codecs' streams, and the tagged MP3's probe
+    fx.write_host_codec_streams(d)
+    for name, (ext, _, _, suffix) in fx.HOST_CODEC_STREAMS.items():
+        out = Path(fx.host_codec_command(d, name)[-1])
+        r = run(f"q_{name}")
+        data = out.read_bytes()
+        if hashlib.sha256(data).hexdigest() != fx.host_codec_golden(name):
+            raise RuntimeError(f"phase 28 (q_{name}): the decode differs "
+                               f"from the reference CLI's (sha256)")
+        dm = open_input(str(d / f"{name}.{ext}"))
+        st = dm.streams[0].codecpar
+        dm.close()
+        pcm = len(data) - (44 if suffix == "wav" else 0)
+        r["secs"] = pcm / (st.sample_rate * st.channels * (
+            2 if suffix == "s16" else 4))
+        report(f"q_{name}", f"{(d / f'{name}.{ext}').stat().st_size} "
+               f"bytes of {st.codec_id}, {st.channels} ch",
+               f"{len(data)} bytes, sha256 equal to the reference CLI's")
+    mp3 = d / fx.PROBE_MP3
+    mp3.write_bytes(fx.tagged_mp3())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fftpu_probe([*fx.PROBE_MP3_ARGS, str(mp3)], device=dev)
+    if rc != 0 or buf.getvalue().replace(str(mp3), "{path}") != \
+            gold["q_probe"]:
+        raise RuntimeError("phase 28 (q): the probe of the tagged MP3 "
+                           "differs from the reference's")
+    print(f"phase 28 (q) [{card}]: fftpu-probe "
+          f"{' '.join(fx.PROBE_MP3_ARGS)} of an ID3v2.4-tagged MP3 (text "
+          f"frames, TXXX, COMM, two chapters, APIC) equal to the "
+          f"reference's text but for the path", flush=True)
+    if any(r["k1"] or r["k2"] for r in rows.values()):
+        raise RuntimeError("phase 28 launched K1 or K2, which no command "
+                           "here runs")
+    print(f"phase 28 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
 
 

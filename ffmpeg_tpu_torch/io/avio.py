@@ -4,10 +4,7 @@ integer read/write helpers every (de)muxer uses. Protocol resolution
 mirrors url_find_protocol (avio.c:317): scheme prefix → backend.
 
 The port's copy of ffmpeg_tpu/io/avio.py, held equal to it by
-tests/test_torch_io_formats.py.  The nested protocols (concat:, subfile,,
-cache:, async:) and the network schemes (scheme://) live in the
-reference's io/protocols.py, which the port has not copied yet: their
-URLs raise ProtocolNotFound naming it.
+tests/test_torch_io_formats.py.
 """
 
 from __future__ import annotations
@@ -202,12 +199,16 @@ def open_read(url) -> Reader:
         return Reader(os.fdopen(fd, "rb"))
     if s.startswith("file:"):
         s = s[5:]
-    elif s.startswith(("concat:", "subfile,", "cache:", "async:")) \
-            or "://" in s:
-        # the nested protocols and the scheme:// URLs open here
-        # (io/protocols.py open_nested, open_url) once that module is
-        # ported
-        raise _no_protocols(url)
+    elif s.startswith(("concat:", "subfile,", "cache:", "async:")):
+        from .protocols import open_nested
+        f = open_nested(s)
+        return Reader(f, size=getattr(f, "size", None))
+    elif "://" in s:
+        from .protocols import open_url
+        f = open_url(s)
+        if f is None:
+            raise ProtocolNotFound(f"protocol of {url!r} not supported yet")
+        return Reader(f, size=getattr(f, "size", None))
     f = open(s, "rb")
     return Reader(f, size=os.fstat(f.fileno()).st_size)
 
@@ -223,13 +224,9 @@ def open_write(url) -> Writer:
     if s.startswith("file:"):
         s = s[5:]
     elif "://" in s:
-        # scheme:// outputs open here (io/protocols.py open_url_write)
-        # once that module is ported
-        raise _no_protocols(url)
+        from .protocols import open_url_write
+        f = open_url_write(s)
+        if f is None:
+            raise ProtocolNotFound(f"protocol of {url!r} not supported yet")
+        return Writer(f, owns=True)
     return Writer(open(s, "wb"))
-
-
-def _no_protocols(url) -> ProtocolNotFound:
-    return ProtocolNotFound(
-        f"protocol of {url!r} not supported yet: its module, "
-        f"io/protocols.py, is not ported")

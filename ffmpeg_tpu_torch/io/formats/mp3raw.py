@@ -3,15 +3,14 @@ sync/probe core; ID3v2 skipping). Splits the byte stream into frame
 packets using header frame sizes.
 
 The port's copy of ffmpeg_tpu/io/formats/mp3raw.py, held equal to it by
-tests/test_torch_io_formats.py.  A file that starts with an ID3v2 tag
-raises NotSupported: the tag's parser, io/id3v2.py, is not ported.
+tests/test_torch_io_formats.py.
 """
 
 from __future__ import annotations
 
 from ...core.packet import Packet, PKT_FLAG_KEY
 from ...formats.channel_layout import default_layout
-from ...utils.error import EndOfStream, InvalidData, NotSupported
+from ...utils.error import EndOfStream, InvalidData
 from ...utils.rational import Rational
 from ..demux import Demuxer, register_demuxer
 from ..stream import CodecParameters, MediaType
@@ -89,10 +88,16 @@ class Mp3Demuxer(Demuxer):
     def read_header(self) -> None:
         head = self.r.peek(10)
         if head[:3] == b"ID3":
-            # the tag's metadata, chapters and pictures are read here
-            # (io/id3v2.py tag_size, parse) once that module is ported
-            raise NotSupported("mp3: an ID3v2 tag needs io/id3v2.py, "
-                               "which is not ported")
+            from .. import id3v2
+            total = id3v2.tag_size(head)
+            tag = self.r.read(total)
+            meta, chapters, pics = id3v2.parse(tag)
+            self.metadata.update(meta)
+            for ch in chapters:
+                self.chapters.append(
+                    (ch.element_id, ch.start_ms, ch.end_ms, ch.metadata))
+            if pics:
+                self.metadata.setdefault("attached_pic_mime", pics[0][0])
         self._resync()
         head = self.r.peek(4)
         fi = _frame_info(int.from_bytes(head[:4], "big"))

@@ -4,8 +4,7 @@ scores, copied from the module named beside it), so that the port's
 probe_format ranks a file as the reference's does.  Where one of these
 wins, the port raises DemuxerNotFound naming the module, where otherwise
 a ported demuxer with a lower score could take a file that is not its
-own.  Left are FLAC, GIF, HLS, AV1's OBU stream, DTS and the DASH
-manifest, each waiting for its codec or protocol module.
+own.  Left is AV1's OBU stream alone, which waits for codecs/av1.py.
 
 REFERENCE_ORDER is the reference's order of registration: ties in score
 go to the first registered, there as here.  (The reference's codecs/av1.py
@@ -40,12 +39,6 @@ def _claim(name: str, module: str, extensions: tuple, probe):
     return type(f"Claim_{name}", (Claim,), {
         "name": name, "module": module, "extensions": extensions,
         "probe": classmethod(probe)})
-
-
-def _sig(name: str, module: str, extensions: tuple, test, score: int):
-    """A claim whose probe scores `score` where `test(head)` holds."""
-    return _claim(name, module, extensions,
-                  lambda cls, head, filename="": score if test(head) else 0)
 
 
 def _obu_types(data: bytes) -> list:
@@ -94,45 +87,6 @@ def _obu_probe(cls, head: bytes, filename: str = "") -> int:
     return 0
 
 
-_DTS_RATES = [0, 8000, 16000, 32000, 0, 0, 11025, 22050, 44100, 0, 0,
-              12000, 24000, 48000, 96000, 192000]
-
-
-def _dts_frame_size(head: bytes):
-    """io/formats/dtsraw.py _frame_info's frame size, or None."""
-    if len(head) < 10 or head[:4] != b"\x7f\xfe\x80\x01":
-        return None
-    v = int.from_bytes(head[4:10], "big")
-    npcmblocks = ((v >> 34) & 0x7F) + 1
-    frame_size = ((v >> 20) & 0x3FFF) + 1
-    audio_mode = (v >> 14) & 0x3F
-    if frame_size < 96 or npcmblocks & 7 or audio_mode >= 16:
-        return None
-    if not _DTS_RATES[(v >> 10) & 0xF]:
-        return None
-    return frame_size
-
-
-def _dts_probe(cls, head: bytes, filename: str = "") -> int:
-    good = i = 0
-    while i + 11 <= len(head) and good < 4:
-        size = _dts_frame_size(head[i:i + 11])
-        if size is None:
-            break
-        good += 1
-        i += size
-    return 55 if good >= 3 else (25 if good == 2 else 0)
-
-
 CLAIMS = {c.name: c for c in (
-    _sig("flac", "io/formats/flac.py", ("flac",),
-         lambda h: h[:4] == b"fLaC", 100),
-    _sig("gif", "io/formats/gif.py", ("gif",),
-         lambda h: h[:6] in (b"GIF87a", b"GIF89a"), 100),
-    _sig("hls", "io/formats/hls.py", ("m3u8", "m3u"),
-         lambda h: h.startswith(b"#EXTM3U"), 100),
     _claim("obu", "codecs/av1.py", ("obu",), _obu_probe),
-    _claim("dts", "io/formats/dtsraw.py", ("dts",), _dts_probe),
-    _sig("dash", "io/formats/dash.py", ("mpd",),
-         lambda h: b"<MPD" in h[:2048], 100),
 )}

@@ -79,7 +79,17 @@ both check the port against the JAX reference's committed answers:
   sha256, sizes, decisions and decode SNR (`aac_encode`, `aac_check`,
   whose tie-aware bar is `aac_decision_check`); and the audio filter
   chains (`AUDIO_CHAINS`, `audio_chain_inputs`, `run_audio_chain`) with
-  the reference's outputs (`audio_chain_host_check`).
+  the reference's outputs (`audio_chain_host_check`);
+- the protocols and host codecs of chip_smoke.py's phase 28: its command
+  lines (`cli_protocol_commands`), a loopback HTTP server
+  (`serve_http`), an RTMP relay (`rtmp_relay`), the AES-128 copy of an
+  HLS playlist (`write_hls_aes`, `hls_aes_files`), the GIF clip and its
+  writer (`gif_clip`, `write_cli_gif`), an ID3v2-tagged MP3
+  (`tagged_mp3` and the tag writers), FLAC's STREAMINFO
+  (`flac_streaminfo`), and the reference binary's DTS, TrueHD, MLP,
+  ADPCM, FLAC and GIF streams with the reference CLI's decodes of them
+  (`HOST_CODECS`, written by tools/gen_torch_host_codecs_fixture.py:
+  `HOST_CODEC_STREAMS`, `host_codec_command`, `host_codec_golden`).
 
 They live here so that each check reads them from the package and not
 from the other.
@@ -1628,3 +1638,320 @@ def run_audio_chain(parse, name: str, inputs: dict,
         out.extend(g.pull("out"))
     return np.concatenate([np.asarray(f.audio_data, np.float32)
                            for f in out], axis=1)
+
+
+# --- protocols and host codecs: chip_smoke.py's phase 28 ---------------------
+
+# the reference binary's streams of the reference's tests/test_dca.py,
+# test_mlp.py, test_adpcm.py, test_flac_png.py and test_ogg.py, and the
+# reference CLI's decode of each (tools/gen_torch_host_codecs_fixture.py)
+HOST_CODECS = DATA / "host_codecs_streams.npz"
+# name → (file suffix, the demuxer the reference test names or None, the
+# output options of its decode, the output's suffix): the raw format its
+# test compares in; TrueHD's s32 samples go into a pcm_s32le WAV, since
+# the reference CLI has no s32le muxer
+HOST_CODEC_STREAMS = {
+    "dts_5_1": ("dts", None, ["-f", "f32le"], "f32"),
+    "truehd_stereo": ("thd", "truehd", ["-c:a", "pcm_s32le", "-f", "wav"],
+                      "wav"),
+    "mlp_stereo": ("mlp", "mlp", ["-f", "s16le"], "s16"),
+    "adpcm_ima_wav": ("wav", None, ["-f", "s16le"], "s16"),
+    "adpcm_ms": ("wav", None, ["-f", "s16le"], "s16"),
+    "flac_stereo": ("flac", None, ["-f", "s16le"], "s16"),
+    "flac_ogg": ("ogg", None, ["-f", "s16le"], "s16"),
+}
+# the GIF the reference binary wrote in tests/test_gif.py
+# test_decode_reference_gif (testsrc2, 96x64, 4 frames), in the same file
+HOST_GIF = "gif_ref"
+# the key of phase 28's AES-128 HLS playlist
+HLS_KEY = bytes(range(0x10, 0x20))
+# command (p)'s GIF: GIF_FRAMES frames of gif_clip at GIF_W x GIF_H
+GIF_FRAMES, GIF_W, GIF_H = 8, 320, 240
+
+
+def host_codec_file(name: str) -> bytes:
+    """A stream of HOST_CODECS (or HOST_GIF) as its file's bytes."""
+    return np.load(HOST_CODECS)[name].tobytes()
+
+
+def host_codec_golden(name: str) -> str:
+    """The sha256 of the reference CLI's decode of stream `name` with its
+    HOST_CODEC_STREAMS output options."""
+    return str(np.load(HOST_CODECS)[f"{name}_ref_sha256"])
+
+
+def write_host_codec_streams(d) -> None:
+    """Each stream of HOST_CODEC_STREAMS as `<name>.<suffix>` in `d`."""
+    z = np.load(HOST_CODECS)
+    for name, (ext, *_) in HOST_CODEC_STREAMS.items():
+        Path(d, f"{name}.{ext}").write_bytes(z[name].tobytes())
+
+
+def _id3_size(v: int) -> bytes:
+    return bytes([(v >> 21) & 0x7F, (v >> 14) & 0x7F, (v >> 7) & 0x7F,
+                  v & 0x7F])
+
+
+def id3_frame(fid: str, payload: bytes, ver: int = 4) -> bytes:
+    """One ID3v2 frame (syncsafe size in v2.4, plain in v2.3)."""
+    size = _id3_size(len(payload)) if ver == 4 else \
+        len(payload).to_bytes(4, "big")
+    return fid.encode() + size + b"\x00\x00" + payload
+
+
+def id3_text(s: str, enc: int = 3) -> bytes:
+    """A text frame's payload: latin-1 (enc 0) or UTF-8 (enc 3)."""
+    return bytes([enc]) + s.encode("latin-1" if enc == 0 else "utf-8")
+
+
+def id3_chapter(elem: str, start: int, end: int, title: str,
+                ver: int = 4) -> bytes:
+    """A CHAP frame's payload with a TIT2 sub-frame."""
+    return (elem.encode() + b"\x00" + start.to_bytes(4, "big")
+            + end.to_bytes(4, "big") + b"\xff" * 8
+            + id3_frame("TIT2", id3_text(title), ver))
+
+
+def id3_tag(frames, ver: int = 4) -> bytes:
+    """An ID3v2.`ver` tag of the given frames."""
+    body = b"".join(frames)
+    return b"ID3" + bytes([ver, 0, 0]) + _id3_size(len(body)) + body
+
+
+def tagged_mp3() -> bytes:
+    """Command (q)'s MP3: an ID3v2.4 tag (text frames, TXXX, COMM, two
+    chapters and an APIC) before AUDIO_STREAMS' crafted MP3 frames."""
+    tag = id3_tag([
+        id3_frame("TIT2", id3_text("Port Song")),
+        id3_frame("TPE1", id3_text("Artist", enc=0)),
+        id3_frame("TALB", id3_text("Album")),
+        id3_frame("TRCK", id3_text("3/12")),
+        id3_frame("TXXX", bytes([3]) + b"mykey\x00myval"),
+        id3_frame("COMM", bytes([3]) + b"eng\x00hello comment"),
+        id3_frame("CHAP", id3_chapter("c0", 0, 500, "Intro")),
+        id3_frame("CHAP", id3_chapter("c1", 500, 1200, "Main part")),
+        id3_frame("APIC", b"\x00image/png\x00\x03cover\x00\x89PNG data"),
+    ])
+    return tag + b"".join(audio_stream("mp3_reservoir")["packets"])
+
+
+def gif_clip(n: int = GIF_FRAMES, w: int = GIF_W, h: int = GIF_H,
+             seed: int = 0) -> np.ndarray:
+    """(n, h, w, 3) uint8 RGB frames for the GIF encoder: moving colour
+    gradients with a seeded texture and a flat box."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    tex = rng.integers(0, 40, (h, w))
+    out = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        out[i, ..., 0] = (xx * 255 // max(w - 1, 1) + 9 * i) % 256
+        out[i, ..., 1] = (yy * 255 // max(h - 1, 1) + tex) % 256
+        out[i, ..., 2] = ((xx + yy + 13 * i) // 2) % 256
+        y0, x0 = (7 * i) % (h // 2), (11 * i) % (w // 2)
+        out[i, y0:y0 + h // 4, x0:x0 + w // 4] = (250, 250, 40)
+    return out
+
+
+def write_cli_gif(path, frames=None) -> Path:
+    """Command (p)'s clip.gif: gif_clip's frames through the port's GIF
+    encoder and muxer on the CPU, at 10 frames/s."""
+    from .codecs import CodecContext
+    from .io import open_output
+    from .io.stream import CodecParameters, MediaType
+    rgb = gif_clip() if frames is None else frames
+    n, h, w, _ = rgb.shape
+    tb = Rational(1, 10)
+    par = CodecParameters(codec_type=MediaType.VIDEO, codec_id="gif",
+                          width=w, height=h, pix_fmt="rgb24",
+                          framerate=Rational(10, 1))
+    enc = CodecContext.open_encoder(par, device="cpu")
+    m = open_output(str(path), format="gif")
+    m.add_stream(par, time_base=tb)
+    frames = [Frame.video(w, h, "rgb24", planes=[rgb[i, ..., c]
+                                                 for c in range(3)],
+                          pts=i, duration=1, time_base=tb)
+              for i in range(n)]
+    for p in encode_all(enc, frames):
+        m.write_packet(p)
+    m.write_trailer()
+    m.close()
+    return Path(path)
+
+
+def write_hls_aes(d, name: str = "aac", key: bytes = HLS_KEY) -> Path:
+    """Command (m)'s encrypted playlist: each segment of `d/<name>.m3u8`
+    (the HLS muxer's) encrypted with AES-128-CBC under `key`, the IV its
+    media sequence number (the HLS default), as `<name>_enc<i>.ts`, the
+    key as `<name>.key`, and the playlist with an #EXT-X-KEY line as
+    `<name>_enc.m3u8`."""
+    from .utils.aes import cbc_encrypt
+    d = Path(d)
+    (d / f"{name}.key").write_bytes(key)
+    out, seq = [], 0
+    for line in (d / f"{name}.m3u8").read_text().splitlines():
+        if line.startswith("#EXT-X-MEDIA-SEQUENCE:"):
+            seq = int(line.split(":")[1])
+        if line and not line.startswith("#"):
+            enc = line.replace(name, f"{name}_enc", 1)
+            (d / enc).write_bytes(cbc_encrypt(
+                key, seq.to_bytes(16, "big"), (d / line).read_bytes()))
+            seq += 1
+            line = enc
+        out.append(line)
+        if line.startswith("#EXT-X-MEDIA-SEQUENCE:"):
+            out.append(f'#EXT-X-KEY:METHOD=AES-128,URI="{name}.key"')
+    p = d / f"{name}_enc.m3u8"
+    p.write_text("\n".join(out) + "\n")
+    return p
+
+
+def hls_aes_files(d) -> None:
+    """Command (m)'s encrypted input made on the CPU in directory `d`, as
+    phases 27 (i) and 28 (m) make its plain files on the card: the ADTS
+    clip copied into MPEG-TS and from it into HLS by the port's CLI, then
+    the AES-128 copy of the HLS files (write_hls_aes: CBC encryption is
+    one block after another, about 100 s for the clip's 2.1 MB on one
+    CPU core)."""
+    from .cli.ffmpeg import main
+    d = str(d)
+    for argv in (cli_container_commands(d)["i_ts"],
+                 cli_protocol_commands(d, "", "")["m_hls"]):
+        if main(argv, device="cpu") != 0:
+            raise RuntimeError(f"fftpu-torch {' '.join(argv)} failed")
+    write_hls_aes(d)
+
+
+def serve_http(*dirs):
+    """A loopback ThreadingHTTPServer on a free port, in a thread, that
+    serves each path from the first of `dirs` that holds it: (server,
+    thread, base URL).  End it with server.shutdown(),
+    server.server_close() and thread.join()."""
+    import http.server
+    import threading
+    import urllib.parse
+    roots = [Path(x) for x in dirs]
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def translate_path(self, path):
+            rel = urllib.parse.unquote(path.split("?")[0]).lstrip("/")
+            for r in roots:
+                if (r / rel).exists():
+                    return str(r / rel)
+            return str(roots[0] / rel)
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    return srv, t, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def rtmp_relay(server, out: dict, timeout: float = 30.0) -> None:
+    """Thread body of command (n): `server` (either package's
+    RtmpServer) takes one publishing client and keeps its media
+    messages, then one playing client and sends them back; out["media"]
+    holds the messages, out["error"] what failed.
+
+    The relay acknowledges no bytes of the publisher: both packages'
+    RtmpClient never read from the socket while they publish, so an
+    acknowledgement (which RtmpServer sends each half window, 1.25 MB)
+    lies unread when the client closes, the client's kernel resets the
+    connection, and the server loses the messages it had not read yet.
+    With the window at its largest the relay sends none."""
+    import socket
+    try:
+        if server.accept(timeout) != "publish":
+            raise AssertionError("rtmp: first client did not publish")
+        server.io.window = 1 << 62
+        media = []
+        while True:
+            m = server.recv_media()
+            if m is None:
+                break
+            media.append(m)
+        out["media"] = media
+        if server.accept(timeout) != "play":
+            raise AssertionError("rtmp: second client did not play")
+        for mtype, ts, payload in media:
+            server.send_media(mtype, ts, payload)
+        # end the session as a server that has sent all: no more writes,
+        # and read what the client still sends until it closes, so that
+        # the close resets nothing the client has not read
+        sock = server.io.sock
+        sock.shutdown(socket.SHUT_WR)
+        while sock.recv(65536):
+            pass
+        sock.close()
+    except Exception as e:      # noqa: BLE001 — reported to the caller
+        out["error"] = e
+
+
+# the file command (q) probes, and its probe's options
+PROBE_MP3 = "tagged.mp3"
+PROBE_MP3_ARGS = ["-show_format", "-show_chapters"]
+
+
+def cli_protocol_commands(d, base: str, rtmp_url: str) -> dict:
+    """Phase 28's command lines, in phase 26's directory `d` and on the
+    outputs of phases 26-27, with `base` the URL of a server of `d` and
+    tests/data (serve_http) and `rtmp_url` an RTMP relay's stream:
+    (l) the flagship over HTTP to 224x224 rgb24, as command (a); (m)
+    phase 27's MPEG-TS AAC copied into HLS, and the AES-128 playlist of
+    its segments (write_hls_aes) over HTTP to 16 kHz mono float, as
+    command (i); (n) the TS published as FLV to the RTMP relay, and
+    played from it to float; (o) the TS to 16 kHz mono FLAC (the raw
+    s16le muxer writes the encoder's fLaC header and frames as they
+    come: the reference has no FLAC muxer), the FLAC to s16le, and the
+    TS to s16le directly; (p) clip.gif (write_cli_gif) to framemd5 and
+    to 224x224 rgb24; (q) each stream of HOST_CODEC_STREAMS
+    (write_host_codec_streams) to its raw format
+    (host_codec_command)."""
+    d = str(d)
+    cmds = {
+        "l": ["-i", f"{base}/port/flagship_1080p_8.mjpeg", "-vf",
+              "scale=224:224", "-pix_fmt", "rgb24", "-f", "rawvideo",
+              f"{d}/out_http.rgb"],
+        "m_hls": ["-i", f"{d}/out_aac.ts", "-c", "copy", "-f", "hls",
+                  f"{d}/aac.m3u8"],
+        "m_f32": ["-i", f"{base}/aac_enc.m3u8", "-ar", "16000", "-ac", "1",
+                  "-f", "f32le", f"{d}/out_hls.f32"],
+        "n_pub": ["-i", f"{d}/out_aac.ts", "-c", "copy", "-f", "flv",
+                  rtmp_url],
+        "n_f32": ["-i", rtmp_url, "-ar", "16000", "-ac", "1", "-f", "f32le",
+                  f"{d}/out_rtmp.f32"],
+        "o_flac": ["-i", f"{d}/out_aac.ts", "-ar", "16000", "-ac", "1",
+                   "-c:a", "flac", "-f", "s16le", f"{d}/out.flac"],
+        "o_s16": ["-i", f"{d}/out.flac", "-f", "s16le",
+                  f"{d}/out_flac.s16"],
+        "o_direct": ["-i", f"{d}/out_aac.ts", "-ar", "16000", "-ac", "1",
+                     "-f", "s16le", f"{d}/out_direct.s16"],
+        "p_md5": ["-i", f"{d}/clip.gif", "-f", "framemd5",
+                  f"{d}/out_gif.md5"],
+        "p_rgb": ["-i", f"{d}/clip.gif", "-vf", "scale=224:224", "-pix_fmt",
+                  "rgb24", "-f", "rawvideo", f"{d}/out_gif.rgb"],
+    }
+    for name in HOST_CODEC_STREAMS:
+        cmds[f"q_{name}"] = host_codec_command(d, name)
+    return cmds
+
+
+def host_codec_command(d, name: str) -> list:
+    """The decode of stream `name` of HOST_CODEC_STREAMS in directory `d`
+    to `d/out_<name>.<suffix>`."""
+    ext, fmt, opts, out = HOST_CODEC_STREAMS[name]
+    return ([] if fmt is None else ["-f", fmt]) + [
+        "-i", f"{d}/{name}.{ext}", *opts, f"{d}/out_{name}.{out}"]
+
+
+def flac_streaminfo(data: bytes) -> dict:
+    """A FLAC file's STREAMINFO fields: rate, channels, bits, total
+    samples and MD5 (hex)."""
+    if data[:4] != b"fLaC" or data[4] & 0x7F != 0:
+        raise AssertionError("not a FLAC file with STREAMINFO first")
+    si = data[8:8 + 34]
+    v = int.from_bytes(si[10:18], "big")
+    return {"rate": v >> 44, "channels": ((v >> 41) & 7) + 1,
+            "bits": ((v >> 36) & 31) + 1, "samples": v & ((1 << 36) - 1),
+            "md5": si[18:34].hex()}

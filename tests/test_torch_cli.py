@@ -411,7 +411,7 @@ def test_help_lists_the_ported_formats_and_codecs(capsys):
     assert main([]) == 0
     text = capsys.readouterr().out
     assert text.startswith("usage: fftpu-torch")
-    for line in ("demuxers: aac, ac3, ass, avi, concat, eac3, exr_pipe",
+    for line in ("demuxers: aac, ac3, ass, avi, concat, dash, dts, eac3",
                  "muxers: adts, ass, avi, crc, dash, f32le, fifo, flv",
                  "pcm_s16le", "rawvideo", "mpeg2video", "scale"):
         assert line in text

@@ -20,7 +20,10 @@ and decisions, the Vorbis and Opus streams against the CPU and the
 reference's committed PCM, and chip_smoke.py phase 25's audio filter
 chains against the CPU and the committed golden; and the CLI
 (ffmpeg_tpu_torch.cli.ffmpeg.main on the card) on phase 26's command (b)
-at the crafted VP9 stream against the reference CLI's committed text.
+at the crafted VP9 stream against the reference CLI's committed text;
+the GIF decoder's planes on the card against the CPU decode, and
+chip_smoke.py phase 28's command (l) (the flagship over loopback HTTP)
+against the same command from the file.
 Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
@@ -957,3 +960,44 @@ def test_cli_ts_and_avi_remux_and_decode_on_card(cuda, tmp_path):
             md5.append([ln.rsplit(",", 1)[1] for ln in out.read_text()
                         .splitlines() if ln and not ln.startswith("#")])
         assert md5[0] == md5[1] and len(md5[0]) == 2
+
+
+def test_gif_decode_on_card_matches_cpu(cuda):
+    """The committed GIF of the reference binary (testing.HOST_GIF)
+    through open_decoder("gif") on the card: rgba planes on the card,
+    equal to the CPU decode."""
+    import io
+    from ffmpeg_tpu_torch.io import open_input
+    data = fx.host_codec_file(fx.HOST_GIF)
+    out = []
+    for dev in (cuda, "cpu"):
+        d = open_input(io.BytesIO(data))
+        ctx = CodecContext.open_decoder(d.streams[0].codecpar, device=dev)
+        out.append(ctx.decode_all(list(d.packets())))
+    assert len(out[0]) == len(out[1]) == 4
+    for g, w in zip(*out):
+        assert all(p.device.type == "cuda" for p in g.planes)
+        for a, b in zip(g.planes, w.planes):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_cli_over_http_on_card_matches_the_file(cuda, tmp_path):
+    """Command (l) of chip_smoke.py's phase 28 at two frames: the
+    flagship fixture read over a loopback HTTP server and scaled on the
+    card, byte-equal to the same command on the file."""
+    from ffmpeg_tpu_torch.cli.ffmpeg import main
+    srv, th, base = fx.serve_http(fx.DATA.parent)
+    try:
+        outs = []
+        for i, src in enumerate((f"{base}/port/{fx.FIXTURE.name}",
+                                 str(fx.FIXTURE))):
+            out = tmp_path / f"o{i}.rgb"
+            assert main(["-i", src, "-frames:v", "2", "-vf", "scale=224:224",
+                         "-pix_fmt", "rgb24", "-f", "rawvideo", str(out)],
+                        device=cuda) == 0
+            outs.append(out.read_bytes())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(10)
+    assert outs[0] == outs[1] and len(outs[0]) == 2 * 224 * 224 * 3

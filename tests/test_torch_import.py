@@ -32,11 +32,15 @@ apply_lut3d; then the rest of the audio: the AAC encoder on a seeded
 signal, the Vorbis and Opus decoders (CELT, SILK, hybrid) on the first
 packets of committed streams against the reference's committed PCM, and
 an audio filter chain of audio6; then the CLI and I/O layer: every module
-of cli/, io/ (avio, demux, mux, unported, parsers and the 29 format
-modules) and the rawvideo and PCM codecs imported, the crafted VP9 stream
-through main() to framemd5, the crafted H.264 stream remuxed to
+of cli/, io/ (avio, demux, mux, unported, parsers, id3v2, rtmp,
+protocols and the 35 format modules), utils/aes.py and the rawvideo,
+PCM, FLAC, GIF, DCA, MLP and ADPCM codecs imported, the crafted VP9
+stream through main() to framemd5, the crafted H.264 stream remuxed to
 Matroska and probed and remuxed to MPEG-TS and from it to FLV, and an
-Ogg Opus file decoded; all on the CPU."""
+Ogg Opus file decoded; then the protocols and host codecs: the AAC clip's
+TS into HLS, encrypted with AES-128 and read back over a loopback HTTP
+server, and each committed stream of testing.HOST_CODECS decoded by
+main() to the reference CLI's sha256; all on the CPU."""
 
 import re
 import subprocess
@@ -298,14 +302,18 @@ import tempfile
 from pathlib import Path
 for mod in ("cli.ffmpeg", "cli.ffprobe", "cli.sync_queue", "cli.textformat",
             "io.avio", "io.demux", "io.mux", "io.unported", "io.parsers",
-            "codecs.rawvideo", "codecs.pcm",
+            "io.id3v2", "io.rtmp", "io.protocols", "utils.aes",
+            "codecs.rawvideo", "codecs.pcm", "codecs.flac",
+            "codecs.flac_enc", "codecs.gif", "codecs.dca_tables",
+            "codecs.dca", "codecs.mlp", "codecs.adpcm_tables",
+            "codecs.adpcm",
             *(f"io.formats.{m}" for m in (
                 "y4m", "rawvideo", "wav", "hashenc", "img_mjpeg", "ivf",
                 "h26x", "adts", "mp3raw", "ac3raw", "matroska",
                 "matroskaenc", "mov", "movenc", "ogg", "mpegts", "avi",
                 "flv", "mlpraw", "webpfmt", "exrfmt", "srt", "webvtt",
                 "assfmt", "concat_seg", "tee_fifo", "dashenc", "rtp",
-                "rtpenc"))):
+                "rtpenc", "flac", "gif", "hls", "dash", "dtsraw"))):
     importlib.import_module(f"ffmpeg_tpu_torch.{mod}")
 from ffmpeg_tpu_torch.cli.ffmpeg import main as cli_main
 from ffmpeg_tpu_torch.cli.ffprobe import main as probe_main
@@ -333,6 +341,33 @@ with tempfile.TemporaryDirectory() as tmp:
                     device="cpu") == 0
     assert cli_main(["-i", f"{tmp}/o.ts", "-c", "copy", f"{tmp}/o.flv"],
                     device="cpu") == 0
+    import hashlib
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.io import open_input
+    d = Path(tmp)
+    assert cli_main(["-i", str(AAC_CLIP), "-c", "copy", "-frames:a", "40",
+                     f"{tmp}/a.ts"], device="cpu") == 0
+    assert cli_main(["-i", f"{tmp}/a.ts", "-c", "copy", "-f", "hls",
+                     f"{tmp}/aac.m3u8"], device="cpu") == 0
+    fx.write_hls_aes(d)
+    srv, th, base = fx.serve_http(d)
+    try:
+        hls = open_input(f"{base}/aac_enc.m3u8")
+        got = [p.data for p in hls.packets()]
+        hls.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(10)
+    ts = open_input(f"{tmp}/a.ts")
+    assert got == [p.data for p in ts.packets()] and len(got) >= 20
+    ts.close()
+    fx.write_host_codec_streams(d)
+    for name in fx.HOST_CODEC_STREAMS:
+        argv = fx.host_codec_command(d, name)
+        assert cli_main(argv, device="cpu") == 0, name
+        assert hashlib.sha256(Path(argv[-1]).read_bytes()).hexdigest() \
+            == fx.host_codec_golden(name), name
 assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
@@ -441,6 +476,24 @@ def test_audio_codecs_fixture_tool_takes_its_answers_from_the_reference():
                      src, re.M)
     assert re.search(r"^\s*from ffmpeg_tpu\.filters import parse_graph",
                      src, re.M)
+
+
+def test_host_codecs_fixture_tool_takes_its_answers_from_the_reference():
+    """tools/gen_torch_host_codecs_fixture.py runs the reference by
+    design, like the tools above: of the port it imports only
+    ffmpeg_tpu_torch.testing (the stream names, paths and commands), its
+    streams are the reference binary's encodes replayed through
+    tests/golden.py by the reference tests' own helpers, and the decodes
+    it hashes are the reference CLI's."""
+    src = (REPO / "tools" / "gen_torch_host_codecs_fixture.py").read_text()
+    port = set(re.findall(r"^\s*(?:from|import)\s+(ffmpeg_tpu_torch[\w.]*)"
+                          r"(?:\s+import\s+(\w+))?", src, re.M))
+    assert port == {("ffmpeg_tpu_torch", "testing")}, port
+    assert re.search(r"^\s*from ffmpeg_tpu\.cli\.ffmpeg import main", src,
+                     re.M)
+    for mod in ("conftest", "refutil", "test_dca", "test_flac_png",
+                "test_ogg"):
+        assert re.search(rf"^import {mod}\b", src, re.M), mod
 
 
 def test_cli_fixture_tool_takes_its_answers_from_the_reference():

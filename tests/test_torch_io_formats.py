@@ -15,8 +15,12 @@ later ones).
   stream index, position, side data) on the files the reference's muxers
   wrote and on the committed fixtures; seeking lands on the same packets.
 - probe_format picks the reference's demuxer wherever that one is
-  ported, and nothing on a GIF file or an HLS playlist, which only
-  unported demuxers claim: open_input raises DemuxerNotFound there.
+  ported, and nothing on an AV1 OBU stream, which only an unported
+  demuxer claims: open_input raises DemuxerNotFound there.  A GIF file
+  and an HLS playlist, once claimed so too, open as the reference's.
+- URLs (concat:, subfile,, cache:, async:, http://) open through
+  io/protocols.py as the reference's, and an ID3v2-tagged MP3 through
+  io/id3v2.py.
 - The port's older readers io/adts.py, io/ivf.py and io/mjpeg.py give the
   packets of the new demuxers.
 """
@@ -34,8 +38,7 @@ from ffmpeg_tpu_torch.io import (avio, demuxer_names, muxer_names,
 from ffmpeg_tpu_torch.io.adts import read_adts
 from ffmpeg_tpu_torch.io.ivf import read_ivf
 from ffmpeg_tpu_torch.io.mjpeg import split_packets
-from ffmpeg_tpu_torch.utils.error import (DemuxerNotFound, NotSupported,
-                                          ProtocolNotFound)
+from ffmpeg_tpu_torch.utils.error import DemuxerNotFound, ProtocolNotFound
 
 from torch_io_util import (DATA, SOURCES, assert_same_demux, differing,
                            mux_with, plain)
@@ -46,11 +49,11 @@ FORMATS = ["y4m", "rawvideo", "wav", "hashenc", "img_mjpeg", "ivf", "h26x",
 # the top-level statements of each port module that differ from the
 # reference's; every other module is the reference's code
 CHANGED = {
-    "io/avio.py": {"open_read", "open_write", "_no_protocols"},
+    "io/avio.py": set(),
     "io/demux.py": {"<imports>", "open_input", "probe_format",
                     "_probe_order", "_unported"},
     "io/mux.py": set(),
-    "io/formats/mp3raw.py": {"<imports>", "Mp3Demuxer"},
+    "io/formats/mp3raw.py": set(),
     "codecs/rawvideo.py": {"<imports>", "RawVideoDecoder",
                            "RawVideoEncoder", "WrappedFrameDecoder"},
     "codecs/pcm.py": {"<imports>", "_make_decoder", "_make_encoder",
@@ -191,14 +194,16 @@ def test_mpegvideo_and_image_pipe_demuxers(tmp_path):
 
 
 def test_id3_tagged_mp3_raises_not_supported(tmp_path):
-    """io/id3v2.py is not ported: a tagged file raises the named error."""
+    """Once refused while io/id3v2.py was unported (NotSupported): a file
+    with an ID3v2 tag (here an empty frame of padding) opens as the
+    reference's, with its packets."""
     z = np.load(DATA / "port" / "audio_streams.npz")
     tag = b"ID3\x04\x00\x00\x00\x00\x00\x0a" + bytes(10)
     p = tmp_path / "t.mp3"
     p.write_bytes(tag + z["mp3_reservoir_data"].tobytes())
     assert ref_open_input(str(p)).name == "mp3"
-    with pytest.raises(NotSupported, match="id3v2"):
-        open_input(str(p))
+    assert open_input(str(p)).name == "mp3"
+    assert_same_demux(str(p), n_min=4)
 
 
 @pytest.mark.parametrize("case,stream,pos", [
@@ -286,19 +291,66 @@ def test_unported_claims_score_as_the_reference_probes(k):
 
 def test_each_remaining_claim_scores_one_of_the_heads():
     """CLAIM_HEADS holds a head that each claim left in io/unported.py
-    (FLAC, GIF, HLS, OBU, DTS, the DASH manifest) scores, so the test
-    above compares every claim where it wins."""
+    (AV1's OBU stream alone) scores, so the test above compares every
+    claim where it wins; the heads of the claims that went (FLAC, GIF,
+    HLS, DTS, the DASH manifest) now go to the ported demuxers, which
+    score them as the reference's (test_probe_picks_the_reference_
+    demuxer_where_ported, test_torch_host_codecs.py)."""
     from ffmpeg_tpu_torch.io.unported import CLAIMS
-    assert set(CLAIMS) == {"flac", "gif", "hls", "obu", "dts", "dash"}
+    assert set(CLAIMS) == {"obu"}
     for name, claim in CLAIMS.items():
         assert any(claim.probe(h, "x.bin") > 0 for h in CLAIM_HEADS), name
 
 
+def _obu_stream(path):
+    """Two temporal units of a crafted 320x180 AV1 stream (the
+    reference's tests/test_av1.py recipe, its own OBU writer)."""
+    from ffmpeg_tpu.codecs.av1 import (
+        Av1FrameHeader, Av1SequenceHeader, INTER_FRAME, KEY_FRAME,
+        OBU_FRAME_HEADER, OBU_SEQUENCE_HEADER, OBU_TEMPORAL_DELIMITER,
+        OBU_TILE_GROUP, wrap_obu, write_frame_header,
+        write_sequence_header)
+    seq = Av1SequenceHeader(max_frame_width=320, max_frame_height=180,
+                            frame_width_bits=10, frame_height_bits=10,
+                            enable_order_hint=1, order_hint_bits=7)
+    heads = [Av1FrameHeader(frame_type=KEY_FRAME, show_frame=1),
+             Av1FrameHeader(frame_type=INTER_FRAME, show_frame=1,
+                            order_hint=1, refresh_frame_flags=1,
+                            ref_frame_idx=[0] * 7)]
+    tus = []
+    for i, h in enumerate(heads):
+        obus = [wrap_obu(OBU_TEMPORAL_DELIMITER, b"")]
+        if i == 0:
+            obus.append(wrap_obu(OBU_SEQUENCE_HEADER,
+                                 write_sequence_header(seq)))
+        obus.append(wrap_obu(OBU_FRAME_HEADER, write_frame_header(h, seq)))
+        obus.append(wrap_obu(OBU_TILE_GROUP, b"\x00" * 8))
+        tus.append(b"".join(obus))
+    path.write_bytes(b"".join(tus))
+    return path
+
+
 def test_probe_refuses_files_only_unported_demuxers_claim(tmp_path):
-    """A GIF file and an HLS playlist written by the reference's muxers:
-    the reference opens them, the port raises DemuxerNotFound naming the
-    module to port (io/formats/gif.py waits for codecs/gif.py, hls.py
-    for io/protocols.py)."""
+    """A crafted AV1 OBU stream: the reference opens it, the port raises
+    DemuxerNotFound naming the module to port (its demuxer lives in
+    codecs/av1.py)."""
+    path = _obu_stream(tmp_path / "t.obu")
+    d = ref_open_input(str(path))
+    assert d.name == "obu" and list(d.packets())
+    d.close()
+    head = path.read_bytes()[:4096]
+    assert ref_probe(head, str(path)).name == "obu"
+    for call in (lambda: probe_format(head, str(path)),
+                 lambda: open_input(str(path)),
+                 lambda: open_input(str(path), format="obu")):
+        with pytest.raises(DemuxerNotFound, match="codecs/av1.py"):
+            call()
+
+
+def test_gif_and_hls_files_once_refused_open_as_the_reference(tmp_path):
+    """A GIF file and an HLS playlist written by the reference's CLI, once
+    refused while io/formats/gif.py and hls.py were unported, open
+    through the port's demuxers to the reference's packets."""
     from ffmpeg_tpu.cli.ffmpeg import main as ref_main
     from ffmpeg_tpu_torch.testing import mpeg2_clip, write_y4m
     y4m = write_y4m(tmp_path / "c.y4m", mpeg2_clip(2, 32, 24))
@@ -306,17 +358,11 @@ def test_probe_refuses_files_only_unported_demuxers_claim(tmp_path):
     assert ref_main(["-i", str(y4m), "-pix_fmt", "rgb24", str(gif)]) == 0
     assert ref_main(["-i", str(y4m), "-c:v", "mpeg2video", str(hls)]) == 0
     for path, name in ((gif, "gif"), (hls, "hls")):
-        d = ref_open_input(str(path))
-        assert d.name == name and list(d.packets())
-        d.close()
         head = path.read_bytes()[:4096]
-        assert ref_probe(head, str(path)).name == name
-        for call in (lambda: probe_format(head, str(path)),
-                     lambda: open_input(str(path)),
-                     lambda: open_input(str(path), format=name)):
-            with pytest.raises(DemuxerNotFound,
-                               match=f"io/formats/{name}.py"):
-                call()
+        assert probe_format(head, str(path)).name == \
+            ref_probe(head, str(path)).name == name
+        assert open_input(str(path)).name == name
+        assert_same_demux(str(path), n_min=2)
 
 
 def test_ts_and_avi_outputs_and_rtsp_urls_open_as_the_reference(tmp_path):
@@ -348,18 +394,20 @@ def test_ts_and_avi_outputs_and_rtsp_urls_open_as_the_reference(tmp_path):
 
 def test_registries_hold_the_ported_formats():
     assert demuxer_names() == [
-        "aac", "ac3", "ass", "avi", "concat", "eac3", "exr_pipe", "flv",
-        "h264", "hevc", "image2", "image_pipe", "ivf", "matroska", "mjpeg",
-        "mlp", "mov", "mp3", "mpegts", "mpegvideo", "ogg", "rawvideo",
-        "rtsp", "s16le", "sdp", "srt", "truehd", "vvc", "wav", "webp_pipe",
-        "webvtt", "yuv4mpegpipe"]
+        "aac", "ac3", "ass", "avi", "concat", "dash", "dts", "eac3",
+        "exr_pipe", "flac", "flv", "gif", "h264", "hevc", "hls", "image2",
+        "image_pipe", "ivf", "matroska", "mjpeg", "mlp", "mov", "mp3",
+        "mpegts", "mpegvideo", "ogg", "rawvideo", "rtsp", "s16le", "sdp",
+        "srt", "truehd", "vvc", "wav", "webp_pipe", "webvtt",
+        "yuv4mpegpipe"]
     # io/formats/rtpenc.py registers "rtp" and "rtsp" when it is
     # imported, as the reference's does
     assert [n for n in muxer_names() if n not in ("rtp", "rtsp")] == [
         "adts", "ass", "avi", "crc", "dash", "f32le", "fifo", "flv",
-        "framecrc", "framemd5", "hash", "image2", "ivf", "matroska", "md5",
-        "mjpeg", "mov", "mpegts", "null", "rawvideo", "s16le", "segment",
-        "srt", "tee", "wav", "webp", "webvtt", "yuv4mpegpipe"]
+        "framecrc", "framemd5", "gif", "hash", "hls", "image2", "ivf",
+        "matroska", "md5", "mjpeg", "mov", "mpegts", "null", "rawvideo",
+        "s16le", "segment", "srt", "tee", "wav", "webp", "webvtt",
+        "yuv4mpegpipe"]
     from ffmpeg_tpu_torch.io.formats import rtpenc  # noqa: F401
     assert {"rtp", "rtsp"} <= set(muxer_names())
 
@@ -367,12 +415,34 @@ def test_registries_hold_the_ported_formats():
 @pytest.mark.parametrize("url", ["concat:a.y4m|b.y4m", "subfile,,start,0,"
                                  "end,10,,:a.y4m", "cache:a.y4m",
                                  "async:a.y4m", "http://localhost:1/a.y4m"])
-def test_unported_protocols_raise_protocol_not_found(url):
-    with pytest.raises(ProtocolNotFound, match="io/protocols.py"):
-        avio.open_read(url)
-    if "://" in url:
-        with pytest.raises(ProtocolNotFound, match="io/protocols.py"):
-            avio.open_write(url)
+def test_unported_protocols_raise_protocol_not_found(url, tmp_path,
+                                                      monkeypatch):
+    """Once refused while io/protocols.py was unported (ProtocolNotFound):
+    the nested URLs read the reference's bytes, and where no server
+    listens both packages raise the same error on read and on write."""
+    from ffmpeg_tpu.io import avio as ref_avio
+    from ffmpeg_tpu_torch.testing import mpeg2_clip, write_y4m
+    monkeypatch.chdir(tmp_path)
+    write_y4m(tmp_path / "a.y4m", mpeg2_clip(2, 32, 24))
+    write_y4m(tmp_path / "b.y4m", mpeg2_clip(1, 32, 24, seed=1))
+    if "://" not in url:
+        got = []
+        for mod in (ref_avio, avio):
+            r = mod.open_read(url)
+            got.append((r.size, r.read(1 << 20)))
+            r.close()
+        assert got[1] == got[0] and got[0][1]
+        return
+    for call in (lambda m: m.open_read(url).read(10),
+                 lambda m: m.open_write(url).write(b"x")):
+        errors = []
+        for mod in (ref_avio, avio):
+            with pytest.raises(Exception) as e:
+                call(mod)
+            errors.append(type(e.value).__name__)
+        assert errors[1] == errors[0]
+    with pytest.raises(ProtocolNotFound):
+        avio.open_read("nosuch://localhost:1/a.y4m")
 
 
 def test_avio_reads_bytes_and_file_objects_as_the_reference(tmp_path):

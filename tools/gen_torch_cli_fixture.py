@@ -27,11 +27,26 @@ writes tests/data/port/cli_golden.json:
   the samples per channel of each Ogg file's float output (the Ogg files
   of testing.write_cli_ogg); `k_probe`, `-show_streams -show_packets -of
   json` of each file of testing.CLI_PROBE_FILES, `out_mpeg2.ts` being the
-  reference's own command (d) copied into MPEG-TS.
+  reference's own command (d) copied into MPEG-TS;
+- phase 28 (testing.cli_protocol_commands, in the same directory, over a
+  loopback HTTP server (testing.serve_http) and the reference's
+  RtmpServer as testing.rtmp_relay): `m_hls_sha256` and `m_enc_sha256`,
+  the sha256 of each file of the HLS muxer's playlist and segments and
+  of the AES-128 copy testing.write_hls_aes makes of them;
+  `m_f32_equals_ts`, `n_f32_equals_ts` and `m_samples`, `n_samples`:
+  whether the HLS and RTMP decodes are byte-equal to command (i)'s, and
+  their samples; `n_media`, the messages the relay took; `o_streaminfo`,
+  the FLAC file's first 42 bytes (its fLaC marker and STREAMINFO), and
+  `o_lossless`, whether its decode is byte-equal to the direct s16le;
+  `p_gif_sha256`, the sha256 of testing.write_cli_gif's file written by
+  the reference's GIF encoder and muxer, and `p_framemd5`, its framemd5
+  text; `q_probe`, fftpu-probe's text of testing.tagged_mp3 with the
+  file's path as "{path}".
 
 The card's machine has no JAX, so the reference's answers are committed.
-About four minutes on the CPU, nearly all of it the reference's H.264
-decode of the 1080p I picture.  Usage:
+About six minutes on the CPU: the reference's H.264 decode of the 1080p
+I picture, and phase 28's AES-128 encryption (CBC, one block after
+another: about 100 s).  Usage:
 
     JAX_PLATFORMS=cpu python tools/gen_torch_cli_fixture.py
 """
@@ -107,6 +122,88 @@ def containers(d: Path, out: dict) -> None:
     print("phase 27 goldens done", flush=True)
 
 
+def write_gif(path: Path) -> None:
+    """testing.write_cli_gif's file, through the reference's GIF encoder
+    and muxer."""
+    from ffmpeg_tpu.codecs import CodecContext
+    from ffmpeg_tpu.utils.error import EndOfStream, TryAgain
+    rgb = fx.gif_clip()
+    n, h, w, _ = rgb.shape
+    tb = Rational(1, 10)
+    par = CodecParameters(codec_type=MediaType.VIDEO, codec_id="gif",
+                          width=w, height=h, pix_fmt="rgb24",
+                          framerate=Rational(10, 1))
+    enc = CodecContext.open_encoder(par)
+    m = open_output(str(path), format="gif")
+    m.add_stream(par, time_base=tb)
+    frames = [Frame.video(w, h, "rgb24", planes=[rgb[i, ..., c]
+                                                 for c in range(3)],
+                          pts=i, duration=1, time_base=tb)
+              for i in range(n)]
+    for f in [*frames, None]:
+        enc.send_frame(f)
+        while True:
+            try:
+                m.write_packet(enc.receive_packet())
+            except (TryAgain, EndOfStream):
+                break
+    m.write_trailer()
+    m.close()
+
+
+def protocols(d: Path, out: dict) -> None:
+    """Phase 28's goldens, in a directory that holds command (i)'s
+    outputs."""
+    import threading
+    from ffmpeg_tpu.io.rtmp import RtmpServer
+
+    def sha(path: Path) -> str:
+        return hashlib.sha256(path.read_bytes()).hexdigest()
+    srv, th, base = fx.serve_http(d, fx.DATA.parent)
+    relay, got = RtmpServer(), {}
+    cmds = fx.cli_protocol_commands(
+        d, base, f"rtmp://127.0.0.1:{relay.port}/live/k")
+    try:
+        assert ref_main(cmds["m_hls"]) == 0
+        out["m_hls_sha256"] = {p.name: sha(p) for p in sorted(
+            d.glob("aac*")) if "_enc" not in p.name}
+        fx.write_hls_aes(d)
+        out["m_enc_sha256"] = {p.name: sha(p) for p in sorted(
+            d.glob("aac_enc*"))}
+        out["m_enc_sha256"]["aac.key"] = sha(d / "aac.key")
+        t = threading.Thread(target=fx.rtmp_relay, args=(relay, got, 60.0))
+        t.start()
+        for name in ("m_f32", "n_pub", "n_f32", "o_flac", "o_s16",
+                     "o_direct", "p_md5"):
+            if name == "p_md5":
+                write_gif(d / "clip.gif")
+            assert ref_main(cmds[name]) == 0, name
+        t.join(30)
+        assert not t.is_alive() and "error" not in got, got.get("error")
+    finally:
+        relay.close()
+        srv.shutdown()
+        srv.server_close()
+        th.join(10)
+    ts = (d / "out_ts.f32").read_bytes()
+    for k, f in (("m", "out_hls.f32"), ("n", "out_rtmp.f32")):
+        out[f"{k}_f32_equals_ts"] = (d / f).read_bytes() == ts
+        out[f"{k}_samples"] = (d / f).stat().st_size // 4
+    out["n_media"] = len(got["media"])
+    out["o_streaminfo"] = (d / "out.flac").read_bytes()[:42].hex()
+    out["o_lossless"] = (d / "out_flac.s16").read_bytes() == \
+        (d / "out_direct.s16").read_bytes()
+    out["p_gif_sha256"] = sha(d / "clip.gif")
+    out["p_framemd5"] = (d / "out_gif.md5").read_text()
+    mp3 = d / fx.PROBE_MP3
+    mp3.write_bytes(fx.tagged_mp3())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert ref_probe([*fx.PROBE_MP3_ARGS, str(mp3)]) == 0
+    out["q_probe"] = buf.getvalue().replace(str(mp3), "{path}")
+    print("phase 28 goldens done", flush=True)
+
+
 def main() -> int:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -137,6 +234,8 @@ def main() -> int:
         out["d_packet_bytes"] = [len(p.data) for p in dm.packets()]
         dm.close()
         containers(d, out)
+        assert ref_main(fx.cli_container_commands(d)["i_f32"]) == 0
+        protocols(d, out)
     fx.CLI_GOLDEN.write_text(json.dumps(out, indent=1, sort_keys=True)
                              + "\n")
     print(f"wrote {fx.CLI_GOLDEN} ({fx.CLI_GOLDEN.stat().st_size} bytes); "
