@@ -72,7 +72,14 @@ Drives the port's paths through their user entry points at full size:
   AAC clip segmented into HLS, encrypted with AES-128 and read over
   HTTP, published to and played from an RTMP relay, and encoded to FLAC
   and back; a GIF decoded to framemd5 and scaled; DTS 5.1, TrueHD, MLP,
-  ADPCM IMA and MS and FLAC streams decoded; a tagged MP3 probed.
+  ADPCM IMA and MS and FLAC streams decoded; a tagged MP3 probed;
+- the CLI through the image codecs, FFV1, VP8 and WebP, on the command
+  lines of testing.image_commands: a 1920x1080 picture to PNG, TIFF, BMP
+  and PPM and back, a 480x270 one to QOI and back, an EXR picture to
+  float planes, a 352x288 clip to FFV1 in Matroska and back, four
+  committed FFV1 streams decoded, a 640x352 VP8 clip to framemd5 and to
+  MPEG-2 with K2 in its motion search, a lossy WebP decoded and a
+  320x180 picture to lossless WebP.
 
 Phases, one line each:
 
@@ -98,7 +105,8 @@ Phases, one line each:
    also give the JAX reference's committed MVs and costs; on a
    1080x1910 plane (neither side a multiple of 16); on fractional
    float32 samples; on a flat plane (all ties); on B=8/R=4 and
-   B=32/R=16 instances, uint8 and float32; K2 timed against its plain
+   B=32/R=16 instances, uint8 and float32; on a 352x640 uint8 plane
+   (phase 29's grid); K2 timed against its plain
    version at 1088x1920, uint8 (the encoder's samples) and float32, each
    beside its bound (its absolute differences over the card's rate for
    them) and its share of that bound;
@@ -372,10 +380,36 @@ Phases, one line each:
    decode's sha256 equal to the reference CLI's, and fftpu-probe
    -show_format -show_chapters of an ID3v2-tagged MP3 equal to the
    reference's text but for the path.  K1 and K2 launch 0 times.
+29. the CLI through the image codecs, FFV1, VP8 and WebP on the card, in
+   phase 26's directory, each command of testing.image_commands on
+   testing.write_image_sources with the same figures and the uploads of
+   a picture to the card (Uploads): (r) a seeded 1920x1080 rgb24
+   picture to PNG, TIFF, BMP and PPM, a 480x270 rgba one to QOI, each
+   file's sha256 equal to the reference CLI's and each decoded back
+   byte-equal to its source, one upload a picture and the encoders' and
+   the rawvideo encoder's plane copies only; (r_exr) the committed
+   480x270 half-float EXR to gbrpf32le, sha256 equal to the reference
+   CLI's; (s) 3 frames of mpeg2_clip at 352x288 to FFV1 in Matroska and
+   the file to framemd5, both equal to the reference CLI's and the md5s
+   the source's, and four committed FFV1 streams to rawvideo with the
+   sha256 of the reference binary's decode; (t) the committed 640x352
+   VP8 clip (a keyframe and three inter frames, loop filter on) to
+   framemd5 equal to the reference CLI's, and to MPEG-2 in Matroska, its
+   packets byte-equal to open_encoder("mpeg2video") on the card on the
+   same decoded frames and within 1% of the reference's sizes, K2
+   launched once per P frame and bit-exact against its plain version on
+   each 352x640 (cur, ref) pair the encoder hands it; (u) the lossy WebP of the clip's keyframe
+   to rawvideo and a seeded 320x180 rgba picture to lossless WebP, both
+   sha256 equal to the reference CLI's, the WebP decoded by
+   open_decoder("webp") on the card to the source's pixels (the
+   reference CLI cannot write that decode: see PERF.md); (v) the probe
+   of four of the outputs equal to the reference's text but for the
+   paths.  K1 launches 0 times.
 Phases 9-16, 18, 20-25, 27 and 28 run PyTorch only: K1 and K2 are not on
 their paths, and each prints their launch counts over its run (0).  K2's
-launches in the JSON line count phases 7, 17 and 26 (d), K1's phases 4
-and 19.  Phases 13-28 print their wall times, and the script its own.
+launches in the JSON line count phases 7, 17, 26 (d) and 29 (t), K1's
+phases 4 and 19.  Phases 13-29 print their wall times, and the script
+its own.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -614,8 +648,10 @@ def main() -> int:
         rows26 = phase26_cli(dev, card, Path(tmp))
         rows27 = phase27_containers(dev, card, Path(tmp), rows26)
         phase28_protocols(dev, card, Path(tmp), rows26, rows27, hls)
+        rows29 = phase29_images(dev, card, Path(tmp))
     launches += k1_enc
-    k2_launches += k2_enc + rows26["d"]["k2"]
+    k2_launches += k2_enc + rows26["d"]["k2"] + rows29["t_m2v"]["k2"]
+    k2["err"] = max(k2["err"], rows29["t_m2v"]["k2_err"])
     print(f"whole script: {time.monotonic() - T0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -658,7 +694,8 @@ def _k2_cases(golden_pair):
             ("1088x1920 u8 B=8 R=4", *u8(1088, 1920), 8, 4),
             ("1088x1920 f32 B=8 R=4", *frac(1088, 1920), 8, 4),
             ("544x960 u8 B=32 R=16", *u8(544, 960), 32, 16),
-            ("544x960 f32 B=32 R=16", *frac(544, 960), 32, 16)]
+            ("544x960 f32 B=32 R=16", *frac(544, 960), 32, 16),
+            ("352x640 u8", *u8(352, 640), 16, 8)]
 
 
 def phase6_k2(dev) -> dict:
@@ -3345,31 +3382,64 @@ def phase25_audio_codecs(dev, card) -> None:
 
 
 
-class PlaneCopies:
-    """Counts the device-to-host copies of frame planes while it is
-    entered: each call of core.frame.host_array on a tensor off the CPU,
-    in every module of the port that holds that function (Frame.numpy and
-    to_bytes, and the encoders that read planes on the host)."""
+class _FrameCalls:
+    """Counts, while it is entered, the calls of the function `name` of
+    core/frame.py that `counts` accepts, in every module of the port
+    that holds that function."""
+
+    name = ""
+
+    def counts(self, *args) -> bool:
+        raise NotImplementedError
 
     def __enter__(self):
-        import torch
         from ffmpeg_tpu_torch.core import frame
-        self.n, self._orig = 0, frame.host_array
+        self.n, self._orig = 0, getattr(frame, self.name)
 
-        def counted(plane):
-            if isinstance(plane, torch.Tensor) and plane.device.type != "cpu":
+        def counted(*args):
+            if self.counts(*args):
                 self.n += 1
-            return self._orig(plane)
+            return self._orig(*args)
         self._mods = [m for name, m in list(sys.modules.items())
                       if name.startswith("ffmpeg_tpu_torch")
-                      and getattr(m, "host_array", None) is self._orig]
+                      and getattr(m, self.name, None) is self._orig]
         for m in self._mods:
-            m.host_array = counted
+            setattr(m, self.name, counted)
         return self
 
     def __exit__(self, *exc):
         for m in self._mods:
-            m.host_array = self._orig
+            setattr(m, self.name, self._orig)
+
+
+class PlaneCopies(_FrameCalls):
+    """Counts the device-to-host copies of frame planes while it is
+    entered: each call of core.frame.host_array on a tensor off the CPU
+    (Frame.numpy and to_bytes, and the encoders that read planes on the
+    host)."""
+
+    name = "host_array"
+
+    def counts(self, plane) -> bool:
+        import torch
+        return isinstance(plane, torch.Tensor) and plane.device.type != "cpu"
+
+
+class Uploads(_FrameCalls):
+    """Counts the uploads of pictures to `dev` while it is entered: each
+    call of core.frame.device_planes (Frame.from_bytes and the decoders)
+    that copies host planes to a device of dev's type."""
+
+    name = "device_planes"
+
+    def __init__(self, dev):
+        import torch
+        self.type = torch.device(dev).type
+
+    def counts(self, planes, device) -> bool:
+        import torch
+        return torch.device(device).type == self.type and any(
+            not isinstance(p, torch.Tensor) for p in planes)
 
 
 class CliRuns:
@@ -3417,16 +3487,17 @@ class CliRuns:
               f"{rate}{direct}; K1/K2 launches {r['k1']}/{r['k2']}; "
               f"{r['copies']} plane copies to the host{per}", flush=True)
 
-    def probe_text(self, path: Path) -> str:
-        """fftpu-probe's text of `path` with testing.CLI_PROBE_ARGS."""
+    def probe_text(self, path: Path, args=None) -> str:
+        """fftpu-probe's text of `path` with `args` (by default
+        testing.CLI_PROBE_ARGS)."""
         import contextlib
         import io
         from ffmpeg_tpu_torch import testing as fx
         from ffmpeg_tpu_torch.cli.ffprobe import main as fftpu_probe
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            rc = fftpu_probe([*fx.CLI_PROBE_ARGS, str(path)],
-                             device=self.dev)
+            rc = fftpu_probe([*(fx.CLI_PROBE_ARGS if args is None
+                                else args), str(path)], device=self.dev)
         if rc != 0:
             raise RuntimeError(f"phase {self.phase}: fftpu-probe of "
                                f"{path.name} returned {rc}")
@@ -3974,6 +4045,218 @@ def phase28_protocols(dev, card, d: Path, rows26: dict, rows27: dict,
                            "here runs")
     print(f"phase 28 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
+
+
+def phase29_images(dev, card, d: Path) -> dict:
+    """The CLI through the image codecs, FFV1, VP8 and WebP on the card
+    (phase 29 in the module docstring), in phase 26's directory `d`;
+    returns each command's figures as phase26_cli does, with its
+    uploads."""
+    import hashlib
+    import json
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.io import open_input
+    from ffmpeg_tpu_torch.ops import me
+    t_phase = time.monotonic()
+    gold = json.loads(fx.CLI_GOLDEN.read_text())
+    fx.write_image_sources(d)
+    cli = CliRuns(29, dev, card, fx.image_commands(d))
+    rows = cli.rows
+
+    def sha(path: Path) -> str:
+        return hashlib.sha256(path.read_bytes()).hexdigest()
+
+    def run(name: str, frames: int, planes: int) -> dict:
+        """Runs `name` and checks one upload a picture and `planes`
+        plane copies to the host a frame (the encoder's)."""
+        with Uploads(dev) as up:
+            r = cli.run(name, frames)
+        r["uploads"] = up.n
+        if up.n != frames or r["copies"] != planes * frames:
+            raise RuntimeError(f"phase 29 ({name}): {up.n} uploads and "
+                               f"{r['copies']} plane copies for {frames} "
+                               f"pictures, not one upload and {planes} "
+                               f"copies a picture")
+        return r
+
+    def report(name: str, what: str, check: str, direct: str = "") -> None:
+        r = rows[name]
+        cli.report(name, what, f"{check}; {r['uploads']} uploads "
+                   f"({r['uploads'] / r['frames']:.2f} a picture)", direct)
+
+    # (r) the image encoders at 1920x1080 (QOI 480x270) and back
+    srcs = {"rgb": (d / "src.rgb").read_bytes(),
+            "rgba": (d / "src.rgba").read_bytes()}
+    for ext, pix, n in [(e, "rgb", 3) for e in fx.IMAGE_ENCODES] + [
+            ("qoi", "rgba", 4)]:
+        size = (f"{fx.IMAGE_W}x{fx.IMAGE_H}" if pix == "rgb"
+                else f"{fx.QOI_W}x{fx.QOI_H}")
+        run(f"r_{ext}", 1, n)
+        if sha(d / f"out.{ext}") != gold["r_sha256"][f"out.{ext}"]:
+            raise RuntimeError(f"phase 29 (r_{ext}): out.{ext} differs "
+                               f"from the reference CLI's (sha256)")
+        report(f"r_{ext}", f"a {size} {pix}{'24' if n == 3 else ''} "
+               f"picture to {ext}", f"{(d / f'out.{ext}').stat().st_size} "
+               f"bytes, sha256 equal to the reference CLI's")
+        back = f"r_{ext}_{pix}" if ext == "qoi" else f"r_{ext}_rgb"
+        run(back, 1, n)
+        out = d / f"out_{ext}.{pix}"
+        if out.read_bytes() != srcs[pix]:
+            raise RuntimeError(f"phase 29 ({back}): the decode differs "
+                               f"from the source")
+        report(back, f"out.{ext} to rawvideo {pix}",
+               "byte-equal to the source (lossless), as the reference "
+               "CLI's")
+
+    # (r_exr) the half-float EXR to float planes
+    run("r_exr", 1, 3)
+    if sha(d / "out_exr.raw") != gold["r_exr_sha256"]:
+        raise RuntimeError("phase 29 (r_exr): differs from the reference "
+                           "CLI's (sha256)")
+    report("r_exr", f"the committed {fx.EXR_W}x{fx.EXR_H} half-float ZIP "
+           "EXR to gbrpf32le", "sha256 equal to the reference CLI's "
+           "(bit-equal float32)")
+
+    # (s) FFV1 in Matroska and back, and the committed streams
+    n = fx.FFV1_FRAMES
+    run("s_enc", n, 3)
+    if sha(d / "out_ffv1.mkv") != gold["s_mkv_sha256"]:
+        raise RuntimeError("phase 29 (s_enc): out_ffv1.mkv differs from "
+                           "the reference CLI's (sha256)")
+    report("s_enc", f"{n} frames of mpeg2_clip at {fx.FFV1_W}x{fx.FFV1_H} "
+           "to FFV1 in Matroska", "file (and so its packets) equal to the "
+           "reference CLI's (sha256)")
+    run("s_md5", n, 3)
+    text = (d / "out_ffv1.md5").read_text()
+    if text != gold["s_framemd5"] or \
+            _framemd5s(text) != fx.image_source_md5s():
+        raise RuntimeError("phase 29 (s_md5): the framemd5 differs from "
+                           "the reference CLI's or from the source's")
+    report("s_md5", "out_ffv1.mkv to framemd5", "text equal to the "
+           "reference CLI's, each md5 the source frame's (lossless)")
+    for name in fx.CLI_FFV1_STREAMS:
+        run(f"s_{name}", 8, 3)
+        got = sha(d / f"out_ffv1_{name}.yuv")
+        if got != fx.image_golden(f"ffv1_{name}") or \
+                got != gold["s_raw_sha256"][name]:
+            raise RuntimeError(f"phase 29 (s_{name}): differs from the "
+                               f"reference binary's decode (sha256)")
+        report(f"s_{name}", f"the committed 112x80 FFV1 {name} stream (8 "
+               "frames) to rawvideo", "sha256 equal to the reference "
+               "binary's and CLI's decode")
+
+    # (t) the VP8 clip to framemd5, and to MPEG-2 with K2
+    run("t_md5", 4, 3)
+    if (d / "out_vp8.md5").read_text() != gold["t_framemd5"]:
+        raise RuntimeError("phase 29 (t_md5): the framemd5 differs from "
+                           "the reference CLI's golden")
+    report("t_md5", f"the committed {fx.VP8_W}x{fx.VP8_H} VP8 clip (a "
+           "keyframe and 3 inter frames, loop filter on) to framemd5",
+           "text equal to the reference CLI's golden")
+    r = run("t_m2v", 4, 3)
+    dm = open_input(str(d / "out_vp8_m2v.mkv"))
+    pk = list(dm.packets())
+    dm.close()
+    got = [p.data for p in pk]
+    n_p = sum(1 for p in pk if not p.flags & 1)
+    if r["k2"] != n_p or n_p < 1:
+        raise RuntimeError(f"phase 29 (t_m2v): K2 launched {r['k2']} "
+                           f"times for {n_p} P frames")
+    par, frames = fx.cli_encoder_input(d / "vp8.ivf", "mpeg2video", dev)
+    pairs, strip = [], me.sad_cost_volume_strip
+
+    def record(cur, ref, block, search):
+        pairs.append((cur, ref, block, search))
+        return strip(cur, ref, block, search)
+    me.sad_cost_volume_strip = record
+    try:
+        t = time.perf_counter()
+        ctx = CodecContext.open_encoder(par, {}, device=dev)
+        want = [p.data for p in fx.encode_all(ctx, frames)]
+        torch.cuda.synchronize()
+        direct_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        me.sad_cost_volume_strip = strip
+    # K2 at this path's shape (352x640 luma, B=16, R=8): each (cur, ref)
+    # the encoder handed it, held against its plain version
+    k2_err = 0.0
+    for cur, ref, block, search in pairs:
+        got_v = me.sad_cost_volume_strip(cur, ref, block, search)
+        want_v = me.sad_cost_volume_strip_plain(cur, ref, block, search)
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, float((got_v - want_v).abs().max()))
+        if not torch.equal(got_v, want_v):
+            raise RuntimeError(f"phase 29 (t_m2v): K2 differs from its "
+                               f"plain version on the encoder's "
+                               f"{tuple(cur.shape)} {cur.dtype} planes, "
+                               f"B={block} R={search}: max |diff| {k2_err}")
+    if len(pairs) != n_p:
+        raise RuntimeError(f"phase 29 (t_m2v): the direct encode searched "
+                           f"{len(pairs)} times for {n_p} P frames")
+    r["k2_err"] = k2_err
+    k2_shape = f"{tuple(pairs[0][0].shape)} {pairs[0][0].dtype}"
+    ref_bytes = gold["t_m2v_packet_bytes"]
+    rel = max(abs(len(a) / b - 1) for a, b in zip(got, ref_bytes))
+    if got != want or len(got) != len(ref_bytes) or rel > 0.01:
+        raise RuntimeError(f"phase 29 (t_m2v): packets "
+                           f"{[len(x) for x in got]} against the direct "
+                           f"encode's {[len(x) for x in want]} and the "
+                           f"reference's {ref_bytes}")
+    report("t_m2v", "the VP8 clip to MPEG-2 in Matroska", f"packets "
+           f"{[len(x) for x in got]} B byte-equal to open_encoder("
+           f"'mpeg2video') on the card on the same decoded frames, within "
+           f"{rel:.3%} of the reference's {ref_bytes}; K2 once per P "
+           f"frame ({n_p}), bit-exact against its plain version on the "
+           f"encoder's {n_p} {k2_shape} pairs (max |diff| {k2_err})",
+           f" (the direct encode {direct_ms:.1f} ms)")
+
+    # (u) the lossy WebP, and lossless WebP of a seeded picture
+    run("u_webp", 1, 3)
+    if sha(d / "out_webp.yuv") != gold["u_webp_sha256"]:
+        raise RuntimeError("phase 29 (u_webp): differs from the reference "
+                           "CLI's (sha256)")
+    report("u_webp", "the lossy WebP of the clip's keyframe to rawvideo",
+           "sha256 equal to the reference CLI's")
+    run("u_ll", 1, 4)
+    if sha(d / "out_ll.webp") != gold["u_ll_sha256"]:
+        raise RuntimeError("phase 29 (u_ll): out_ll.webp differs from the "
+                           "reference CLI's (sha256)")
+    dm = open_input(str(d / "out_ll.webp"))
+    pkts = list(dm.packets())
+    dm.close()
+    with Uploads(dev) as up:
+        f = CodecContext.open_decoder(dm.streams[0].codecpar, device=dev
+                                      ).decode_all(pkts)[0]
+    px = f.planes[0].cpu().numpy().reshape(fx.WEBP_LL_H, fx.WEBP_LL_W, 4)
+    src = np.frombuffer((d / "src_ll.rgba").read_bytes(), np.uint8)
+    if f.planes[0].device.type != torch.device(dev).type or up.n != 1 or \
+            not np.array_equal(px, src.reshape(px.shape)[..., [3, 0, 1, 2]]):
+        raise RuntimeError("phase 29 (u_ll): open_decoder('webp') on the "
+                           "card does not give the source's pixels")
+    report("u_ll", f"a {fx.WEBP_LL_W}x{fx.WEBP_LL_H} rgba picture to "
+           "lossless WebP", "sha256 equal to the reference CLI's; "
+           "open_decoder('webp') on the card gives its pixels back (argb, "
+           "one upload)")
+
+    # (v) the probes
+    for f in fx.IMAGE_PROBE_FILES:
+        text = cli.probe_text(d / f, fx.IMAGE_PROBE_ARGS)
+        if text.replace(str(d / f), "{path}") != gold["v_probe"][f]:
+            raise RuntimeError(f"phase 29 (v): the probe of {f} differs "
+                               f"from the reference's")
+    print(f"phase 29 (v) [{card}]: fftpu-probe "
+          f"{' '.join(fx.IMAGE_PROBE_ARGS)} of "
+          f"{', '.join(fx.IMAGE_PROBE_FILES)} equal to the reference's "
+          f"text but for the paths", flush=True)
+    if any(r["k1"] for r in rows.values()) or any(
+            r["k2"] for k, r in rows.items() if k != "t_m2v"):
+        raise RuntimeError("phase 29 launched K1, or K2 outside (t_m2v)")
+    print(f"phase 29 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    return rows
 
 
 if __name__ == "__main__":

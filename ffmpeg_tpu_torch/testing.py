@@ -1955,3 +1955,175 @@ def flac_streaminfo(data: bytes) -> dict:
     return {"rate": v >> 44, "channels": ((v >> 41) & 7) + 1,
             "bits": ((v >> 36) & 31) + 1, "samples": v & ((1 << 36) - 1),
             "md5": si[18:34].hex()}
+
+
+# --- image codecs, FFV1, VP8 and WebP: chip_smoke.py's phase 29 --------------
+
+# the reference binary's FFV1, TIFF, QOI and PNG files of the reference's
+# tests/test_ffv1.py, test_qoi_tiff.py and test_flac_png.py with the
+# binary's decodes' sha256, EXR files of test_exr.py's writer, the VP8
+# streams crafted by test_vp8.py's and test_vp8_inter.py's helpers, and
+# PGS and mov_text packets (tools/gen_torch_image_codecs_fixture.py)
+IMAGE_CODECS = DATA / "image_codecs_streams.npz"
+# test_ffv1.py test_ffv1_matrix's cases, and three of its high-depth
+# and alpha cases: name → (the file name its test writes, the
+# binary's encoder options)
+IMAGE_FFV1_STREAMS = {
+    "v3-range": ("f.avi", []),
+    "v3-rice": ("f.avi", ["-coder", "-2"]),
+    "v3-custom": ("f.avi", ["-coder", "1"]),
+    "v1-rice": ("f.avi", ["-level", "1"]),
+    "v1-custom": ("f.avi", ["-level", "1", "-coder", "1"]),
+    "context1": ("f.avi", ["-context", "1", "-coder", "1"]),
+    "gop6": ("f.avi", ["-g", "6", "-coder", "1"]),
+    "slices4": ("f.avi", ["-slices", "4", "-coder", "1"]),
+    "444p16-slices": ("hd.avi", ["-pix_fmt", "yuv444p16le", "-coder", "1",
+                                 "-slices", "4"]),
+    "420p10-v1-range": ("hd.avi", ["-pix_fmt", "yuv420p10le", "-level",
+                                   "1", "-coder", "1"]),
+    "yuva444p10le": ("ya.avi", ["-pix_fmt", "yuva444p10le", "-coder", "1",
+                                "-slices", "4"]),
+}
+# phase 29 (s)'s streams of IMAGE_FFV1_STREAMS
+CLI_FFV1_STREAMS = ("v3-range", "v1-rice", "gop6", "slices4")
+# test_qoi_tiff.py's TIFF (pix_fmt, compression) and QOI cases, and
+# test_flac_png.py's PNG pixel formats
+IMAGE_TIFF_CASES = (("rgb24", "raw"), ("rgb24", "packbits"),
+                    ("rgb24", "lzw"), ("rgb24", "deflate"),
+                    ("gray8", "packbits"), ("pal8", "lzw"),
+                    ("yuv420p", "lzw"), ("yuv422p", "packbits"),
+                    ("yuv444p", "raw"), ("rgb48le", "raw"),
+                    ("rgba", "packbits"), ("monob", "raw"))
+IMAGE_QOI_PIX = ("rgb24", "rgba")
+IMAGE_PNG_PIX = ("rgb24", "rgba", "gray", "rgb48be", "gray16be")
+# the EXR picture of command (r_exr), and the VP8 clip of (t) and (u)
+EXR_W, EXR_H = 480, 270
+VP8_W, VP8_H, VP8_CLIP_SEED = 640, 352, 61
+# the cues of the mov_text packets
+MOVTEXT_TEXTS = ("Hello world", "Héllo wörld\nsecond", "")
+
+
+def image_stream(name: str) -> bytes:
+    """A file of IMAGE_CODECS as its bytes."""
+    return np.load(IMAGE_CODECS)[name].tobytes()
+
+
+def image_golden(name: str) -> str:
+    """The sha256 of the reference binary's decode of IMAGE_CODECS'
+    file `name`."""
+    return str(np.load(IMAGE_CODECS)[f"{name}_ref_sha256"])
+
+
+def movtext_packets() -> list:
+    """The fixture's mov_text packets as bytes."""
+    z = np.load(IMAGE_CODECS)
+    data, out, off = z["movtext_packets"].tobytes(), [], 0
+    for n in z["movtext_lengths"].tolist():
+        out.append(data[off:off + n])
+        off += n
+    return out
+
+
+# command (r)'s pictures: IMAGE_W x IMAGE_H rgb24 for PNG, TIFF, BMP and
+# PPM, QOI_W x QOI_H rgba for QOI; (s)'s FFV1_FRAMES frames of
+# mpeg2_clip; (u)'s WEBP_LL_W x WEBP_LL_H rgba for lossless WebP
+IMAGE_W, IMAGE_H = 1920, 1080
+QOI_W, QOI_H = 480, 270
+FFV1_W, FFV1_H, FFV1_FRAMES = 352, 288, 3
+WEBP_LL_W, WEBP_LL_H = 320, 180
+# (r)'s encoders: output suffix → codec
+IMAGE_ENCODES = {"png": "png", "tif": "tiff", "bmp": "bmp", "ppm": "ppm"}
+# (v)'s probe: its options and files
+IMAGE_PROBE_ARGS = ["-show_format", "-show_streams"]
+IMAGE_PROBE_FILES = ("out.png", "out_ffv1.mkv", "vp8.ivf", "out_ll.webp")
+
+
+def image_picture(w: int, h: int, channels: int, seed: int = 0
+                  ) -> np.ndarray:
+    """(h, w, channels) uint8: colour gradients, a seeded texture and a
+    flat box (alpha, where there is one, a gradient with the box
+    opaque)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    tex = rng.integers(0, 24, (h, w))
+    out = np.empty((h, w, channels), np.uint8)
+    out[..., 0] = (xx * 255 // max(w - 1, 1) + tex) % 256
+    out[..., 1] = (yy * 255 // max(h - 1, 1)) % 256
+    out[..., 2] = ((xx + yy) // 3 + tex // 2) % 256
+    if channels == 4:
+        out[..., 3] = (xx * 200 // max(w - 1, 1) + 40) % 256
+    out[h // 3:h // 2, w // 4:w // 2] = 255 if channels == 4 else 250
+    return out
+
+
+def write_image_sources(d) -> None:
+    """Phase 29's inputs in directory `d`: (r) src.rgb and src.rgba
+    (image_picture), (r_exr) clip.exr, (s) ffv1_src.yuv (mpeg2_clip) and
+    ffv1_<case>.avi for each of CLI_FFV1_STREAMS, (t) vp8.ivf, (u)
+    vp8_kf.webp and src_ll.rgba."""
+    d = Path(d)
+    (d / "src.rgb").write_bytes(image_picture(IMAGE_W, IMAGE_H, 3).tobytes())
+    (d / "src.rgba").write_bytes(image_picture(QOI_W, QOI_H, 4,
+                                               seed=1).tobytes())
+    (d / "src_ll.rgba").write_bytes(image_picture(WEBP_LL_W, WEBP_LL_H, 4,
+                                                  seed=2).tobytes())
+    (d / "ffv1_src.yuv").write_bytes(b"".join(
+        f.to_bytes() for f in mpeg2_clip(FFV1_FRAMES, FFV1_W, FFV1_H)))
+    z = np.load(IMAGE_CODECS)
+    (d / "clip.exr").write_bytes(z["exr_clip"].tobytes())
+    for name in CLI_FFV1_STREAMS:
+        (d / f"ffv1_{name}.avi").write_bytes(z[f"ffv1_{name}"].tobytes())
+    (d / "vp8.ivf").write_bytes(z["vp8_clip"].tobytes())
+    (d / "vp8_kf.webp").write_bytes(z["webp_lossy"].tobytes())
+
+
+def image_commands(d) -> dict:
+    """Phase 29's command lines in directory `d` (write_image_sources):
+    (r) src.rgb to each of IMAGE_ENCODES and each file back to rgb24,
+    src.rgba to QOI and back to rgba, (r_exr) clip.exr to rawvideo
+    (gbrpf32le); (s) ffv1_src.yuv to FFV1 in Matroska, that file to
+    framemd5, and each of CLI_FFV1_STREAMS to rawvideo; (t) vp8.ivf to
+    framemd5 and to MPEG-2 in Matroska; (u) vp8_kf.webp to rawvideo and
+    src_ll.rgba to lossless WebP.  The raw inputs take the rawvideo
+    demuxer's -pixel_format and -s (the CLI's -pix_fmt is an output
+    option), and their outputs name their muxer: the CLI keeps an input's
+    -f for the output that follows."""
+    d = str(d)
+
+    def raw_in(name, fmt, w, h):
+        return ["-f", "rawvideo", "-pixel_format", fmt, "-s", f"{w}x{h}",
+                "-i", f"{d}/{name}"]
+    cmds = {}
+    for ext, codec in IMAGE_ENCODES.items():
+        cmds[f"r_{ext}"] = raw_in("src.rgb", "rgb24", IMAGE_W, IMAGE_H) + [
+            "-c:v", codec, "-f", "image2", f"{d}/out.{ext}"]
+        cmds[f"r_{ext}_rgb"] = ["-i", f"{d}/out.{ext}", "-f", "rawvideo",
+                                "-pix_fmt", "rgb24", f"{d}/out_{ext}.rgb"]
+    cmds["r_qoi"] = raw_in("src.rgba", "rgba", QOI_W, QOI_H) + [
+        "-c:v", "qoi", "-f", "image2", f"{d}/out.qoi"]
+    cmds["r_qoi_rgba"] = ["-i", f"{d}/out.qoi", "-f", "rawvideo",
+                          "-pix_fmt", "rgba", f"{d}/out_qoi.rgba"]
+    cmds["r_exr"] = ["-i", f"{d}/clip.exr", "-f", "rawvideo",
+                     f"{d}/out_exr.raw"]
+    cmds["s_enc"] = raw_in("ffv1_src.yuv", "yuv420p", FFV1_W, FFV1_H) + [
+        "-c:v", "ffv1", "-f", "matroska", f"{d}/out_ffv1.mkv"]
+    cmds["s_md5"] = ["-i", f"{d}/out_ffv1.mkv", "-f", "framemd5",
+                     f"{d}/out_ffv1.md5"]
+    for name in CLI_FFV1_STREAMS:
+        cmds[f"s_{name}"] = ["-i", f"{d}/ffv1_{name}.avi", "-f", "rawvideo",
+                             f"{d}/out_ffv1_{name}.yuv"]
+    cmds["t_md5"] = ["-i", f"{d}/vp8.ivf", "-f", "framemd5",
+                     f"{d}/out_vp8.md5"]
+    cmds["t_m2v"] = ["-i", f"{d}/vp8.ivf", "-c:v", "mpeg2video",
+                     f"{d}/out_vp8_m2v.mkv"]
+    cmds["u_webp"] = ["-i", f"{d}/vp8_kf.webp", "-f", "rawvideo",
+                      f"{d}/out_webp.yuv"]
+    cmds["u_ll"] = raw_in("src_ll.rgba", "rgba", WEBP_LL_W, WEBP_LL_H) + [
+        "-c:v", "webp", "-f", "webp", f"{d}/out_ll.webp"]
+    return cmds
+
+
+def image_source_md5s() -> list:
+    """The md5 of each frame of ffv1_src.yuv, as framemd5 writes them."""
+    return [hashlib.md5(f.to_bytes()).hexdigest()
+            for f in mpeg2_clip(FFV1_FRAMES, FFV1_W, FFV1_H)]

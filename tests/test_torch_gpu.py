@@ -23,7 +23,10 @@ chains against the CPU and the committed golden; and the CLI
 at the crafted VP9 stream against the reference CLI's committed text;
 the GIF decoder's planes on the card against the CPU decode, and
 chip_smoke.py phase 28's command (l) (the flagship over loopback HTTP)
-against the same command from the file.
+against the same command from the file; the PNG, FFV1 and VP8 decoders'
+planes on the card against the CPU decode, and phase 29's command (t)
+(the VP8 clip to MPEG-2 through the CLI, K2 once per P frame) against
+the CLI on the CPU and the reference's committed sizes.
 Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
@@ -1001,3 +1004,62 @@ def test_cli_over_http_on_card_matches_the_file(cuda, tmp_path):
         srv.server_close()
         th.join(10)
     assert outs[0] == outs[1] and len(outs[0]) == 2 * 224 * 224 * 3
+
+
+def _decode_on(dev, data: bytes):
+    import io
+    from ffmpeg_tpu_torch.io import open_input
+    d = open_input(io.BytesIO(data))
+    return CodecContext.open_decoder(d.streams[0].codecpar, device=dev
+                                     ).decode_all(list(d.packets()))
+
+
+@pytest.mark.parametrize("name", ["png_rgb24", "png_rgba", "png_gray16be",
+                                  "png_rgb48be", "ffv1_gop6",
+                                  "ffv1_444p16-slices",
+                                  "ffv1_yuva444p10le", "vp8_inter_0",
+                                  "vp8_inter_golden_altref", "vp8_kf_lf40"])
+def test_image_and_video_decoders_on_card_match_cpu(cuda, name):
+    """The committed PNG, FFV1 and VP8 streams
+    (testing.IMAGE_CODECS) through open_decoder on the card: every plane
+    on the card, equal to the CPU decode, and the pictures' bytes those
+    of the reference binary's decode."""
+    import hashlib
+    data = fx.image_stream(name)
+    got, want = (_decode_on(dev, data) for dev in (cuda, "cpu"))
+    assert len(got) == len(want) >= 1
+    for g, w in zip(got, want):
+        assert g.format == w.format
+        assert all(p.device.type == "cuda" for p in g.planes)
+        for a, b in zip(g.planes, w.planes):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    raw = b"".join(f.to_bytes() for f in got)
+    assert hashlib.sha256(raw).hexdigest() == fx.image_golden(name)
+
+
+def test_cli_vp8_to_mpeg2_on_card_launches_k2(cuda, tmp_path):
+    """Phase 29's command (t): the committed 640x352 VP8 clip to MPEG-2
+    through the CLI on the card, K2 launched once per P frame, the
+    packets' sizes within 1% of the same command's on the CPU (the
+    motion search's plain version) and of the reference's committed
+    sizes."""
+    import json
+    from ffmpeg_tpu_torch.cli.ffmpeg import main
+    from ffmpeg_tpu_torch.io import open_input
+    src = tmp_path / "vp8.ivf"
+    src.write_bytes(fx.image_stream("vp8_clip"))
+    outs = []
+    for dev in (cuda, "cpu"):
+        out = tmp_path / f"o_{torch.device(dev).type}.mkv"
+        me.KERNEL_LAUNCHES = 0
+        assert main(["-i", str(src), "-c:v", "mpeg2video", str(out)],
+                    device=dev) == 0
+        d = open_input(str(out))
+        outs.append(([p.data for p in d.packets()], me.KERNEL_LAUNCHES))
+        d.close()
+    (got, k2), (want, k2_cpu) = outs
+    assert k2 == len(got) - 1 == 3 and k2_cpu == 0
+    sizes = json.loads(fx.CLI_GOLDEN.read_text())["t_m2v_packet_bytes"]
+    for ref in (sizes, [len(x) for x in want]):
+        assert len(ref) == len(got)
+        assert max(abs(len(a) / b - 1) for a, b in zip(got, ref)) <= 0.01

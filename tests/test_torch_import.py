@@ -40,7 +40,12 @@ Matroska and probed and remuxed to MPEG-TS and from it to FLV, and an
 Ogg Opus file decoded; then the protocols and host codecs: the AAC clip's
 TS into HLS, encrypted with AES-128 and read back over a loopback HTTP
 server, and each committed stream of testing.HOST_CODECS decoded by
-main() to the reference CLI's sha256; all on the CPU."""
+main() to the reference CLI's sha256; then the image codecs, FFV1, VP8,
+WebP and the subtitle codecs: their modules imported and registered,
+committed PNG, FFV1, VP8, TIFF, QOI and EXR files decoded by main() (to
+the reference binary's sha256 where the fixture holds it), and an rgba
+picture encoded to WebP and QOI and a yuv420p one to FFV1; all on the
+CPU."""
 
 import re
 import subprocess
@@ -306,7 +311,13 @@ for mod in ("cli.ffmpeg", "cli.ffprobe", "cli.sync_queue", "cli.textformat",
             "codecs.rawvideo", "codecs.pcm", "codecs.flac",
             "codecs.flac_enc", "codecs.gif", "codecs.dca_tables",
             "codecs.dca", "codecs.mlp", "codecs.adpcm_tables",
-            "codecs.adpcm",
+            "codecs.adpcm", "codecs.png", "codecs.tiff", "codecs.images",
+            "codecs.exr", "codecs.ffv1", "codecs.ffv1_enc",
+            "codecs.subtitles", "codecs.subtitles2", "codecs.webp",
+            "codecs.webp_vp8l", "codecs.webp_vp8l_enc",
+            *(f"codecs.vp8.{m}" for m in (
+                "tables_gen", "idct", "pred", "mc", "lf", "header",
+                "block")),
             *(f"io.formats.{m}" for m in (
                 "y4m", "rawvideo", "wav", "hashenc", "img_mjpeg", "ivf",
                 "h26x", "adts", "mp3raw", "ac3raw", "matroska",
@@ -368,6 +379,31 @@ with tempfile.TemporaryDirectory() as tmp:
         assert cli_main(argv, device="cpu") == 0, name
         assert hashlib.sha256(Path(argv[-1]).read_bytes()).hexdigest() \
             == fx.host_codec_golden(name), name
+    from ffmpeg_tpu_torch.codecs import encoder_names
+    assert {"png", "tiff", "bmp", "ppm", "qoi", "exr", "ffv1", "vp8", "webp",
+            "subrip", "ass", "webvtt", "mov_text", "pgssub"} <= \
+        set(decoder_names())
+    assert {"png", "tiff", "bmp", "ppm", "qoi", "ffv1", "webp",
+            "mov_text"} <= set(encoder_names())
+    for name, ext in (("png_rgb48be", "png"), ("ffv1_gop6", "avi"),
+                      ("vp8_inter_golden_altref", "ivf"),
+                      ("tiff_yuv420p_lzw", "tif"), ("qoi_rgba", "qoi"),
+                      ("exr_rgb_c3", "exr")):
+        Path(tmp, f"i.{ext}").write_bytes(fx.image_stream(name))
+        argv = ["-i", f"{tmp}/i.{ext}", "-f", "rawvideo", f"{tmp}/o.raw"]
+        assert cli_main(argv, device="cpu") == 0, name
+        if f"{name}_ref_sha256" in np.load(fx.IMAGE_CODECS).files:
+            assert hashlib.sha256(Path(tmp, "o.raw").read_bytes()
+                                  ).hexdigest() == fx.image_golden(name)
+        Path(tmp, "o.raw").unlink()
+    Path(tmp, "o.rgba").write_bytes(bytes(range(256)) * 2)
+    for codec, fmt, mux in (("webp", "rgba", "webp"), ("qoi", "rgba",
+                                                      "image2"),
+                            ("ffv1", "yuv420p", "matroska")):
+        assert cli_main(["-f", "rawvideo", "-pixel_format", fmt, "-s",
+                         "16x8", "-i", f"{tmp}/o.rgba", "-c:v", codec,
+                         "-f", mux, f"{tmp}/o.{codec}"], device="cpu") == 0, \
+            codec
 assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
@@ -508,4 +544,26 @@ def test_cli_fixture_tool_takes_its_answers_from_the_reference():
     assert re.search(r"^\s*from ffmpeg_tpu\.cli\.ffmpeg import main", src,
                      re.M)
     assert re.search(r"^\s*from ffmpeg_tpu\.cli\.ffprobe import main",
+                     src, re.M)
+
+
+def test_image_codecs_fixture_tool_takes_its_answers_from_the_reference():
+    """tools/gen_torch_image_codecs_fixture.py runs the reference by
+    design, like the tools above: of the port it imports only
+    ffmpeg_tpu_torch.testing (the stream names, sizes and paths), its
+    FFV1, TIFF, QOI and PNG files and their decodes are the reference
+    binary's replayed through tests/golden.py by the reference tests'
+    own helpers, and its VP8, EXR and subtitle streams are made by the
+    reference's tests and codecs."""
+    src = (REPO / "tools" / "gen_torch_image_codecs_fixture.py").read_text()
+    port = set(re.findall(r"^\s*(?:from|import)\s+(ffmpeg_tpu_torch[\w.]*)"
+                          r"(?:\s+import\s+(\w+))?", src, re.M))
+    assert port == {("ffmpeg_tpu_torch", "testing")}, port
+    for mod in ("conftest", "refutil", "test_exr", "test_ffv1",
+                "test_qoi_tiff", "test_subtitles2", "test_vp8",
+                "test_vp8_inter"):
+        assert re.search(rf"^import {mod}\b", src, re.M), mod
+    assert re.search(r"^from ffmpeg_tpu\.codecs import CodecContext", src,
+                     re.M)
+    assert re.search(r"^from ffmpeg_tpu\.codecs\.webp import wrap_webp",
                      src, re.M)

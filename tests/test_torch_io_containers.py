@@ -43,7 +43,8 @@ from ffmpeg_tpu_torch.codecs import CodecContext
 from ffmpeg_tpu_torch.codecs.vorbis import _split_xiph
 from ffmpeg_tpu_torch.io import demux, open_input, parsers, probe_format
 
-from torch_io_util import (DATA, SOURCES, assert_same_demux, demuxed,
+from torch_io_util import (DATA, SOURCES, assert_same_decode,
+                           assert_same_demux, demuxed,
                            differing, mux_with)
 
 MODULES = ["io/parsers.py"] + [f"io/formats/{m}.py" for m in (
@@ -350,6 +351,24 @@ CRAFTED = ["a.mlp", "b.thd", "c.mlp", "i.webp", "i.exr", "s.srt", "s.vtt",
 @pytest.mark.parametrize("name", CRAFTED)
 def test_demuxer_reads_the_crafted_files(crafted, name):
     assert_same_demux(str(crafted[name]))
+
+
+@pytest.mark.parametrize("name", ["i.webp", "i.exr"])
+def test_crafted_images_decode_as_the_reference(crafted, name):
+    """The crafted WebP and EXR files, once only demuxed here since the
+    port had no decoder for them: their seeded bytes after a valid
+    header fail both packages' decoders alike."""
+    out = assert_same_decode(crafted[name])
+    assert out[0] == "InvalidData", out
+
+
+def test_webp_muxers_file_decodes_as_the_reference(written):
+    """The WebP muxer's file of the crafted VP8 chunk: both packages'
+    decoders read its seeded bytes as the same 40x24 picture."""
+    tmp = written[("webp", "o.webp", "webp")][0]
+    for side in ("ref", "port"):
+        out = assert_same_decode(tmp / side / "o.webp")
+        assert len(out) == 1 and out[0][1]["width"] == 40, out
 
 
 def test_mlp_files_open_by_name(crafted, tmp_path):

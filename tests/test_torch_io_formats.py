@@ -40,7 +40,8 @@ from ffmpeg_tpu_torch.io.ivf import read_ivf
 from ffmpeg_tpu_torch.io.mjpeg import split_packets
 from ffmpeg_tpu_torch.utils.error import DemuxerNotFound, ProtocolNotFound
 
-from torch_io_util import (DATA, SOURCES, assert_same_demux, differing,
+from torch_io_util import (DATA, SOURCES, assert_same_decode,
+                           assert_same_demux, differing,
                            mux_with, plain)
 
 FORMATS = ["y4m", "rawvideo", "wav", "hashenc", "img_mjpeg", "ivf", "h26x",
@@ -191,6 +192,15 @@ def test_mpegvideo_and_image_pipe_demuxers(tmp_path):
     assert_same_demux(str(tmp_path / "c.m2v"), n_min=3)
     (tmp_path / "i.png").write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(range(40)))
     assert_same_demux(str(tmp_path / "i.png"))
+
+
+def test_signature_only_png_decodes_as_the_reference(tmp_path):
+    """The single image above, once only demuxed here since the port had
+    no PNG decoder: both packages' decoders refuse its chunk bytes
+    alike (no IHDR: depth 0)."""
+    (tmp_path / "i.png").write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(range(40)))
+    out = assert_same_decode(tmp_path / "i.png")
+    assert out[0] == "NotSupported", out
 
 
 def test_id3_tagged_mp3_raises_not_supported(tmp_path):

@@ -262,3 +262,30 @@ def assert_same_demux(url, n_min=1, **kw):
     assert got[0] == want[0]
     assert len(got[1]) == len(want[1]) >= n_min
     assert got[1] == want[1]
+
+
+def decode_outcome(url, port: bool):
+    """One package's demux and decode of every packet of `url`'s first
+    stream: its frames as plain values, or its error's type and text."""
+    if port:
+        from ffmpeg_tpu_torch.codecs import CodecContext
+        opener = open_input
+    else:
+        from ffmpeg_tpu.codecs import CodecContext
+        opener = ref_open_input
+    try:
+        d = opener(str(url))
+        pkts = list(d.packets())
+        kw = {"device": "cpu"} if port else {}
+        ctx = CodecContext.open_decoder(d.streams[0].codecpar, **kw)
+        return plain(ctx.decode_all(pkts))
+    except Exception as e:      # noqa: BLE001 — compared across packages
+        return (type(e).__name__, str(e))
+
+
+def assert_same_decode(url):
+    """Both packages decode `url` alike: the same frames, or the same
+    error."""
+    want = decode_outcome(url, port=False)
+    assert decode_outcome(url, port=True) == want
+    return want

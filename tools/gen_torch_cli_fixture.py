@@ -41,6 +41,18 @@ writes tests/data/port/cli_golden.json:
   `p_gif_sha256`, the sha256 of testing.write_cli_gif's file written by
   the reference's GIF encoder and muxer, and `p_framemd5`, its framemd5
   text; `q_probe`, fftpu-probe's text of testing.tagged_mp3 with the
+  file's path as "{path}";
+- phase 29 (testing.image_commands on testing.write_image_sources, in a
+  directory of its own): `r_sha256`, the sha256 of the PNG, TIFF, BMP,
+  PPM and QOI files the encoders write (each decodes back to its source,
+  which the tool asserts); `r_exr_sha256`, the EXR picture's gbrpf32le;
+  `s_mkv_sha256` and `s_framemd5`, the FFV1 Matroska file and its
+  framemd5 text (its md5s are the source's, asserted), and
+  `s_raw_sha256`, each FFV1 stream's rawvideo decode (the reference
+  binary's, asserted); `t_framemd5`, the VP8 clip's framemd5 text, and `t_m2v_packet_bytes`,
+  the sizes of its MPEG-2 packets; `u_webp_sha256` and `u_ll_sha256`,
+  the lossy WebP's decode and the lossless WebP file; `v_probe`,
+  `-show_format -show_streams` of testing.IMAGE_PROBE_FILES with each
   file's path as "{path}".
 
 The card's machine has no JAX, so the reference's answers are committed.
@@ -204,6 +216,46 @@ def protocols(d: Path, out: dict) -> None:
     print("phase 28 goldens done", flush=True)
 
 
+def images(d: Path, out: dict) -> None:
+    """Phase 29's goldens (testing.image_commands), in directory `d`."""
+    def sha(path: Path) -> str:
+        return hashlib.sha256(path.read_bytes()).hexdigest()
+    fx.write_image_sources(d)
+    cmds = fx.image_commands(d)
+    for name, argv in cmds.items():
+        assert ref_main(argv) == 0, name
+    r = [f"out.{e}" for e in fx.IMAGE_ENCODES] + ["out.qoi"]
+    out["r_sha256"] = {f: sha(d / f) for f in r}
+    assert all((d / f"out_{e}.rgb").read_bytes() == (d / "src.rgb")
+               .read_bytes() for e in fx.IMAGE_ENCODES), "r not lossless"
+    assert (d / "out_qoi.rgba").read_bytes() == \
+        (d / "src.rgba").read_bytes(), "QOI not lossless"
+    out["r_exr_sha256"] = sha(d / "out_exr.raw")
+    out["s_mkv_sha256"] = sha(d / "out_ffv1.mkv")
+    out["s_framemd5"] = (d / "out_ffv1.md5").read_text()
+    md5s = [ln.rsplit(",", 1)[1].strip() for ln in
+            out["s_framemd5"].splitlines() if ln and ln[0] != "#"]
+    assert md5s == fx.image_source_md5s(), "FFV1 not lossless"
+    out["s_raw_sha256"] = {n: sha(d / f"out_ffv1_{n}.yuv")
+                           for n in fx.CLI_FFV1_STREAMS}
+    assert all(out["s_raw_sha256"][n] == fx.image_golden(f"ffv1_{n}")
+               for n in fx.CLI_FFV1_STREAMS), out["s_raw_sha256"]
+    out["t_framemd5"] = (d / "out_vp8.md5").read_text()
+    dm = open_input(str(d / "out_vp8_m2v.mkv"))
+    out["t_m2v_packet_bytes"] = [len(p.data) for p in dm.packets()]
+    dm.close()
+    out["u_webp_sha256"] = sha(d / "out_webp.yuv")
+    out["u_ll_sha256"] = sha(d / "out_ll.webp")
+    probe = {}
+    for f in fx.IMAGE_PROBE_FILES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert ref_probe([*fx.IMAGE_PROBE_ARGS, str(d / f)]) == 0
+        probe[f] = buf.getvalue().replace(str(d / f), "{path}")
+    out["v_probe"] = probe
+    print("phase 29 goldens done", flush=True)
+
+
 def main() -> int:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -236,6 +288,8 @@ def main() -> int:
         containers(d, out)
         assert ref_main(fx.cli_container_commands(d)["i_f32"]) == 0
         protocols(d, out)
+    with tempfile.TemporaryDirectory() as tmp:
+        images(Path(tmp), out)
     fx.CLI_GOLDEN.write_text(json.dumps(out, indent=1, sort_keys=True)
                              + "\n")
     print(f"wrote {fx.CLI_GOLDEN} ({fx.CLI_GOLDEN.stat().st_size} bytes); "
