@@ -79,7 +79,17 @@ Drives the port's paths through their user entry points at full size:
   float planes, a 352x288 clip to FFV1 in Matroska and back, four
   committed FFV1 streams decoded, a 640x352 VP8 clip to framemd5 and to
   MPEG-2 with K2 in its motion search, a lossy WebP decoded and a
-  320x180 picture to lossless WebP.
+  320x180 picture to lossless WebP;
+- the CLI's bitstream filters (-bsf), AV1 and VVC, on the command lines
+  of testing.bsf_av1_vvc_commands: H.264 and HEVC out of MP4 into
+  MPEG-TS through *_mp4toannexb, the VP9 bench stream through
+  vp9_superframe_split, a seeded noise filter, setts and dts2pts; a
+  crafted 1920x1080 AV1 OBU stream copied into IVF, MP4 and Matroska and
+  through av1_frame_split and av1_metadata; crafted 832x480 and 416x240
+  (10-bit) VVC GOPs to framemd5, the first with threads=4 and to
+  MPEG-2 with K2 in its motion search; and the flagship through the host
+  Pipeline (parallel/pipeline.py: host prep in one thread, the device
+  stage with K1 in the next).
 
 Phases, one line each:
 
@@ -405,11 +415,43 @@ Phases, one line each:
    reference CLI cannot write that decode: see PERF.md); (v) the probe
    of four of the outputs equal to the reference's text but for the
    paths.  K1 launches 0 times.
+30. the CLI's bitstream filters, AV1 and VVC on the card, in phase 26's
+   directory, each command of testing.bsf_av1_vvc_commands on
+   testing.write_vvc_av1_sources with the same figures: (w) phase 26
+   (c)'s MP4 through h264_mp4toannexb into MPEG-TS, the HEVC bench
+   stream copied into MP4 and through hevc_mp4toannexb into MPEG-TS, the
+   VP9 bench stream through vp9_superframe_split, a y4m through
+   noise=amount=50:seed=7, the MP4 through setts and dts2pts to packet
+   framemd5, each output's sha256 equal to the reference CLI's
+   (testing.CLI_GOLDEN), and an unknown filter refused with the
+   reference's error class; (x) the committed 1920x1080 AV1 OBU stream
+   (30 temporal units) copied into IVF, MP4 and Matroska, each file's
+   sha256 the reference CLI's and its packets read back the stream's
+   units, through av1_frame_split and av1_metadata to the reference
+   CLI's sha256, fftpu-probe of the IVF equal to the reference's text
+   but for the path, and open_decoder("av1") on the card raising the
+   reference's NotSupported; (y) the committed 832x480 VVC GOP (I P B B,
+   MTT, two references in each list) to framemd5 and the 416x240 10-bit
+   GOP to framemd5, equal to the reference CLI's text with one upload a
+   picture, open_decoder("vvc") on the card with the reference's sha256
+   and with threads=4 byte-equal to the serial decode, and the 832x480
+   GOP to MPEG-2 in Matroska, its packets byte-equal to
+   open_encoder("mpeg2video") on the card on the same decoded frames and
+   within 1% of the reference's sizes, K2 launched once per P frame and
+   bit-exact against its plain version on each (cur, ref) pair; (z) 8
+   batches of the flagship fixture through parallel/pipeline.Pipeline:
+   host prep_frame in one stage, run_batch and its copy back in the
+   next (three pipelines in turn, so that a batch is staged while the
+   one before it is on the card), each batch equal to phase 4's output,
+   K1 launched once a batch and bit-exact against its plain version,
+   the pipeline's wall time against the sum of its stages' busy time.
 Phases 9-16, 18, 20-25, 27 and 28 run PyTorch only: K1 and K2 are not on
 their paths, and each prints their launch counts over its run (0).  K2's
-launches in the JSON line count phases 7, 17, 26 (d) and 29 (t), K1's
-phases 4 and 19.  Phases 13-29 print their wall times, and the script
-its own.
+launches in the JSON line count phases 7, 17, 26 (d), 29 (t) and 30
+(y), K1's phases 4, 19 and 30 (z).  Phases 13-30 print their wall
+times, and the script its own.  The CPU decodes that phases 13 and 18
+hold the card's frames against run in child processes started after
+phase 7 (cpu_oracle), beside the card's work.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -625,17 +667,22 @@ def main() -> int:
 
     k2 = phase6_k2(dev)
     frames, k2_launches, mpeg2_pkts = phase7_encoder(dev)
+    import tempfile
+    work = tempfile.TemporaryDirectory()
+    oracles = {"vp9": CpuOracle("vp9", Path(work.name)),
+               "mpeg2": CpuOracle("mpeg2", Path(work.name), mpeg2_pkts)}
     phase8_timing(dev, card, frames)
     phase9_decode_scale(dev, card)
     phase10_decoder_graph(dev, card)
     phase11_dataloader(dev, card)
     phase12_audio(dev, card)
-    lf_key = phase13_vp9(dev, card)
+    lf_key = phase13_vp9(dev, card, oracles["vp9"])
     phase14_vp9_window(dev, card, lf_key)
     phase15_hevc(dev, card)
     phase16_h264(dev, card)
     clip, k2_enc = phase17_h264_encode(dev, card)
-    phase18_mpeg2_decode(dev, card, mpeg2_pkts)
+    phase18_mpeg2_decode(dev, card, mpeg2_pkts, oracles["mpeg2"])
+    work.cleanup()
     k1_enc = phase19_mjpeg_encode(dev, card, clip)
     phase_intra(dev, card, "prores", 20)
     phase_intra(dev, card, "dnxhd", 21)
@@ -643,15 +690,18 @@ def main() -> int:
     phase23_audio_decoders(dev, card)
     phase24_filters(dev, card)
     phase25_audio_codecs(dev, card)
-    import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         rows26 = phase26_cli(dev, card, Path(tmp))
         rows27 = phase27_containers(dev, card, Path(tmp), rows26)
         phase28_protocols(dev, card, Path(tmp), rows26, rows27, hls)
         rows29 = phase29_images(dev, card, Path(tmp))
-    launches += k1_enc
-    k2_launches += k2_enc + rows26["d"]["k2"] + rows29["t_m2v"]["k2"]
-    k2["err"] = max(k2["err"], rows29["t_m2v"]["k2_err"])
+        rows30 = phase30_bsf_av1_vvc(dev, card, Path(tmp), out)
+    launches += k1_enc + rows30["z"]["k1"]
+    k1_err = max(k1_err, rows30["z"]["k1_err"])
+    k2_launches += (k2_enc + rows26["d"]["k2"] + rows29["t_m2v"]["k2"]
+                    + rows30["y_m2v"]["k2"])
+    k2["err"] = max(k2["err"], rows29["t_m2v"]["k2_err"],
+                    rows30["y_m2v"]["k2_err"])
     print(f"whole script: {time.monotonic() - T0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
@@ -1518,13 +1568,14 @@ def _vp9_profile_in_child(kf_ms: float, inter_ms: float, dev) -> dict:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def phase13_vp9(dev, card) -> dict:
+def phase13_vp9(dev, card, oracle) -> dict:
     """The VP9 decoder at full width on the card: the bench stream's
     first VP9_FRAMES frames against the reference's hashes, timed and
     split; frames 0-1 against the port's CPU run; the loop-filter
     stream against its
     golden and loopfilter_frame_tpu against the host filter; launches
-    by torch.profiler in a child process.  Returns the loop-filter
+    by torch.profiler in a child process.  `oracle` is the CpuOracle of
+    frames 0-1.  Returns the loop-filter
     stream's keyframe for phase 14: its FrameState, pre-filter planes,
     the host filter's planes and times."""
     import copy
@@ -1600,11 +1651,13 @@ def phase13_vp9(dev, card) -> dict:
           f"{sum(dev_inter):.1f} ms", flush=True)
 
     # frames 0 and 1 on the card (the warm decode's) against the port's
-    # CPU run
-    cpu = vp9_decode(pkts[:2], "cpu")
+    # CPU run (in a child process since phase 7)
+    cpu = oracle.planes()
+    if len(cpu) != 2:
+        raise RuntimeError(f"the CPU run gave {len(cpu)} frames, not 2")
     for i, (a, b) in enumerate(zip(cpu, card_frames)):
-        for pl, (x, y) in enumerate(zip(a.planes, b.planes)):
-            if not torch.equal(x, y.cpu()):
+        for pl, (x, y) in enumerate(zip(a, b.planes)):
+            if not np.array_equal(x, y.cpu().numpy()):
                 raise RuntimeError(f"frame {i} plane {pl}: the card differs "
                                    f"from the CPU run")
 
@@ -1653,8 +1706,9 @@ def phase13_vp9(dev, card) -> dict:
     prof = _vp9_profile_in_child(walls[0], walls[1], dev)
     print(f"phase 13 vp9 profile [{card}]: keyframe: {prof['keyframe']}; "
           f"inter frame 1: {prof['inter']}", flush=True)
-    print(f"phase 13 wall time: {time.monotonic() - t_phase:.1f} s",
-          flush=True)
+    print(f"phase 13 wall time: {time.monotonic() - t_phase:.1f} s "
+          f"(of it {oracle.waited:.1f} s waiting for the CPU decode's "
+          f"child)", flush=True)
     return {"fs": fs, "pre": pre, "host": (host.y, host.u, host.v),
             "host_ms": host_ms, "tpu_ms": tpu_ms}
 
@@ -2272,13 +2326,15 @@ def _mpeg2_split(st: dict) -> str:
             f"{d['residual']:.3f}, MC {d.get('mc', 0.0):.3f}")
 
 
-def phase18_mpeg2_decode(dev, card, pkts) -> None:
+def phase18_mpeg2_decode(dev, card, pkts, oracle) -> None:
     """The MPEG-1/2 decoder on the card: phase 7's own 1920x1080 I P P P
     packets through open_decoder("mpeg2video"), against the port's CPU
     decode of the same packets (I pictures within 1 LSB on <= 1% of
     samples, every picture >= 60 dB), and each frame's PSNR against the
     source within 0.1 dB of the reference decoder's PSNR on the
-    reference's packets (committed)."""
+    reference's packets (committed).  The CPU decode is `oracle`'s, a
+    CpuOracle started after phase 7."""
+    import types
     import numpy as np
     import torch
     from ffmpeg_tpu_torch.codecs import CodecContext, EncoderParameters
@@ -2314,7 +2370,8 @@ def phase18_mpeg2_decode(dev, card, pkts) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = read_counts()
-    want = decode("cpu")
+    want = [types.SimpleNamespace(planes=[torch.from_numpy(p) for p in f])
+            for f in oracle.planes()]
     if [f.pict_type for f in got] != ["I", "P", "P", "P"]:
         raise RuntimeError(f"expected I P P P, got "
                            f"{[f.pict_type for f in got]}")
@@ -2339,8 +2396,9 @@ def phase18_mpeg2_decode(dev, card, pkts) -> None:
           f"parse {parse / 4:.1f} ms/frame); "
           + "; ".join(_mpeg2_split(s) for s in stats)
           + f"; {counts}", flush=True)
-    print(f"phase 18 wall time: {time.monotonic() - t_phase:.1f} s",
-          flush=True)
+    print(f"phase 18 wall time: {time.monotonic() - t_phase:.1f} s "
+          f"(of it {oracle.waited:.1f} s waiting for the CPU decode's "
+          f"child)", flush=True)
 
 
 def phase19_mjpeg_encode(dev, card, clip) -> int:
@@ -3818,6 +3876,79 @@ def _hls_aes_result(hls, d: Path) -> float:
     return time.monotonic() - t
 
 
+
+def cpu_oracle(kind: str, src: str, dst: str) -> None:
+    """Body of a child process: the port's CPU decode that phase 13
+    ("vp9": the VP9 bench stream's frames 0-1) or phase 18 ("mpeg2": the
+    packets in the npz `src`, phase 7's encode) holds the card's frames
+    against, on two CPU threads; its planes go to the npz `dst` as
+    "<frame>_<plane>"."""
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)
+    if kind == "vp9":
+        from ffmpeg_tpu_torch.io.ivf import read_ivf
+        from ffmpeg_tpu_torch.testing import VP9_BENCH, vp9_decode
+        _par, _tb, pkts = read_ivf(VP9_BENCH.read_bytes())
+        frames = vp9_decode(pkts[:2], "cpu")
+    else:
+        from ffmpeg_tpu_torch.codecs import CodecContext
+        from ffmpeg_tpu_torch.core.packet import Packet
+        from ffmpeg_tpu_torch.io.stream import CodecParameters
+        z = np.load(src)
+        frames = CodecContext.open_decoder(
+            CodecParameters(codec_id="mpeg2video"), device="cpu"
+        ).decode_all([Packet(data=z[str(i)].tobytes(), pts=i)
+                      for i in range(len(z.files))])
+    np.savez(dst, **{f"{i}_{j}": np.asarray(pl) for i, f in
+                     enumerate(frames) for j, pl in enumerate(f.planes)})
+
+
+class CpuOracle:
+    """cpu_oracle(kind) in a child process, started after phase 7 so that
+    it runs beside the card's work of the phases before the one that
+    reads it (the whole script's budget: phase 30 took the room).  At
+    exit the child is killed if it still runs."""
+
+    def __init__(self, kind: str, work: Path, packets=None):
+        import atexit
+        import numpy as np
+        src, self.dst = work / f"{kind}_in.npz", work / f"{kind}_out.npz"
+        if packets is not None:
+            np.savez(src, **{str(i): np.frombuffer(p, np.uint8)
+                             for i, p in enumerate(packets)})
+        self.kind, self.waited = kind, 0.0
+        self.child = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.cpu_oracle(*sys.argv[1:])", kind, str(src),
+             str(self.dst)], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        if self.child.poll() is None:
+            self.child.kill()
+            self.child.communicate()
+
+    def planes(self) -> list:
+        """Each frame's planes as numpy arrays, once the child ends (600 s
+        at most); the seconds waited for it in `waited`."""
+        import numpy as np
+        t = time.monotonic()
+        try:
+            _, err = self.child.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise
+        self.waited = time.monotonic() - t
+        if self.child.returncode != 0:
+            raise RuntimeError(f"the {self.kind} CPU decode's child exited "
+                               f"{self.child.returncode}: {err[-3000:]}")
+        z = np.load(self.dst)
+        n = 1 + max(int(k.split("_")[0]) for k in z.files)
+        return [[z[f"{i}_{j}"] for j in range(3)] for i in range(n)]
+
+
 class GifUploads:
     """Counts the GIF decoder's uploads of a frame to its device
     (codecs/gif.py upload_rgba) while it is entered."""
@@ -4047,6 +4178,49 @@ def phase28_protocols(dev, card, d: Path, rows26: dict, rows27: dict,
           flush=True)
 
 
+def _direct_mpeg2(par, frames, dev, n_p: int, what: str) -> tuple:
+    """open_encoder("mpeg2video") on the card fed `frames` (what the CLI's
+    encoder was fed), with each (cur, ref) pair the encoder hands K2
+    recorded and then held against K2's plain version at this path's
+    shape; raises if K2 differs or searched other than once for each of
+    the `n_p` P frames.  Returns (the packets' bytes, K2's max |diff|,
+    the pairs' shape and type, the encode's ms)."""
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.ops import me
+    pairs, strip = [], me.sad_cost_volume_strip
+
+    def record(cur, ref, block, search):
+        pairs.append((cur, ref, block, search))
+        return strip(cur, ref, block, search)
+    me.sad_cost_volume_strip = record
+    try:
+        t = time.perf_counter()
+        ctx = CodecContext.open_encoder(par, {}, device=dev)
+        want = [p.data for p in fx.encode_all(ctx, frames)]
+        torch.cuda.synchronize()
+        direct_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        me.sad_cost_volume_strip = strip
+    k2_err = 0.0
+    for cur, ref, block, search in pairs:
+        got_v = me.sad_cost_volume_strip(cur, ref, block, search)
+        want_v = me.sad_cost_volume_strip_plain(cur, ref, block, search)
+        torch.cuda.synchronize()
+        k2_err = max(k2_err, float((got_v - want_v).abs().max()))
+        if not torch.equal(got_v, want_v):
+            raise RuntimeError(f"{what}: K2 differs from its plain version "
+                               f"on the encoder's {tuple(cur.shape)} "
+                               f"{cur.dtype} planes, B={block} R={search}: "
+                               f"max |diff| {k2_err}")
+    if len(pairs) != n_p:
+        raise RuntimeError(f"{what}: the direct encode searched "
+                           f"{len(pairs)} times for {n_p} P frames")
+    return (want, k2_err, f"{tuple(pairs[0][0].shape)} {pairs[0][0].dtype}",
+            direct_ms)
+
+
 def phase29_images(dev, card, d: Path) -> dict:
     """The CLI through the image codecs, FFV1, VP8 and WebP on the card
     (phase 29 in the module docstring), in phase 26's directory `d`;
@@ -4059,7 +4233,6 @@ def phase29_images(dev, card, d: Path) -> dict:
     from ffmpeg_tpu_torch import testing as fx
     from ffmpeg_tpu_torch.codecs import CodecContext
     from ffmpeg_tpu_torch.io import open_input
-    from ffmpeg_tpu_torch.ops import me
     t_phase = time.monotonic()
     gold = json.loads(fx.CLI_GOLDEN.read_text())
     fx.write_image_sources(d)
@@ -4166,38 +4339,9 @@ def phase29_images(dev, card, d: Path) -> dict:
         raise RuntimeError(f"phase 29 (t_m2v): K2 launched {r['k2']} "
                            f"times for {n_p} P frames")
     par, frames = fx.cli_encoder_input(d / "vp8.ivf", "mpeg2video", dev)
-    pairs, strip = [], me.sad_cost_volume_strip
-
-    def record(cur, ref, block, search):
-        pairs.append((cur, ref, block, search))
-        return strip(cur, ref, block, search)
-    me.sad_cost_volume_strip = record
-    try:
-        t = time.perf_counter()
-        ctx = CodecContext.open_encoder(par, {}, device=dev)
-        want = [p.data for p in fx.encode_all(ctx, frames)]
-        torch.cuda.synchronize()
-        direct_ms = (time.perf_counter() - t) * 1e3
-    finally:
-        me.sad_cost_volume_strip = strip
-    # K2 at this path's shape (352x640 luma, B=16, R=8): each (cur, ref)
-    # the encoder handed it, held against its plain version
-    k2_err = 0.0
-    for cur, ref, block, search in pairs:
-        got_v = me.sad_cost_volume_strip(cur, ref, block, search)
-        want_v = me.sad_cost_volume_strip_plain(cur, ref, block, search)
-        torch.cuda.synchronize()
-        k2_err = max(k2_err, float((got_v - want_v).abs().max()))
-        if not torch.equal(got_v, want_v):
-            raise RuntimeError(f"phase 29 (t_m2v): K2 differs from its "
-                               f"plain version on the encoder's "
-                               f"{tuple(cur.shape)} {cur.dtype} planes, "
-                               f"B={block} R={search}: max |diff| {k2_err}")
-    if len(pairs) != n_p:
-        raise RuntimeError(f"phase 29 (t_m2v): the direct encode searched "
-                           f"{len(pairs)} times for {n_p} P frames")
+    want, k2_err, k2_shape, direct_ms = _direct_mpeg2(
+        par, frames, dev, n_p, "phase 29 (t_m2v)")
     r["k2_err"] = k2_err
-    k2_shape = f"{tuple(pairs[0][0].shape)} {pairs[0][0].dtype}"
     ref_bytes = gold["t_m2v_packet_bytes"]
     rel = max(abs(len(a) / b - 1) for a, b in zip(got, ref_bytes))
     if got != want or len(got) != len(ref_bytes) or rel > 0.01:
@@ -4255,6 +4399,282 @@ def phase29_images(dev, card, d: Path) -> dict:
             r["k2"] for k, r in rows.items() if k != "t_m2v"):
         raise RuntimeError("phase 29 launched K1, or K2 outside (t_m2v)")
     print(f"phase 29 wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    return rows
+
+
+def phase30_bsf_av1_vvc(dev, card, d: Path, flagship) -> dict:
+    """The CLI's bitstream filters, AV1 and VVC on the card, and the
+    flagship through the host Pipeline (phase 30 in the module
+    docstring), in phase 26's directory `d`; `flagship` is phase 4's
+    output.  Returns each command's figures as phase26_cli does, with
+    (z)'s K1 launches and error."""
+    import hashlib
+    import json
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch import testing as fx
+    from ffmpeg_tpu_torch.cli import ffmpeg as fcli
+    from ffmpeg_tpu_torch.codecs import CodecContext
+    from ffmpeg_tpu_torch.core.packet import Packet
+    from ffmpeg_tpu_torch.io import open_input
+    from ffmpeg_tpu_torch.io.mjpeg import split_packets
+    from ffmpeg_tpu_torch.io.stream import CodecParameters
+    from ffmpeg_tpu_torch.models.mjpeg_tpu_entropy import (
+        MjpegTpuEntropyPipeline, TpuEntropySpec)
+    from ffmpeg_tpu_torch.ops import huffman
+    from ffmpeg_tpu_torch.parallel.pipeline import Pipeline
+    t_phase = time.monotonic()
+    gold = json.loads(fx.CLI_GOLDEN.read_text())
+    fx.write_vvc_av1_sources(d)
+    cmds = fx.bsf_av1_vvc_commands(d)
+    cli = CliRuns(30, dev, card, cmds)
+    rows = cli.rows
+
+    def sha(path: Path) -> str:
+        return hashlib.sha256(path.read_bytes()).hexdigest()
+
+    def copied(name: str, what: str, frames: int = 0) -> None:
+        """Runs a stream-copy command: its output's sha256 the reference
+        CLI's, no upload and no plane copy."""
+        with Uploads(dev) as up:
+            r = cli.run(name, frames)
+        out = d / fx.BSF_FILES[name]
+        if sha(out) != gold["w_sha256"][name] or up.n or r["copies"]:
+            raise RuntimeError(f"phase 30 ({name}): {out.name} differs from "
+                               f"the reference CLI's (sha256), or {up.n} "
+                               f"uploads and {r['copies']} plane copies")
+        cli.report(name, what, f"{out.stat().st_size} bytes, sha256 equal "
+                   f"to the reference CLI's; no upload")
+
+    # (w) the bitstream filters
+    copied("w_h264", "phase 26 (c)'s MP4 of the 1920x1088 H.264 stream "
+           "through h264_mp4toannexb into MPEG-TS")
+    copied("w_hevc_mp4", "the 1080p HEVC bench stream copied into MP4")
+    copied("w_hevc", "its MP4 through hevc_mp4toannexb into MPEG-TS")
+    copied("w_vp9", "the 100-frame 1080p VP9 bench stream through "
+           "vp9_superframe_split")
+    copied("w_noise", f"{fx.BSF_FRAMES} frames of mpeg2_clip at "
+           f"{fx.BSF_W}x{fx.BSF_H} (y4m) through noise=amount=50:seed=7")
+    copied("w_setts", "the H.264 MP4 through setts=offset=7 to packet "
+           "framemd5")
+    copied("w_dts2pts", "the H.264 MP4 through dts2pts to packet framemd5")
+    if (d / "noise.y4m").read_bytes() == (d / "bsf_clip.y4m").read_bytes():
+        raise RuntimeError("phase 30 (w_noise): the noise filter changed "
+                           "nothing")
+    rc = fcli.main(cmds["w_unknown"], device=dev)
+    try:
+        fcli.transcode(fcli.parse_args(cmds["w_unknown"]), dev)
+        err = None
+    except Exception as e:               # noqa: BLE001 — its class kept
+        err = type(e).__name__
+    if rc != 1 or err != gold["w_refused"]["w_unknown"]:
+        raise RuntimeError(f"phase 30 (w_unknown): returned {rc}, raised "
+                           f"{err}, not as the reference CLI")
+    print(f"phase 30 (w_unknown) [{card}]: -bsf:v nosuch_bsf refused as "
+          f"the reference CLI refuses it (return code 1, {err})",
+          flush=True)
+
+    # (x) AV1: copies, filters, probe and the shell decoder
+    units = fx.av1_units()
+    for name, ext in (("x_ivf", "ivf"), ("x_mp4", "mp4"), ("x_mkv", "mkv")):
+        copied(name, f"the {fx.AV1_W}x{fx.AV1_H} AV1 OBU stream "
+               f"({len(units)} temporal units) copied into {ext}",
+               len(units))
+        dm = open_input(str(d / f"av1.{ext}"))
+        if [bytes(p.data) for p in dm.packets()] != units:
+            raise RuntimeError(f"phase 30 ({name}): the packets read back "
+                               f"are not the stream's units")
+        dm.close()
+    copied("x_split", "the AV1 stream through av1_frame_split")
+    copied("x_meta", "the AV1 stream through av1_metadata=color_range=pc:"
+           "color_primaries=9")
+    text = cli.probe_text(d / "av1.ivf", fx.AV1_PROBE_ARGS)
+    if text.replace(str(d / "av1.ivf"), "{path}") != gold["x_probe"]:
+        raise RuntimeError("phase 30 (x): the probe of av1.ivf differs "
+                           "from the reference's")
+    dm = open_input(str(d / "av1.obu"))
+    try:
+        CodecContext.open_decoder(dm.streams[0].codecpar, device=dev
+                                  ).decode_all(list(dm.packets()))
+        err = None
+    except Exception as e:               # noqa: BLE001 — its class kept
+        err = [type(e).__name__, str(e)]
+    dm.close()
+    if err != gold["x_decode_error"]:
+        raise RuntimeError(f"phase 30 (x): the AV1 decode gave {err}, not "
+                           f"the reference's {gold['x_decode_error']}")
+    print(f"phase 30 (x) [{card}]: fftpu-probe "
+          f"{' '.join(fx.AV1_PROBE_ARGS)} of av1.ivf equal to the "
+          f"reference's text but for the path; open_decoder('av1') on the "
+          f"card raises the reference's {err[0]} after parsing the "
+          f"headers", flush=True)
+
+    # (y) VVC: framemd5 with one upload a picture, the direct decodes
+    def vvc(name: str, frames: int, what: str, key: str) -> None:
+        with Uploads(dev) as up:
+            r = cli.run(name, frames)
+        r["uploads"] = up.n
+        out = d / cmds[name][-1].rsplit("/", 1)[-1]
+        if out.read_text() != gold[key] or up.n != frames or \
+                r["copies"] != 3 * frames:
+            raise RuntimeError(f"phase 30 ({name}): the framemd5 differs "
+                               f"from the reference CLI's, or {up.n} "
+                               f"uploads and {r['copies']} plane copies for "
+                               f"{frames} pictures")
+        cli.report(name, what, f"text equal to the reference CLI's; "
+                   f"{up.n} uploads (1.00 a picture)")
+    vvc("y_md5", 4, f"the {fx.VVC_GOPS['vvc_832x480'][2]}x"
+        f"{fx.VVC_GOPS['vvc_832x480'][3]} VVC GOP (I P B B, MTT, two "
+        "references in each list) to framemd5", "y_framemd5")
+    vvc("y_10", 4, "the 416x240 10-bit VVC GOP to framemd5",
+        "y_10_framemd5")
+    # the direct decodes: serial (what the CLI's MPEG-2 encoder is fed,
+    # testing.cli_encoder_input), threads=4, and the 10-bit GOP
+    walls, decoded = {}, {}
+    for name, threads, path in (("vvc_832x480", 1, "vvc.266"),
+                                ("vvc_832x480", 4, None),
+                                ("vvc10_416x240", 1, None)):
+        with Uploads(dev) as up:
+            t = time.perf_counter()
+            if path:
+                par, frames = fx.cli_encoder_input(d / path, "mpeg2video",
+                                                   dev)
+            else:
+                frames = CodecContext.open_decoder(
+                    CodecParameters(codec_id="vvc"), {"threads": threads},
+                    device=dev).decode_all([Packet(
+                        data=fx.vvc_av1_stream(name), pts=0)])
+            torch.cuda.synchronize()
+            walls[(name, threads)] = time.perf_counter() - t
+        got = [hashlib.sha256(p.cpu().numpy().tobytes()).hexdigest()
+               for f in frames for p in f.planes]
+        if up.n != len(frames) or got != fx.vvc_golden(name) or any(
+                p.device.type != torch.device(dev).type
+                for f in frames for p in f.planes):
+            raise RuntimeError(f"phase 30 (y): open_decoder('vvc', "
+                               f"threads={threads}) of {name} on the card: "
+                               f"{up.n} uploads, planes not the reference's "
+                               f"sha256 or off the card")
+        decoded[(name, threads)] = frames
+    serial = decoded[("vvc_832x480", 1)]
+    if not all(torch.equal(a, b) for f, g in zip(
+            decoded[("vvc_832x480", 4)], serial)
+            for a, b in zip(f.planes, g.planes)):
+        raise RuntimeError("phase 30 (y): threads=4 differs from the "
+                           "serial decode")
+    n8 = len(serial)
+    print(f"phase 30 (y) [{card}]: open_decoder('vvc') on the card, every "
+          f"plane the reference's sha256, one upload a picture: 832x480 "
+          f"serial {n8 / walls[('vvc_832x480', 1)]:.3f} frames/s "
+          f"({walls[('vvc_832x480', 1)] * 1e3:.1f} ms), threads=4 "
+          f"{n8 / walls[('vvc_832x480', 4)]:.3f} frames/s "
+          f"({walls[('vvc_832x480', 4)] * 1e3:.1f} ms), byte-equal to the "
+          f"serial decode; 416x240 10-bit (yuv420p10le, torch.uint16 "
+          f"planes) {4 / walls[('vvc10_416x240', 1)]:.3f} frames/s",
+          flush=True)
+    with Uploads(dev) as up:
+        r = cli.run("y_m2v", 4)
+    r["uploads"] = up.n
+    dm = open_input(str(d / "out_vvc_m2v.mkv"))
+    pk = list(dm.packets())
+    dm.close()
+    got = [p.data for p in pk]
+    n_p = sum(1 for p in pk if not p.flags & 1)
+    if r["k2"] != n_p or n_p < 1 or up.n != 4:
+        raise RuntimeError(f"phase 30 (y_m2v): K2 launched {r['k2']} times "
+                           f"for {n_p} P frames, {up.n} uploads")
+    want, k2_err, k2_shape, direct_ms = _direct_mpeg2(
+        par, serial, dev, n_p, "phase 30 (y_m2v)")
+    r["k2_err"] = k2_err
+    ref_bytes = gold["y_m2v_packet_bytes"]
+    rel = max(abs(len(a) / b - 1) for a, b in zip(got, ref_bytes))
+    if got != want or len(got) != len(ref_bytes) or rel > 0.01:
+        raise RuntimeError(f"phase 30 (y_m2v): packets "
+                           f"{[len(x) for x in got]} against the direct "
+                           f"encode's {[len(x) for x in want]} and the "
+                           f"reference's {ref_bytes}")
+    cli.report("y_m2v", "the 832x480 VVC GOP to MPEG-2 in Matroska",
+               f"packets {[len(x) for x in got]} B byte-equal to "
+               f"open_encoder('mpeg2video') on the card on the same decoded "
+               f"frames, within {rel:.3%} of the reference's {ref_bytes}; "
+               f"K2 once per P frame ({n_p}), bit-exact against its plain "
+               f"version on the encoder's {n_p} {k2_shape} pairs (max "
+               f"|diff| {k2_err}); {up.n} uploads (1.00 a picture)",
+               f" (the direct encode {direct_ms:.1f} ms)")
+    if any(r["k1"] for r in rows.values()) or any(
+            r["k2"] for k, r in rows.items() if k != "y_m2v"):
+        raise RuntimeError("phase 30 launched K1, or K2 outside (y_m2v)")
+
+    # (z) the flagship through the host Pipeline: prep | device stage
+    pkts = split_packets(fx.FIXTURE.read_bytes())
+    spec = TpuEntropySpec(fx.W, fx.H, fx.OUT, fx.OUT, batch=fx.BATCH,
+                          stride=fx.STRIDE, packed_cap=fx.packed_cap(pkts))
+    pipes = [MjpegTpuEntropyPipeline(spec, max(pkts, key=len), device=dev)
+             for _ in range(3)]
+    for pipe in pipes:                       # warm: not in the pass
+        for i, p in enumerate(pkts):
+            pipe.prep_frame(p, i)
+        pipe.run_batch()
+    torch.cuda.synchronize()
+    # prep_frame waits only for its own pipeline's last copy to the card,
+    # and with queue size 1 prep runs at most two batches ahead of
+    # run_batch: three pipelines in turn keep each staged batch until its
+    # run_batch has copied it
+    n_batches = 8
+    turn = iter(pipes * n_batches)
+
+    def prep(batch):                         # host: stage the next batch
+        pipe = next(turn)
+        for i, p in enumerate(batch):
+            pipe.prep_frame(p, i)
+        return pipe
+
+    def run(pipe):                           # card: decode, copy back
+        return np.stack([c.cpu().numpy() for c in pipe.run_batch()])
+    zero_counts()
+    pl = Pipeline((pkts for _ in range(n_batches)), [prep, run],
+                  queue_size=1, names=["prep", "device"])
+    t = time.perf_counter()
+    outs = list(pl.run())
+    wall = time.perf_counter() - t
+    k1 = huffman.KERNEL_LAUNCHES
+    if len(outs) != n_batches or k1 != n_batches:
+        raise RuntimeError(f"phase 30 (z): {len(outs)} batches, K1 launched "
+                           f"{k1} times, not once for each of {n_batches}")
+    for j, o in enumerate(outs):
+        if not np.array_equal(o, flagship):
+            raise RuntimeError(f"phase 30 (z): batch {j} differs from "
+                               f"phase 4's output")
+    k1_err = 0
+    for pipe in pipes:
+        regions = torch.from_numpy(pipe.regions).to(dev)
+        lens, luts = pipe.program.split_regions(regions)
+        a = huffman.jpeg_scan_decode_packed(regions, lens, luts, pipe.hdr)
+        b = huffman.decode_packed_plain(regions, lens, luts, pipe.hdr)
+        torch.cuda.synchronize()
+        k1_err = max(k1_err, int((a.int() - b.int()).abs().max()))
+        if not torch.equal(a, b):
+            raise RuntimeError(f"phase 30 (z): K1 differs from its plain "
+                               f"version on a staged batch: max |diff| "
+                               f"{k1_err}")
+    busy = {st.name: st.busy_s for st in pl.stats}
+    work = busy["prep"] + busy["device"]
+    rows["z"] = {"k1": k1, "k1_err": k1_err, "wall": wall}
+    print(f"phase 30 (z) [{card}]: {n_batches} batches of {fx.BATCH} "
+          f"1920x1080 frames through parallel/pipeline.Pipeline (host "
+          f"prep_frame | run_batch and the copy back, queue size 1, three "
+          f"staging pipelines in turn): every batch equal to phase 4's "
+          f"output; K1 launched {k1} times (once a batch), bit-exact "
+          f"against its plain version on each pipeline's staged batch "
+          f"(max |diff| {k1_err}); wall {wall * 1e3:.1f} ms "
+          f"({n_batches * fx.BATCH / wall:.2f} frames/s) against the "
+          f"stages' busy time (Pipeline.stats; the source's includes its "
+          f"waits on the full queue) "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in busy.items())
+          + f"; prep + device {work * 1e3:.1f} ms, "
+          f"{work / wall:.2f}x the wall", flush=True)
+    print(f"phase 30 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
     return rows
 

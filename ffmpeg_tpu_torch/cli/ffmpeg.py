@@ -16,7 +16,7 @@ copies of a video frame are the rawvideo encoder's and those an encoder
 makes itself.  The errors caught are the reference's (FFTPUError,
 TryAgain, EndOfStream): a fault of the card or of a kernel's build is no
 FFTPUError, so it ends the run with its traceback.  Bitstream filters
-(-bsf) raise NotSupported until codecs/bsf.py is ported.
+(-bsf) are host code on the packets (codecs/bsf.py).
 """
 
 from __future__ import annotations
@@ -236,12 +236,25 @@ def _is_output_pending(spec) -> bool:
 # ---------------------------------------------------------------------------
 
 def _build_bsf_chain(spec: str, par) -> list:
-    """The -bsf chain 'name=opt=val:opt2=val,name2' as filter instances
-    (fftools/ffmpeg_mux_init.c bsf setup analog).  The reference parses
-    it here into codecs/bsf.py get_bsf calls; that module is not ported
-    yet, so any -bsf raises."""
-    raise NotSupported(f"cli: -bsf {spec!r} needs codecs/bsf.py, which "
-                       f"is not ported")
+    """Parse ffmpeg -bsf syntax 'name=opt=val:opt2=val,name2' into filter
+    instances (fftools/ffmpeg_mux_init.c bsf setup analog)."""
+    from ..codecs.bsf import get_bsf
+    chain = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, argstr = part.partition("=")
+        opts = {}
+        if argstr:
+            for kv in argstr.split(":"):
+                k, _, v = kv.partition("=")
+                try:
+                    opts[k] = int(v)
+                except ValueError:
+                    opts[k] = v
+        chain.append(get_bsf(name, par, **opts))
+    return chain
 
 
 def _apply_bsfs(ch, pkt: Packet, mux) -> None:

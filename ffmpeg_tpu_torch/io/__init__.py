@@ -10,11 +10,10 @@ ASS, concat/segment, tee/fifo, HLS, DASH, SDP and RTSP input, in the
 reference's order of registration, so that probing and guessing by
 extension pick as the reference does.  As in the reference, the RTP and
 RTSP muxers register when io/formats/rtpenc.py is imported, and URLs
-(http://, rtmp://, concat:, ...) open through io/protocols.py.  Any
-other format name raises DemuxerNotFound or MuxerNotFound, and a file
-that an unported demuxer claims (AV1's OBU stream: io/unported.py keeps
-the reference's probe of it) raises DemuxerNotFound naming the module to
-port.
+(http://, rtmp://, concat:, ...) open through io/protocols.py.  AV1's
+OBU stream demuxer registers when the codecs package loads
+(codecs/av1.py), as in the reference.  Any other format name raises
+DemuxerNotFound or MuxerNotFound.
 
 The readers io/adts.py, io/ivf.py and io/mjpeg.py stand beside the
 registry and give the same packets as its demuxers.

@@ -7,10 +7,7 @@ FFInputFormat (demux.h:66).
 
 The port's copy of ffmpeg_tpu/io/demux.py, held equal to it by
 tests/test_torch_io_formats.py.  The registry holds the formats that
-io/__init__.py imports.  Probing ranks them beside the reference's
-unported demuxers (io/unported.py), and a file that one of those wins,
-or a format name of one of them, raises DemuxerNotFound naming the
-module to port.
+io/__init__.py imports and the obu demuxer of codecs/av1.py.
 """
 
 from __future__ import annotations
@@ -24,7 +21,6 @@ from ..utils.log import LogMixin
 from ..utils.rational import NOPTS, Rational, rescale_q
 from . import avio
 from .stream import StreamInfo
-from .unported import CLAIMS, REFERENCE_ORDER, Claim
 
 PROBE_SCORE_MAX = 100
 PROBE_SCORE_EXTENSION = 50
@@ -161,35 +157,16 @@ def _ext_of(url: str) -> str:
 
 
 def probe_format(head: bytes, filename: str = "") -> Optional[Type[Demuxer]]:
-    """Score all registered demuxers (av_probe_input_format analog),
-    beside the reference's unported ones (io/unported.py) in the
-    reference's order: where one of those scores highest, raise
-    DemuxerNotFound naming its module."""
+    """Score all registered demuxers (av_probe_input_format analog)."""
     best, best_score = None, 0
     ext = _ext_of(filename)
-    for cls in _probe_order():
+    for cls in _DEMUXERS.values():
         score = cls.probe(head, filename)
         if score == 0 and ext and ext in cls.extensions:
             score = PROBE_SCORE_EXTENSION
         if score > best_score:
             best, best_score = cls, score
-    if isinstance(best, type) and issubclass(best, Claim):
-        raise _unported(best.name)
     return best
-
-
-def _probe_order() -> list:
-    """The ported demuxers and the unported claims in the reference's
-    order of registration, then any demuxer the reference lacks."""
-    known = {**CLAIMS, **_DEMUXERS}
-    order = [known[n] for n in REFERENCE_ORDER if n in known]
-    return order + [c for n, c in _DEMUXERS.items()
-                    if n not in REFERENCE_ORDER]
-
-
-def _unported(name: str) -> DemuxerNotFound:
-    return DemuxerNotFound(f"{name}: its demuxer "
-                           f"({CLAIMS[name].module}) is not ported")
 
 
 
@@ -213,8 +190,7 @@ def open_input(url, format: Optional[str] = None, **options) -> Demuxer:
     if format is not None:
         cls = _DEMUXERS.get(format)
         if cls is None:
-            raise _unported(format) if format in CLAIMS \
-                else DemuxerNotFound(format)
+            raise DemuxerNotFound(format)
         if cls.flags_no_file:
             d = cls(None, url=str(url))
             for k, v in options.items():

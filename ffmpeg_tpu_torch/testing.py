@@ -2127,3 +2127,208 @@ def image_source_md5s() -> list:
     """The md5 of each frame of ffv1_src.yuv, as framemd5 writes them."""
     return [hashlib.md5(f.to_bytes()).hexdigest()
             for f in mpeg2_clip(FFV1_FRAMES, FFV1_W, FFV1_H)]
+
+
+# --- bitstream filters, AV1 and VVC: chip_smoke.py's phase 30 --------------
+
+# the crafted VVC GOPs and their reference decodes' sha256, and the
+# crafted AV1 OBU stream (tools/gen_torch_vvc_av1_fixture.py)
+VVC_AV1 = DATA / "vvc_av1_streams.npz"
+# name → (seed, slice kinds, width, height, plan options, craft_gop
+# options): low-delay I P B B with MTT and two references in each list,
+# and a 10-bit GOP (tests/test_vvc_inter.py's recipes at full size)
+VVC_GOPS = {
+    "vvc_832x480": (30, "IPBB", 832, 480, {"stop_p": 0.4},
+                    {"mtt_depth_inter": 2, "mtt_depth_intra": 2,
+                     "nrefs": (2, 2)}),
+    "vvc10_416x240": (31, "IPBB", 416, 240, {"amp": 40},
+                      {"bit_depth": 10, "nrefs": (2, 2)}),
+}
+# the AV1 stream: AV1_TUS temporal units of AV1_W x AV1_H, a key frame
+# every AV1_GOP units, two frames in every AV1_PAIR-th unit
+AV1_W, AV1_H, AV1_TUS, AV1_GOP, AV1_PAIR = 1920, 1080, 30, 15, 5
+# command (w)'s noise input: BSF_CLIP frames of mpeg2_clip
+BSF_W, BSF_H, BSF_FRAMES = 352, 288, 3
+# the AV1 probe: its options
+AV1_PROBE_ARGS = ["-show_streams", "-show_packets", "-of", "json"]
+
+
+def vvc_plan_class(base):
+    """tests/test_vvc_inter.py's InterPlan (random inter intents over the
+    full toolset) over the Plan class `base` of either package's
+    codecs/vvc/ctu.py."""
+
+    class InterPlan(base):
+        def __init__(self, rng, modes=("skip", "merge", "amvp", "intra"),
+                     stop_p=1.0, mvd_amp=8, max_merge=6, **kw):
+            super().__init__(rng, **kw)
+            self.modes = modes
+            self.stop_p = stop_p
+            self.mvd_amp = mvd_amp
+            self.max_merge = max_merge
+
+        def split_mode(self, x0, y0, log2w, log2h, allowed, forced):
+            opts = [o for o in allowed if o != "none"]
+            if forced:
+                return "qt" if "qt" in allowed else opts[0]
+            if not opts or self.rng.random() < self.stop_p:
+                return "none"
+            return str(self.rng.choice(opts))
+
+        def cu_mode(self, x0, y0, log2w, log2h):
+            return str(self.rng.choice(self.modes))
+
+        def merge_index(self, x0, y0, max_cand):
+            return int(self.rng.integers(0, min(max_cand,
+                                                self.max_merge)))
+
+        def amvp_choice(self, x0, y0, is_b, w, h, nact):
+            pred = str(self.rng.choice(["l0", "l1", "bi"] if is_b
+                                       else ["l0"]))
+            a = self.mvd_amp
+            return {"pred": pred,
+                    "ref_idx": [int(self.rng.integers(0, max(1, nact[i])))
+                                for i in range(2)],
+                    "mvd": [(int(self.rng.integers(-a, a + 1)),
+                             int(self.rng.integers(-a, a + 1)))
+                            for _ in range(2)],
+                    "mvp": [int(self.rng.integers(0, 2))
+                            for _ in range(2)]}
+
+        def cu_coded(self, x0, y0):
+            return bool(self.rng.integers(0, 2))
+
+        def cbf(self, x0, y0, log2, c):
+            return bool(self.rng.integers(0, 2))
+
+    return InterPlan
+
+
+def craft_vvc(craft, base, seed: int, kinds: str, w: int, h: int,
+              plan_kw=None, **kw) -> bytes:
+    """A low-delay GOP crafted by `craft` (either package's
+    codecs/vvc/craft.py) with InterPlan over `base` from `seed`
+    (tests/test_vvc_inter.py's _gop)."""
+    rng = np.random.default_rng(seed)
+    cls = vvc_plan_class(base)
+    frames = [(k, cls(rng, **(plan_kw or {}))) for k in kinds]
+    return craft.craft_gop(frames, w, h, log2_min_cb=3, log2_min_qt=3, **kw)
+
+
+def craft_av1(A, w: int = AV1_W, h: int = AV1_H, n: int = AV1_TUS,
+              seed: int = 0) -> list:
+    """Temporal units by `A` (either package's codecs/av1.py) with its
+    own writers (tests/test_av1.py's recipe): a temporal delimiter, the
+    sequence header in the first unit, then a frame header and a tile
+    group of seeded bytes per frame; a key frame every AV1_GOP units,
+    inter frames refreshing one slot each, and two frames in every
+    AV1_PAIR-th unit (for av1_frame_split)."""
+    rng = np.random.default_rng(seed)
+    seq = A.Av1SequenceHeader(
+        max_frame_width=w, max_frame_height=h, frame_width_bits=11,
+        frame_height_bits=11, enable_order_hint=1, order_hint_bits=7)
+    tus, hint = [], 0
+    for i in range(n):
+        obus = [A.wrap_obu(A.OBU_TEMPORAL_DELIMITER, b"")]
+        if i == 0:
+            obus.append(A.wrap_obu(A.OBU_SEQUENCE_HEADER,
+                                   A.write_sequence_header(seq)))
+        for k in range(2 if i % AV1_PAIR == AV1_PAIR - 1 else 1):
+            if i % AV1_GOP == 0 and k == 0:
+                hd = A.Av1FrameHeader(frame_type=A.KEY_FRAME, show_frame=1)
+                size = 6000
+            else:
+                hd = A.Av1FrameHeader(
+                    frame_type=A.INTER_FRAME, show_frame=1,
+                    order_hint=hint % 128, refresh_frame_flags=1 << (hint % 8),
+                    ref_frame_idx=[0] * 7)
+                size = 1200
+            hint += 1
+            obus.append(A.wrap_obu(A.OBU_FRAME_HEADER,
+                                   A.write_frame_header(hd, seq)))
+            obus.append(A.wrap_obu(A.OBU_TILE_GROUP, rng.integers(
+                0, 256, size, np.uint8).tobytes()))
+        tus.append(b"".join(obus))
+    return tus
+
+
+def vvc_av1_stream(name: str) -> bytes:
+    """A stream of VVC_AV1 as its bytes: a name of VVC_GOPS, or "av1"
+    (the OBU stream's temporal units joined)."""
+    return np.load(VVC_AV1)[name].tobytes()
+
+
+def av1_units() -> list:
+    """The AV1 stream's temporal units."""
+    z = np.load(VVC_AV1)
+    data, out, off = z["av1"].tobytes(), [], 0
+    for n in z["av1_lengths"].tolist():
+        out.append(data[off:off + n])
+        off += n
+    return out
+
+
+def vvc_golden(name: str) -> list:
+    """The sha256 of each plane of each picture of the reference's
+    decode of VVC_GOPS' stream `name` (y, u, v of picture 0, then 1...)."""
+    return [str(s) for s in np.load(VVC_AV1)[f"{name}_sha256"]]
+
+
+def write_vvc_av1_sources(d) -> None:
+    """Phase 30's inputs in directory `d`: vvc.266 and vvc10.266 (the
+    VVC GOPs), av1.obu, and bsf_clip.y4m (mpeg2_clip)."""
+    d = Path(d)
+    (d / "vvc.266").write_bytes(vvc_av1_stream("vvc_832x480"))
+    (d / "vvc10.266").write_bytes(vvc_av1_stream("vvc10_416x240"))
+    (d / "av1.obu").write_bytes(vvc_av1_stream("av1"))
+    write_y4m(d / "bsf_clip.y4m", mpeg2_clip(BSF_FRAMES, BSF_W, BSF_H))
+
+
+def bsf_av1_vvc_commands(d) -> dict:
+    """Phase 30's command lines in directory `d` (write_vvc_av1_sources,
+    and phase 26 (c)'s out.mp4 of the 1920x1088 H.264 stream): (w) the
+    bitstream filters (w_unknown names a filter neither package has), (x)
+    the AV1 stream copied and filtered, (y) the VVC GOPs to framemd5 and
+    to MPEG-2 in Matroska."""
+    d = str(d)
+    return {
+        "w_h264": ["-i", f"{d}/out.mp4", "-c", "copy", "-bsf:v",
+                   "h264_mp4toannexb", f"{d}/out_annexb.ts"],
+        "w_hevc_mp4": ["-i", str(HEVC_BENCH), "-c", "copy",
+                       f"{d}/hevc.mp4"],
+        "w_hevc": ["-i", f"{d}/hevc.mp4", "-c", "copy", "-bsf:v",
+                   "hevc_mp4toannexb", f"{d}/hevc_annexb.ts"],
+        "w_vp9": ["-i", str(VP9_BENCH), "-c", "copy", "-bsf:v",
+                  "vp9_superframe_split", f"{d}/vp9_split.ivf"],
+        "w_noise": ["-i", f"{d}/bsf_clip.y4m", "-c", "copy", "-bsf:v",
+                    "noise=amount=50:seed=7", f"{d}/noise.y4m"],
+        "w_setts": ["-i", f"{d}/out.mp4", "-c", "copy", "-bsf:v",
+                    "setts=offset=7", "-f", "framemd5", f"{d}/setts.md5"],
+        "w_dts2pts": ["-i", f"{d}/out.mp4", "-c", "copy", "-bsf:v",
+                      "dts2pts", "-f", "framemd5", f"{d}/dts2pts.md5"],
+        "w_unknown": ["-i", f"{d}/bsf_clip.y4m", "-c", "copy", "-bsf:v",
+                      "nosuch_bsf", f"{d}/refused.y4m"],
+        "x_ivf": ["-i", f"{d}/av1.obu", "-c", "copy", f"{d}/av1.ivf"],
+        "x_mp4": ["-i", f"{d}/av1.obu", "-c", "copy", f"{d}/av1.mp4"],
+        "x_mkv": ["-i", f"{d}/av1.obu", "-c", "copy", f"{d}/av1.mkv"],
+        "x_split": ["-i", f"{d}/av1.obu", "-c", "copy", "-bsf:v",
+                    "av1_frame_split", f"{d}/av1_split.ivf"],
+        "x_meta": ["-i", f"{d}/av1.obu", "-c", "copy", "-bsf:v",
+                   "av1_metadata=color_range=pc:color_primaries=9",
+                   f"{d}/av1_meta.ivf"],
+        "y_md5": ["-i", f"{d}/vvc.266", "-f", "framemd5",
+                  f"{d}/out_vvc.md5"],
+        "y_10": ["-i", f"{d}/vvc10.266", "-f", "framemd5",
+                 f"{d}/out_vvc10.md5"],
+        "y_m2v": ["-i", f"{d}/vvc.266", "-c:v", "mpeg2video",
+                  f"{d}/out_vvc_m2v.mkv"],
+    }
+
+
+# the outputs of (w) and (x) whose sha256 the goldens hold, by command
+BSF_FILES = {"w_h264": "out_annexb.ts", "w_hevc_mp4": "hevc.mp4",
+             "w_hevc": "hevc_annexb.ts", "w_vp9": "vp9_split.ivf",
+             "w_noise": "noise.y4m", "w_setts": "setts.md5",
+             "w_dts2pts": "dts2pts.md5", "x_ivf": "av1.ivf",
+             "x_mp4": "av1.mp4", "x_mkv": "av1.mkv",
+             "x_split": "av1_split.ivf", "x_meta": "av1_meta.ivf"}

@@ -20,7 +20,8 @@ Bars:
   equal flags and the stream's PSNR within 0.1 dB (test_torch_mpeg2_enc.
   py); and there the port's CLI writes what the port's own encoder makes
   of the frames the CLI decoded, byte for byte;
-- -bsf raises the named NotSupported (codecs/bsf.py is not ported).
+- -bsf:v, -bsf:a and -bsf byte-equal to the reference CLI's output
+  (codecs/bsf.py; test_torch_bsf_av1.py holds every filter).
 """
 
 import inspect
@@ -49,8 +50,8 @@ from torch_io_util import DATA, differing, plain, seeded_wav
 
 CLI_MODULES = {
     "cli/sync_queue.py": set(), "cli/textformat.py": set(),
-    "cli/ffmpeg.py": {"<imports>", "_build_bsf_chain", "_build_fc_chain",
-                      "_build_chain", "transcode", "main"},
+    "cli/ffmpeg.py": {"<imports>", "_build_fc_chain", "_build_chain",
+                      "transcode", "main"},
     "cli/ffprobe.py": {"<imports>", "main"},
 }
 
@@ -374,13 +375,22 @@ def test_probe_of_the_remuxes_prints_the_reference_text(tmp_path, inp,
 
 @pytest.mark.parametrize("bsf", ["-bsf:v", "-bsf:a", "-bsf"])
 def test_bsf_raises_named_not_supported(tmp_path, inp, bsf):
-    src = inp["wav"] if bsf == "-bsf:a" else inp["y4m"]
-    out = tmp_path / ("o.wav" if bsf == "-bsf:a" else "o.y4m")
-    argv = ["-i", str(src), "-c", "copy", bsf, "noise=amount=50:seed=7",
-            "-y", str(out)]
-    assert main(argv, device="cpu") == 1
-    with pytest.raises(NotSupported, match="codecs/bsf.py"):
-        cli.transcode(cli.parse_args(argv), "cpu")
+    """Once refused while codecs/bsf.py was unported: the seeded noise
+    filter on a copied stream (video, audio, or every stream) writes the
+    reference CLI's bytes."""
+    src = "{wav}" if bsf == "-bsf:a" else "{y4m}"
+    out = "o.wav" if bsf == "-bsf:a" else "o.y4m"
+    r = _both(tmp_path, inp, ["-i", src, "-c", "copy", bsf,
+                              "noise=amount=50:seed=7", "-y",
+                              "{d}/" + out], [out])
+    assert r["ref"][0] == r["port"][0] == 0
+    assert r["port"][1][out] == r["ref"][1][out]
+    clean = tmp_path / "clean"
+    clean.mkdir()
+    argv = ["-i", str(inp["wav" if bsf == "-bsf:a" else "y4m"]), "-c",
+            "copy", "-y", str(clean / out)]
+    assert main(argv, device="cpu") == 0
+    assert (clean / out).read_bytes() != r["port"][1][out]
 
 
 def test_map_of_a_second_input_raises_not_supported(tmp_path, inp):

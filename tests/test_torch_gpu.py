@@ -26,7 +26,10 @@ chip_smoke.py phase 28's command (l) (the flagship over loopback HTTP)
 against the same command from the file; the PNG, FFV1 and VP8 decoders'
 planes on the card against the CPU decode, and phase 29's command (t)
 (the VP8 clip to MPEG-2 through the CLI, K2 once per P frame) against
-the CLI on the CPU and the reference's committed sizes.
+the CLI on the CPU and the reference's committed sizes; the VVC
+decoder on small crafted GOPs (serial and threads=4) against the CPU and
+on the committed 10-bit GOP against the reference's sha256, and phase
+30's -bsf and AV1 copy commands against the reference CLI's sha256.
 Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
@@ -1063,3 +1066,58 @@ def test_cli_vp8_to_mpeg2_on_card_launches_k2(cuda, tmp_path):
     for ref in (sizes, [len(x) for x in want]):
         assert len(ref) == len(got)
         assert max(abs(len(a) / b - 1) for a, b in zip(got, ref)) <= 0.01
+
+
+@pytest.mark.parametrize("gop", [(20, "IPBB", 96, 64, {"stop_p": 0.5},
+                                  {"mtt_depth_inter": 2,
+                                   "mtt_depth_intra": 2, "nrefs": (2, 2)}),
+                                 (18, "IPBB", 64, 64, {"amp": 40},
+                                  {"bit_depth": 10, "nrefs": (2, 2)})])
+def test_vvc_gops_on_card_match_cpu(cuda, gop):
+    """Small GOPs crafted by the port's own writer (testing.craft_vvc, the
+    recipe of the reference's tests): open_decoder("vvc") on the card,
+    serial and with threads=4, every plane on the card and equal to the
+    CPU decode (8-bit and 10-bit)."""
+    from ffmpeg_tpu_torch.codecs.vvc import craft
+    from ffmpeg_tpu_torch.codecs.vvc.ctu import Plan
+    seed, kinds, w, h, plan_kw, kw = gop
+    data = fx.craft_vvc(craft, Plan, seed, kinds, w, h, plan_kw, **kw)
+    outs = []
+    for dev, threads in ((cuda, 1), (cuda, 4), ("cpu", 1)):
+        outs.append(CodecContext.open_decoder(
+            CodecParameters(codec_id="vvc"), {"threads": threads},
+            device=dev).decode_all([Packet(data=data, pts=0)]))
+    assert len(outs[0]) == len(kinds)
+    for a, b, c in zip(*outs):
+        assert all(p.device.type == "cuda" for p in a.planes + b.planes)
+        for x, y, z in zip(a.planes, b.planes, c.planes):
+            assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+
+
+def test_committed_vvc_gop_on_card_matches_reference(cuda):
+    """The committed 416x240 10-bit GOP (phase 30 (y)) on the card: the
+    reference decoder's sha256, uint16 planes."""
+    import hashlib
+    frames = CodecContext.open_decoder(
+        CodecParameters(codec_id="vvc"), device=cuda).decode_all(
+        [Packet(data=fx.vvc_av1_stream("vvc10_416x240"), pts=0)])
+    assert all(p.dtype == torch.uint16 for f in frames for p in f.planes)
+    assert [hashlib.sha256(p.cpu().numpy().tobytes()).hexdigest()
+            for f in frames for p in f.planes] == \
+        fx.vvc_golden("vvc10_416x240")
+
+
+@pytest.mark.parametrize("name", ["w_noise", "w_vp9", "x_ivf", "x_mp4",
+                                  "x_mkv", "x_split"])
+def test_cli_bsf_and_av1_remux_on_card_match_reference(cuda, tmp_path,
+                                                       name):
+    """Phase 30's -bsf and AV1 commands through the CLI on the card: the
+    reference CLI's sha256 (cli_golden.json)."""
+    import hashlib
+    import json
+    from ffmpeg_tpu_torch.cli.ffmpeg import main
+    fx.write_vvc_av1_sources(tmp_path)
+    assert main(fx.bsf_av1_vvc_commands(tmp_path)[name], device=cuda) == 0
+    sha = hashlib.sha256((tmp_path / fx.BSF_FILES[name]).read_bytes())
+    assert sha.hexdigest() == json.loads(
+        fx.CLI_GOLDEN.read_text())["w_sha256"][name]

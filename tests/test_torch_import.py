@@ -32,7 +32,7 @@ apply_lut3d; then the rest of the audio: the AAC encoder on a seeded
 signal, the Vorbis and Opus decoders (CELT, SILK, hybrid) on the first
 packets of committed streams against the reference's committed PCM, and
 an audio filter chain of audio6; then the CLI and I/O layer: every module
-of cli/, io/ (avio, demux, mux, unported, parsers, id3v2, rtmp,
+of cli/, io/ (avio, demux, mux, parsers, id3v2, rtmp,
 protocols and the 35 format modules), utils/aes.py and the rawvideo,
 PCM, FLAC, GIF, DCA, MLP and ADPCM codecs imported, the crafted VP9
 stream through main() to framemd5, the crafted H.264 stream remuxed to
@@ -44,8 +44,11 @@ main() to the reference CLI's sha256; then the image codecs, FFV1, VP8,
 WebP and the subtitle codecs: their modules imported and registered,
 committed PNG, FFV1, VP8, TIFF, QOI and EXR files decoded by main() (to
 the reference binary's sha256 where the fixture holds it), and an rgba
-picture encoded to WebP and QOI and a yuv420p one to FFV1; all on the
-CPU."""
+picture encoded to WebP and QOI and a yuv420p one to FFV1; then the
+bitstream filters, AV1 and VVC: a -bsf noise copy and the AV1 stream
+copied into IVF and through av1_frame_split to the reference CLI's
+sha256, the committed 10-bit VVC GOP to the reference CLI's framemd5,
+and the host Pipeline; all on the CPU."""
 
 import re
 import subprocess
@@ -306,7 +309,7 @@ import json
 import tempfile
 from pathlib import Path
 for mod in ("cli.ffmpeg", "cli.ffprobe", "cli.sync_queue", "cli.textformat",
-            "io.avio", "io.demux", "io.mux", "io.unported", "io.parsers",
+            "io.avio", "io.demux", "io.mux", "io.parsers",
             "io.id3v2", "io.rtmp", "io.protocols", "utils.aes",
             "codecs.rawvideo", "codecs.pcm", "codecs.flac",
             "codecs.flac_enc", "codecs.gif", "codecs.dca_tables",
@@ -314,7 +317,11 @@ for mod in ("cli.ffmpeg", "cli.ffprobe", "cli.sync_queue", "cli.textformat",
             "codecs.adpcm", "codecs.png", "codecs.tiff", "codecs.images",
             "codecs.exr", "codecs.ffv1", "codecs.ffv1_enc",
             "codecs.subtitles", "codecs.subtitles2", "codecs.webp",
-            "codecs.webp_vp8l", "codecs.webp_vp8l_enc",
+            "codecs.webp_vp8l", "codecs.webp_vp8l_enc", "codecs.cbs",
+            "codecs.bsf", "codecs.parsers", "codecs.av1", "parallel",
+            "parallel.executor", "parallel.pipeline",
+            *(f"codecs.vvc.{m}" for m in (
+                "tables", "cabac", "params", "inter", "ctu", "craft")),
             *(f"codecs.vp8.{m}" for m in (
                 "tables_gen", "idct", "pred", "mc", "lf", "header",
                 "block")),
@@ -404,6 +411,20 @@ with tempfile.TemporaryDirectory() as tmp:
                          "16x8", "-i", f"{tmp}/o.rgba", "-c:v", codec,
                          "-f", mux, f"{tmp}/o.{codec}"], device="cpu") == 0, \
             codec
+    from ffmpeg_tpu_torch.codecs.bsf import bsf_names
+    assert {"av1", "vvc", "h266"} <= set(decoder_names())
+    assert {"noise", "dts2pts", "av1_frame_split"} <= set(bsf_names())
+    fx.write_vvc_av1_sources(d)
+    gold = json.loads(CLI_GOLDEN.read_text())
+    cmds = fx.bsf_av1_vvc_commands(d)
+    for name in ("w_noise", "x_ivf", "x_split"):
+        assert cli_main(cmds[name], device="cpu") == 0, name
+        assert hashlib.sha256((d / fx.BSF_FILES[name]).read_bytes()
+                              ).hexdigest() == gold["w_sha256"][name], name
+    assert cli_main(cmds["y_10"], device="cpu") == 0
+    assert (d / "out_vvc10.md5").read_text() == gold["y_10_framemd5"]
+    from ffmpeg_tpu_torch.parallel.pipeline import Pipeline
+    assert list(Pipeline(range(4), [lambda x: x + 1]).run()) == [1, 2, 3, 4]
 assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")

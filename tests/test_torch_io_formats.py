@@ -14,10 +14,11 @@ later ones).
   durations) and the same packets (data, pts, dts, duration, flags,
   stream index, position, side data) on the files the reference's muxers
   wrote and on the committed fixtures; seeking lands on the same packets.
-- probe_format picks the reference's demuxer wherever that one is
-  ported, and nothing on an AV1 OBU stream, which only an unported
-  demuxer claims: open_input raises DemuxerNotFound there.  A GIF file
-  and an HLS playlist, once claimed so too, open as the reference's.
+- probe_format picks the reference's demuxer: every demuxer scores the
+  heads the unported demuxers' claims once held as the reference's does,
+  and an AV1 OBU stream, once refused, opens through codecs/av1.py's obu
+  demuxer as the reference's.  A GIF file and an HLS playlist, once
+  claimed so too, open as the reference's.
 - URLs (concat:, subfile,, cache:, async:, http://) open through
   io/protocols.py as the reference's, and an ID3v2-tagged MP3 through
   io/id3v2.py.
@@ -51,8 +52,7 @@ FORMATS = ["y4m", "rawvideo", "wav", "hashenc", "img_mjpeg", "ivf", "h26x",
 # reference's; every other module is the reference's code
 CHANGED = {
     "io/avio.py": set(),
-    "io/demux.py": {"<imports>", "open_input", "probe_format",
-                    "_probe_order", "_unported"},
+    "io/demux.py": set(),
     "io/mux.py": set(),
     "io/formats/mp3raw.py": set(),
     "codecs/rawvideo.py": {"<imports>", "RawVideoDecoder",
@@ -280,36 +280,40 @@ CLAIM_HEADS = [
 
 @pytest.mark.parametrize("k", range(len(CLAIM_HEADS)))
 def test_unported_claims_score_as_the_reference_probes(k):
-    """Each claim of io/unported.py scores a head as the reference's
-    demuxer of that name does (with and without its extension and an
-    rtsp:// name)."""
+    """Every demuxer of the port scores each head that the claims of the
+    unported demuxers once held (the port now has them all) as the
+    reference's demuxer of that name does, with and without its
+    extension and under an rtsp:// name, and probe_format picks the
+    reference's choice."""
     from ffmpeg_tpu.io import demux as ref_demux
-    from ffmpeg_tpu_torch.io.unported import CLAIMS, REFERENCE_ORDER
-    # obu registers when the reference's codecs package loads, before or
-    # within io's registrations as the imports fall: its place varies
-    assert [n for n in ref_demux._DEMUXERS if n != "obu"] == \
-        [n for n in REFERENCE_ORDER if n != "obu"]
-    assert set(CLAIMS) == set(REFERENCE_ORDER) - set(demuxer_names())
+    from ffmpeg_tpu_torch.io import demux
+    assert set(demux._DEMUXERS) == set(ref_demux._DEMUXERS)
     head = CLAIM_HEADS[k]
-    for name, claim in CLAIMS.items():
+    for name, cls in demux._DEMUXERS.items():
         ref = ref_demux._DEMUXERS[name]
-        assert claim.extensions == ref.extensions
+        assert cls.extensions == ref.extensions
         for fn in ("x.bin", f"x.{(ref.extensions or ('',))[0]}",
                    "rtsp://h/x"):
-            assert claim.probe(head, fn) == ref.probe(head, fn), (name, fn)
+            assert cls.probe(head, fn) == ref.probe(head, fn), (name, fn)
+    for fn in ("x.bin", "rtsp://h/x"):
+        want, got = ref_probe(head, fn), probe_format(head, fn)
+        assert (got and got.name) == (want and want.name), fn
 
 
 def test_each_remaining_claim_scores_one_of_the_heads():
-    """CLAIM_HEADS holds a head that each claim left in io/unported.py
-    (AV1's OBU stream alone) scores, so the test above compares every
-    claim where it wins; the heads of the claims that went (FLAC, GIF,
-    HLS, DTS, the DASH manifest) now go to the ported demuxers, which
-    score them as the reference's (test_probe_picks_the_reference_
-    demuxer_where_ported, test_torch_host_codecs.py)."""
-    from ffmpeg_tpu_torch.io.unported import CLAIMS
-    assert set(CLAIMS) == {"obu"}
-    for name, claim in CLAIMS.items():
-        assert any(claim.probe(h, "x.bin") > 0 for h in CLAIM_HEADS), name
+    """The last claim, AV1's OBU stream, is the obu demuxer of
+    codecs/av1.py now: it scores the OBU heads of CLAIM_HEADS as the
+    reference's (75 with a sequence header, 25 without), and the
+    registry has no demuxer the reference lacks."""
+    from ffmpeg_tpu.io import demux as ref_demux
+    from ffmpeg_tpu_torch.io import demux
+    from ffmpeg_tpu_torch.codecs.av1 import Av1ObuDemuxer as ObuDemuxer
+    assert demux._DEMUXERS["obu"] is ObuDemuxer
+    scores = [ObuDemuxer.probe(h, "x.bin") for h in CLAIM_HEADS]
+    assert scores == [ref_demux._DEMUXERS["obu"].probe(h, "x.bin")
+                      for h in CLAIM_HEADS]
+    assert 75 in scores and 25 in scores
+    assert set(demux._DEMUXERS) == set(ref_demux._DEMUXERS)
 
 
 def _obu_stream(path):
@@ -341,20 +345,18 @@ def _obu_stream(path):
 
 
 def test_probe_refuses_files_only_unported_demuxers_claim(tmp_path):
-    """A crafted AV1 OBU stream: the reference opens it, the port raises
-    DemuxerNotFound naming the module to port (its demuxer lives in
-    codecs/av1.py)."""
+    """A crafted AV1 OBU stream, once refused while codecs/av1.py was
+    unported: the port probes it as obu, by content and by name, and its
+    demuxer gives the reference's streams and packets."""
     path = _obu_stream(tmp_path / "t.obu")
-    d = ref_open_input(str(path))
-    assert d.name == "obu" and list(d.packets())
-    d.close()
     head = path.read_bytes()[:4096]
     assert ref_probe(head, str(path)).name == "obu"
-    for call in (lambda: probe_format(head, str(path)),
-                 lambda: open_input(str(path)),
-                 lambda: open_input(str(path), format="obu")):
-        with pytest.raises(DemuxerNotFound, match="codecs/av1.py"):
-            call()
+    assert probe_format(head, str(path)).name == "obu"
+    for fmt in (None, "obu"):
+        d = open_input(str(path), format=fmt)
+        assert d.name == "obu"
+        d.close()
+    assert_same_demux(str(path), n_min=2)
 
 
 def test_gif_and_hls_files_once_refused_open_as_the_reference(tmp_path):
@@ -403,11 +405,13 @@ def test_ts_and_avi_outputs_and_rtsp_urls_open_as_the_reference(tmp_path):
 
 
 def test_registries_hold_the_ported_formats():
+    # obu is codecs/av1.py's, registered when the codecs package loads
     assert demuxer_names() == [
         "aac", "ac3", "ass", "avi", "concat", "dash", "dts", "eac3",
         "exr_pipe", "flac", "flv", "gif", "h264", "hevc", "hls", "image2",
         "image_pipe", "ivf", "matroska", "mjpeg", "mlp", "mov", "mp3",
-        "mpegts", "mpegvideo", "ogg", "rawvideo", "rtsp", "s16le", "sdp",
+        "mpegts", "mpegvideo", "obu", "ogg", "rawvideo", "rtsp", "s16le",
+        "sdp",
         "srt", "truehd", "vvc", "wav", "webp_pipe", "webvtt",
         "yuv4mpegpipe"]
     # io/formats/rtpenc.py registers "rtp" and "rtsp" when it is

@@ -53,10 +53,22 @@ writes tests/data/port/cli_golden.json:
   the sizes of its MPEG-2 packets; `u_webp_sha256` and `u_ll_sha256`,
   the lossy WebP's decode and the lossless WebP file; `v_probe`,
   `-show_format -show_streams` of testing.IMAGE_PROBE_FILES with each
-  file's path as "{path}".
+  file's path as "{path}";
+- phase 30 (testing.bsf_av1_vvc_commands on testing.write_vvc_av1_sources,
+  in phase 26's directory): `w_sha256`, the sha256 of each output of
+  testing.BSF_FILES (the bitstream filters' files and framemd5 texts,
+  and the AV1 stream copied into IVF, MP4 and Matroska and through
+  av1_frame_split and av1_metadata; the copies' packets are the
+  stream's units, asserted), `w_refused`, the error class of each
+  command the reference's transcode refuses, `x_probe`, the AV1 IVF's
+  probe (testing.AV1_PROBE_ARGS) with its path as "{path}",
+  `x_decode_error`, the reference decoder's error on the AV1 stream
+  (class and text), `y_framemd5` and `y_10_framemd5`, the VVC GOPs'
+  framemd5 texts, and `y_m2v_packet_bytes`, the sizes of the 832x480
+  GOP's MPEG-2 packets.
 
 The card's machine has no JAX, so the reference's answers are committed.
-About six minutes on the CPU: the reference's H.264 decode of the 1080p
+About seven minutes on the CPU: the reference's H.264 decode of the 1080p
 I picture, and phase 28's AES-128 encryption (CBC, one block after
 another: about 100 s).  Usage:
 
@@ -256,6 +268,52 @@ def images(d: Path, out: dict) -> None:
     print("phase 29 goldens done", flush=True)
 
 
+def bsf_av1_vvc(d: Path, out: dict) -> None:
+    """Phase 30's goldens, in the directory of phase 26's commands (with
+    command (c)'s out.mp4 there)."""
+    from ffmpeg_tpu.cli import ffmpeg as ref_cli
+    from ffmpeg_tpu.codecs import CodecContext
+    fx.write_vvc_av1_sources(d)
+    cmds = fx.bsf_av1_vvc_commands(d)
+    refused = {}
+    for name, argv in cmds.items():
+        rc = ref_main(argv)
+        if rc != 0:
+            try:
+                ref_cli.transcode(ref_cli.parse_args(argv))
+            except Exception as e:      # noqa: BLE001 — its class is kept
+                refused[name] = type(e).__name__
+            assert name in refused, name
+        print(f"command {name}: rc {rc}", flush=True)
+    assert set(refused) == {"w_unknown"}, refused
+    out["w_refused"] = refused
+    out["w_sha256"] = {k: hashlib.sha256((d / f).read_bytes()).hexdigest()
+                       for k, f in fx.BSF_FILES.items()}
+    tus = fx.av1_units()
+    for ext in ("ivf", "mp4", "mkv"):
+        dm = open_input(str(d / f"av1.{ext}"))
+        assert [bytes(p.data) for p in dm.packets()] == tus, ext
+        dm.close()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert ref_probe([*fx.AV1_PROBE_ARGS, str(d / "av1.ivf")]) == 0
+    out["x_probe"] = buf.getvalue().replace(str(d / "av1.ivf"), "{path}")
+    dm = open_input(str(d / "av1.obu"))
+    try:
+        CodecContext.open_decoder(dm.streams[0].codecpar).decode_all(
+            list(dm.packets()))
+    except Exception as e:              # noqa: BLE001 — its class is kept
+        out["x_decode_error"] = [type(e).__name__, str(e)]
+    dm.close()
+    assert out["x_decode_error"][0] == "NotSupported"
+    out["y_framemd5"] = (d / "out_vvc.md5").read_text()
+    out["y_10_framemd5"] = (d / "out_vvc10.md5").read_text()
+    dm = open_input(str(d / "out_vvc_m2v.mkv"))
+    out["y_m2v_packet_bytes"] = [len(p.data) for p in dm.packets()]
+    dm.close()
+    print("phase 30 goldens done", flush=True)
+
+
 def main() -> int:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -288,6 +346,7 @@ def main() -> int:
         containers(d, out)
         assert ref_main(fx.cli_container_commands(d)["i_f32"]) == 0
         protocols(d, out)
+        bsf_av1_vvc(d, out)
     with tempfile.TemporaryDirectory() as tmp:
         images(Path(tmp), out)
     fx.CLI_GOLDEN.write_text(json.dumps(out, indent=1, sort_keys=True)
