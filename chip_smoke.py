@@ -89,7 +89,12 @@ Drives the port's paths through their user entry points at full size:
   (10-bit) VVC GOPs to framemd5, the first with threads=4 and to
   MPEG-2 with K2 in its motion search; and the flagship through the host
   Pipeline (parallel/pipeline.py: host prep in one thread, the device
-  stage with K1 in the next).
+  stage with K1 in the next);
+- the multi-device layer over mesh positions that are all the card:
+  the row-sharded deblock with halo exchange on 1080p planes, the VP9
+  loop filter in tile columns on the 1080p loop-filter keyframe, the
+  HEVC deblock and SAO in tile columns on the 1080p SAO keyframe, and
+  entry.dryrun_multichip(8).
 
 Phases, one line each:
 
@@ -445,10 +450,22 @@ Phases, one line each:
    one before it is on the card), each batch equal to phase 4's output,
    K1 launched once a batch and bit-exact against its plain version,
    the pipeline's wall time against the sum of its stages' busy time.
-Phases 9-16, 18, 20-25, 27 and 28 run PyTorch only: K1 and K2 are not on
-their paths, and each prints their launch counts over its run (0).  K2's
-launches in the JSON line count phases 7, 17, 26 (d), 29 (t) and 30
-(y), K1's phases 4, 19 and 30 (z).  Phases 13-30 print their wall
+31. the multi-device layer, every mesh position the card (n x cuda:0):
+   (a) parallel/halo.sharded_deblock of a seeded blocky 1088x1920 plane
+   over 4 positions and of a 1080x1920 one over 3, each equal to
+   deblock_plane on the whole plane; (b) codecs/vp9/lf_sharded
+   .loopfilter_sharded on phase 13's 1080p loop-filter keyframe over 2
+   positions (and 3 while the script stays well inside its limit), equal
+   to the host filter's planes of phase 13, with its ms and its
+   edge_filter calls; (c) codecs/hevc/filter_tpu.sharded_filters on
+   phase 15's 1080p SAO + deblock keyframe in 4 tile columns, equal to
+   filters_tpu on the card, timed beside it; (d) entry.dryrun_multichip(8)
+   (its five legs each against its unsharded counterpart); (e) (a) and
+   (c) over distinct cards where more than one is visible.
+Phases 9-16, 18, 20-25, 27, 28 and 31 run PyTorch only: K1 and K2 are
+not on their paths, and each prints their launch counts over its run
+(0).  K2's launches in the JSON line count phases 7, 17, 26 (d), 29 (t)
+and 30 (y), K1's phases 4, 19 and 30 (z).  Phases 13-31 print their wall
 times, and the script its own.  The CPU decodes that phases 13 and 18
 hold the card's frames against run in child processes started after
 phase 7 (cpu_oracle), beside the card's work.
@@ -678,7 +695,7 @@ def main() -> int:
     phase12_audio(dev, card)
     lf_key = phase13_vp9(dev, card, oracles["vp9"])
     phase14_vp9_window(dev, card, lf_key)
-    phase15_hevc(dev, card)
+    hevc_key = phase15_hevc(dev, card)
     phase16_h264(dev, card)
     clip, k2_enc = phase17_h264_encode(dev, card)
     phase18_mpeg2_decode(dev, card, mpeg2_pkts, oracles["mpeg2"])
@@ -696,6 +713,7 @@ def main() -> int:
         phase28_protocols(dev, card, Path(tmp), rows26, rows27, hls)
         rows29 = phase29_images(dev, card, Path(tmp))
         rows30 = phase30_bsf_av1_vvc(dev, card, Path(tmp), out)
+    phase31_multidevice(dev, card, lf_key, hevc_key)
     launches += k1_enc + rows30["z"]["k1"]
     k1_err = max(k1_err, rows30["z"]["k1_err"])
     k2_launches += (k2_enc + rows26["d"]["k2"] + rows29["t_m2v"]["k2"]
@@ -1578,12 +1596,10 @@ def phase13_vp9(dev, card, oracle) -> dict:
     frames 0-1.  Returns the loop-filter
     stream's keyframe for phase 14: its FrameState, pre-filter planes,
     the host filter's planes and times."""
-    import copy
     import statistics
     import numpy as np
     import torch
     from ffmpeg_tpu_torch.codecs import CodecContext
-    from ffmpeg_tpu_torch.codecs.vp9 import VP9Core, lf, recon_tpu
     from ffmpeg_tpu_torch.codecs.vp9.lf_tpu import loopfilter_frame_tpu
     from ffmpeg_tpu_torch.io.ivf import read_ivf
     from ffmpeg_tpu_torch.testing import (VP9_BENCH, VP9_GOLDEN, VP9_LF,
@@ -1673,24 +1689,14 @@ def phase13_vp9(dev, card, oracle) -> dict:
         if [plane_sha256(pl) for pl in f.planes] != list(lgold[i]):
             raise RuntimeError(f"lf stream frame {i} differs from its "
                                f"golden")
-    cap = VP9Core(native=True, device=dev)
-    cap.capture = []
-    cap.decode_frame(lpkts[0].data)
-    h, fs, rec = cap.capture[0]
-    recon_tpu.reconstruct(fs, rec, dev)
-    host = copy.copy(fs)
-    host.y, host.u, host.v = fs.y.copy(), fs.u.copy(), fs.v.copy()
-    pre = (fs.y.copy(), fs.u.copy(), fs.v.copy())
-    t = time.perf_counter()
-    lf.loopfilter_frame(host)
-    host_ms = (time.perf_counter() - t) * 1e3
+    key = vp9_lf_keyframe(dev, lpkts[0].data)
+    h, fs, host, host_ms = key["h"], key["fs"], key["host"], key["host_ms"]
     torch.cuda.synchronize()
     t = time.perf_counter()
     out = loopfilter_frame_tpu(fs, dev)
     torch.cuda.synchronize()
     tpu_ms = (time.perf_counter() - t) * 1e3
-    for name, a, b, o in zip("yuv", (host.y, host.u, host.v),
-                             (fs.y, fs.u, fs.v), out):
+    for name, a, b, o in zip("yuv", host, (fs.y, fs.u, fs.v), out):
         if not (np.array_equal(a, b) and o.device.type == dev.type):
             raise RuntimeError(f"loopfilter_frame_tpu on the card differs "
                                f"from lf.loopfilter_frame ({name})")
@@ -1709,21 +1715,36 @@ def phase13_vp9(dev, card, oracle) -> dict:
     print(f"phase 13 wall time: {time.monotonic() - t_phase:.1f} s "
           f"(of it {oracle.waited:.1f} s waiting for the CPU decode's "
           f"child)", flush=True)
-    return {"fs": fs, "pre": pre, "host": (host.y, host.u, host.v),
-            "host_ms": host_ms, "tpu_ms": tpu_ms}
+    return dict(key, tpu_ms=tpu_ms)
+
+
+def vp9_lf_keyframe(dev, data: bytes) -> dict:
+    """The loop-filter stream's keyframe `data` as phases 13 and 31 take
+    it: parsed, reconstructed on the card, its pre-filter planes, and
+    the host filter's planes with their ms."""
+    import copy
+    from ffmpeg_tpu_torch.codecs.vp9 import VP9Core, lf, recon_tpu
+    cap = VP9Core(native=True, device=dev)
+    cap.capture = []
+    cap.decode_frame(data)
+    h, fs, rec = cap.capture[0]
+    recon_tpu.reconstruct(fs, rec, dev)
+    host = copy.copy(fs)
+    host.y, host.u, host.v = fs.y.copy(), fs.u.copy(), fs.v.copy()
+    pre = (fs.y.copy(), fs.u.copy(), fs.v.copy())
+    t = time.perf_counter()
+    lf.loopfilter_frame(host)
+    host_ms = (time.perf_counter() - t) * 1e3
+    return {"h": h, "fs": fs, "pre": pre, "host": (host.y, host.u, host.v),
+            "host_ms": host_ms}
 
 
 def _wave_args(fs):
     """loopfilter_wavefront's arguments after the planes for a
     FrameState, with the 4px edge limits of its MI dims."""
-    import numpy as np
-    from ffmpeg_tpu_torch.codecs.vp9.lf_tpu import _luts
-    lvl8 = np.zeros((fs.sb_rows * 8, fs.sb_cols * 8), np.int32)
-    lvl8[:fs.rows, :fs.cols] = fs.lf_lvl
-    pw, ph = fs.cols * 8, fs.rows * 8
-    return (fs.wd_v, fs.wd_h, fs.wd_v_uv, fs.wd_h_uv, lvl8,
-            *_luts(fs.h.sharpness), fs.sb_rows, fs.sb_cols,
-            (pw >> 2, ph >> 2, pw >> 3, ph >> 3))
+    from ffmpeg_tpu_torch.codecs.vp9.lf_tpu import frame_lf_args
+    maps, lvl8, lim, mblim, dims = frame_lf_args(fs)
+    return (*maps, lvl8, lim, mblim, fs.sb_rows, fs.sb_cols, dims)
 
 
 def vp9_window_profile(device: str = "cuda:0"):
@@ -1978,18 +1999,20 @@ def _hevc_check(frames, gold, dev, what):
                                f"reference's hashes in {bad}")
 
 
-def phase15_hevc(dev, card) -> None:
+def phase15_hevc(dev, card) -> dict:
     """The HEVC decoder at full width on the card: the 3-frame bench
     stream through open_decoder("hevc") against the reference's hashes,
     timed with each picture's split into host parse and device; the
     device replay of its 3 recorded pictures (benchrows.recon_row_hevc's
     device_recon_fps); the crafted SAO + deblock stream against its
     golden, and filters_tpu on its keyframe against the host filter.py,
-    timed; launches by torch.profiler in a child process."""
+    timed; launches by torch.profiler in a child process.  Returns that
+    keyframe for phase 31: its FrameDec, its pre-filter planes on the
+    card, filters_tpu's planes and time."""
     import numpy as np
     import torch
     from ffmpeg_tpu_torch.codecs.hevc import filter as host_filter
-    from ffmpeg_tpu_torch.codecs.hevc import filter_tpu, recon_tpu
+    from ffmpeg_tpu_torch.codecs.hevc import recon_tpu
     from ffmpeg_tpu_torch.core.packet import Packet
     from ffmpeg_tpu_torch.testing import (HEVC_BENCH, HEVC_GOLDEN, HEVC_SAO,
                                           HEVC_SMALL, hevc_decode,
@@ -2058,10 +2081,9 @@ def phase15_hevc(dev, card) -> None:
     swall = (time.perf_counter() - t) * 1e3
     _hevc_check(sframes, gold["sao_deblock"], dev, "SAO + deblock stream")
     sst = sctx.codec.stats
-    dec0, rec0 = sctx.codec.capture[0]
-    pre = recon_tpu.reconstruct(dec0, rec0, dev)
-    filt_ms = cuda_ms(lambda: filter_tpu.filters_tpu(dec0, *pre), 3)
-    out = filter_tpu.filters_tpu(dec0, *pre)
+    key = hevc_sao_keyframe(dev, *sctx.codec.capture[0])
+    dec0, pre, out, filt_ms = (key[k] for k in ("dec", "pre", "out",
+                                                "filt_ms"))
     dec0.y[:], dec0.u[:], dec0.v[:] = (p.cpu().numpy() for p in pre)
     t = time.perf_counter()
     host_filter.deblock_frame(dec0)
@@ -2086,6 +2108,20 @@ def phase15_hevc(dev, card) -> None:
           f"P frame 1: {prof['p']}", flush=True)
     print(f"phase 15 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
+    return key
+
+
+def hevc_sao_keyframe(dev, dec, rec) -> dict:
+    """The SAO + deblock stream's keyframe as phases 15 and 31 take it,
+    from the decoder's capture (dec, rec): its FrameDec, its pre-filter
+    planes reconstructed on the card, filters_tpu's planes and ms (CUDA
+    events, mean of 3)."""
+    from ffmpeg_tpu_torch.codecs.hevc import filter_tpu, recon_tpu
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    pre = recon_tpu.reconstruct(dec, rec, dev)
+    filt_ms = cuda_ms(lambda: filter_tpu.filters_tpu(dec, *pre), 3)
+    return {"dec": dec, "pre": pre, "out": filter_tpu.filters_tpu(dec, *pre),
+            "filt_ms": filt_ms}
 
 
 def _h264_split(st: dict) -> str:
@@ -4677,6 +4713,211 @@ def phase30_bsf_av1_vvc(dev, card, d: Path, flagship) -> dict:
     print(f"phase 30 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
     return rows
+
+
+def _blocky_plane(rng, h: int, w: int):
+    """Per-8x8 constant + noise: content whose block edges filter."""
+    import numpy as np
+    base = rng.integers(0, 255, (-(-h // 8), w // 8)).repeat(8, 0).repeat(
+        8, 1)[:h]
+    return np.clip(base + rng.integers(-3, 4, (h, w)), 0, 255).astype(
+        np.uint8)
+
+
+def _sharded_deblock_check(plane, n: int, devices, what: str) -> float:
+    """sharded_deblock of `plane` over n positions of `devices` against
+    deblock_plane on the whole plane, bit for bit; returns its ms (CUDA
+    events on the first position's card, mean of 3)."""
+    import torch
+    from ffmpeg_tpu_torch.ops.deblock import deblock_plane
+    from ffmpeg_tpu_torch.parallel.halo import sharded_deblock
+    from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    mesh = make_mesh(n, spatial=n, devices=devices)
+    got = sharded_deblock(plane, mesh)
+    want = deblock_plane(plane)
+    if not (torch.equal(got, want) and got.device == plane.device):
+        raise RuntimeError(f"phase 31 (a): sharded_deblock differs from "
+                           f"deblock_plane ({what})")
+    if torch.equal(want, plane):
+        raise RuntimeError(f"phase 31 (a): the filter left {what} as it was")
+    return cuda_ms(lambda: sharded_deblock(plane, mesh), 3)
+
+
+def _sharded_filters_check(key, n: int, devices, what: str) -> float:
+    """sharded_filters of phase 15's keyframe over n positions of
+    `devices` against filters_tpu on the card, bit for bit; returns its
+    ms (CUDA events, mean of 3)."""
+    import copy
+    import torch
+    from ffmpeg_tpu_torch.codecs.hevc.filter_tpu import sharded_filters
+    from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    dec = copy.copy(key["dec"])
+    dec.y, dec.u, dec.v = key["pre"]
+    mesh = make_mesh(n, spatial=n, devices=devices)
+    got = sharded_filters(dec, mesh)
+    for name, g, w in zip("yuv", got, key["out"]):
+        if not torch.equal(g.to(w.device), w):
+            raise RuntimeError(f"phase 31 (c): sharded_filters differs from "
+                               f"filters_tpu ({what}, {name})")
+    return cuda_ms(lambda: sharded_filters(dec, mesh), 3)
+
+
+def phase31_alone(dev, card) -> None:
+    """Phase 31 without the phases before it: the keyframes of phases 13
+    and 15 taken as those phases take them, then phase 31 (its sharded
+    VP9 filter over 3 positions too)."""
+    from ffmpeg_tpu_torch.core.packet import Packet
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    from ffmpeg_tpu_torch.testing import HEVC_SAO, VP9_LF, hevc_pictures
+    _par, _tb, lpkts = read_ivf(VP9_LF.read_bytes())
+    lf_key = dict(vp9_lf_keyframe(dev, lpkts[0].data), tpu_ms=float("nan"))
+    sctx = _hevc_open(dev)
+    sctx.decode_all([Packet(data=hevc_pictures(HEVC_SAO.read_bytes())[0],
+                            pts=0)])
+    phase31_multidevice(dev, card, lf_key,
+                        hevc_sao_keyframe(dev, *sctx.codec.capture[0]))
+
+
+def phase31_multidevice(dev, card, lf_key, hevc_key) -> None:
+    """The multi-device layer with every mesh position on the card (phase
+    31 in the module docstring): (a) sharded_deblock, (b) the sharded VP9
+    loop filter on phase 13's 1080p keyframe, (c) sharded_filters on
+    phase 15's 1080p keyframe, (d) entry.dryrun_multichip(8), (e) (a)
+    and (c) over distinct cards where more than one is visible."""
+    import copy
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch import entry
+    from ffmpeg_tpu_torch.codecs.hevc.filter_tpu import filters_tpu
+    from ffmpeg_tpu_torch.codecs.vp9 import lf_tpu
+    from ffmpeg_tpu_torch.codecs.vp9.lf_sharded import loopfilter_sharded
+    from ffmpeg_tpu_torch.ops.deblock import deblock_plane
+    from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    t_phase = time.monotonic()
+    zero_counts()
+    rng = np.random.default_rng(31)
+
+    # (a) row-sharded deblock: 1088x1920 over 4 positions, 1080x1920 over 3
+    a_ms = {}
+    for h, n in ((1088, 4), (1080, 3)):
+        plane = torch.from_numpy(_blocky_plane(rng, h, 1920)).to(dev)
+        a_ms[(h, n)] = _sharded_deblock_check(plane, n, [dev] * n,
+                                              f"{h}x1920 over {n}")
+    whole_ms = cuda_ms(lambda: deblock_plane(plane), 3)
+    print(f"phase 31 (a) [{card}]: sharded_deblock of seeded blocky planes "
+          f"equal to deblock_plane on the whole plane: 1088x1920 over 4 "
+          f"positions {a_ms[(1088, 4)]:.3f} ms, 1080x1920 over 3 "
+          f"{a_ms[(1080, 3)]:.3f} ms, against deblock_plane's "
+          f"{whole_ms:.3f} ms on the 1080x1920 plane (CUDA events, mean of "
+          f"3)", flush=True)
+
+    # (b) the sharded VP9 loop filter on phase 13's keyframe
+    def vp9_run(n):
+        fs = copy.copy(lf_key["fs"])
+        fs.y, fs.u, fs.v = (p.copy() for p in lf_key["pre"])
+        # count the edge_filter calls of this run by wrapping the callee
+        calls, edge = [0], lf_tpu.edge_filter
+
+        def counted(*a):
+            calls[0] += 1
+            return edge(*a)
+        lf_tpu.edge_filter = counted
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = loopfilter_sharded(fs, make_mesh(n, spatial=n,
+                                                   devices=[dev] * n))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        finally:
+            lf_tpu.edge_filter = edge
+        for name, a, b, o in zip("yuv", lf_key["host"], (fs.y, fs.u, fs.v),
+                                 out):
+            if not (np.array_equal(a, b) and o.device == dev
+                    and np.array_equal(o.cpu().numpy(), a)):
+                raise RuntimeError(f"phase 31 (b): loopfilter_sharded over "
+                                   f"{n} differs from lf.loopfilter_frame "
+                                   f"({name})")
+        return ms, calls[0]
+    b_ms = {2: vp9_run(2)}
+    # n = 3 only while the script stays well inside its 1200 s limit
+    if time.monotonic() - T0 + 1.2 * b_ms[2][0] / 1e3 < 1080:
+        b_ms[3] = vp9_run(3)
+    # the launches of one edge_filter call, by torch.profiler: the host's
+    # launch calls (a session after the script's earlier ones may miss
+    # some of the device's records, so the kernels it saw are printed
+    # beside them)
+    s = torch.randint(0, 256, (64, 16), dtype=torch.int32, device=dev)
+    z = torch.full((64,), 8, dtype=torch.int32, device=dev)
+    dev_k, api = profile_device(lambda: lf_tpu.edge_filter(
+        s, z * 4, z, z, z, z > 0))
+    k_edge = sum(1 for name, _ in dev_k
+                 if not name.startswith(("Memcpy", "Memset")))
+    edge_us = sum(us for _, us in dev_k)
+    runs = "; ".join(
+        f"over {n} positions {ms:.1f} ms, {calls} edge_filter calls "
+        f"(~{calls * api} launches, derived; "
+        f"{ms * 1e3 / calls:.1f} us of wall a call)"
+        for n, (ms, calls) in b_ms.items())
+    print(f"phase 31 (b) [{card}]: loopfilter_sharded on phase 13's "
+          f"1920x1080 loop-filter keyframe (30 SB columns, 17 SB rows) "
+          f"equal to lf.loopfilter_frame: {runs}"
+          + ("" if 3 in b_ms else "; over 3 positions skipped (the "
+             "script's 1200 s limit)")
+          + f"; loopfilter_frame_tpu {lf_key['tpu_ms']:.1f} ms (phase 13); "
+          f"one edge_filter call {api} launch calls on the host, the "
+          f"trace's device records {k_edge} kernels, {edge_us:.1f} us busy "
+          f"(torch.profiler)",
+          flush=True)
+
+    # (c) the HEVC filters in 4 tile columns (15 CTB columns each)
+    c_ms = _sharded_filters_check(hevc_key, 4, [dev] * 4, "4 positions")
+    f_ms = cuda_ms(lambda: filters_tpu(hevc_key["dec"], *hevc_key["pre"]),
+                   3)
+    print(f"phase 31 (c) [{card}]: sharded_filters on phase 15's 1920x1080 "
+          f"SAO + deblock keyframe over 4 positions (60 CTB columns, 15 "
+          f"each) equal to filters_tpu on the card: {c_ms:.3f} ms against "
+          f"filters_tpu's {f_ms:.3f} ms (CUDA events, mean of 3; "
+          f"{hevc_key['filt_ms']:.3f} ms in phase 15)", flush=True)
+
+    # (d) the dryrun, eight positions of the card
+    t = time.perf_counter()
+    legs = entry.dryrun_multichip(8, device=dev)
+    torch.cuda.synchronize()
+    d_ms = (time.perf_counter() - t) * 1e3
+    lsb = legs["decode_scale_diff"]
+    print(f"phase 31 (d) [{card}]: entry.dryrun_multichip(8) on the card, "
+          f"mesh (4, 2): its 5 legs each equal to its unsharded "
+          f"counterpart (decode->scale within 1 LSB on <= "
+          f"{entry.DRYRUN_LSB_SHARE:.1%} of samples: {lsb['differ']} of "
+          f"{lsb['samples']} samples differ, max |diff| {lsb['max']}; the "
+          f"others bit-exact) in {d_ms:.1f} ms, wall", flush=True)
+
+    # (e) distinct cards
+    nc = torch.cuda.device_count()
+    if nc > 1:
+        cards = [torch.device("cuda", i) for i in range(nc)]
+        plane = torch.from_numpy(_blocky_plane(rng, 8 * 16 * nc,
+                                               1920)).to(dev)
+        e_a = _sharded_deblock_check(plane, nc, cards, f"over {nc} cards")
+        e_c = (_sharded_filters_check(hevc_key, nc, cards, f"{nc} cards")
+               if 60 % nc == 0 and 1920 % (16 * nc) == 0 else None)
+        print(f"phase 31 (e) [{card}]: over {nc} distinct cards: (a) "
+              f"{e_a:.3f} ms; (c) "
+              + (f"{e_c:.3f} ms" if e_c is not None else
+                 f"skipped (60 CTB columns do not split over {nc})"),
+              flush=True)
+    else:
+        print(f"phase 31 (e) [{card}]: one card visible, so no run over "
+              f"distinct cards", flush=True)
+    counts = read_counts()
+    if counts != "K1/K2 launches 0/0":
+        raise RuntimeError(f"phase 31: {counts}, not 0/0")
+    print(f"phase 31 {counts}; wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
 
 
 if __name__ == "__main__":

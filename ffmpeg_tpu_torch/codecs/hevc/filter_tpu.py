@@ -20,10 +20,10 @@ upsampling them to per-pixel maps as the reference's `_px_map` does
 the values are the same.  torch.roll wraps as jnp.roll does, and the
 same masks exclude the wrapped samples.
 
-Not ported yet: `sharded_filters` (:377) and `_sao_local` (:552), the
-reference's tile-column split of these filters over a device mesh; they
-wait for the port's multi-device item, and would sit at the end of
-this module.
+`sharded_filters` splits both filters over a device mesh in equal tile
+columns, with column halos between neighbours (parallel/mesh.ppermute);
+`_sao_local` is the SAO of one column strip with its 1-px halos, which
+the whole picture's SAO runs too, its halos the wrapped columns.
 """
 
 from __future__ import annotations
@@ -304,13 +304,14 @@ def build_sao_params(dec):
     return dict(planes=out, bd=bd, log2_ctb=sps.log2_ctb)
 
 
-def _ctb_index(device, log2, shift, Hc, Wc, cw):
-    """Each pixel's CTB (raster index), (Hc, Wc) int64 (component
-    coords): what the reference's `_px_map` repeats the per-CTB maps
-    by."""
+def _ctb_index(device, log2, shift, Hc, Wc, cw, x0=0):
+    """Each pixel's CTB (raster index into maps cw CTBs wide), (Hc, Wc)
+    int64 (component coords; x0 = the first column's offset into its
+    CTB): what the reference's `_px_map` repeats the per-CTB maps by."""
     s = log2 - shift
-    return _const(device, ("hevc_sao_ctb", s, Hc, Wc, cw), lambda: (
-        (np.arange(Hc)[:, None] >> s) * cw + (np.arange(Wc)[None, :] >> s)))
+    return _const(device, ("hevc_sao_ctb", s, Hc, Wc, cw, x0), lambda: (
+        (np.arange(Hc)[:, None] >> s) * cw
+        + ((np.arange(Wc)[None, :] + x0) >> s)))
 
 
 def sao_plane_tpu(plane, p, log2_ctb, bd, shift):
@@ -319,46 +320,9 @@ def sao_plane_tpu(plane, p, log2_ctb, bd, shift):
     input itself where no CTB has SAO on)."""
     if not np.any(p["typ"]):
         return plane
-    Hc, Wc = plane.shape
-    dev = plane.device
-    cw = p["typ"].shape[1]
-    pmax = (1 << bd) - 1
-    ctb = _ctb_index(dev, log2_ctb, shift, Hc, Wc, cw)
-
-    def px(name):
-        return _dev(p[name], dev).reshape(-1)[ctb]
-    typ = px("typ")
-    # band offset: the CTB's band table at the sample's band
-    band = plane >> (bd - 5)
-    lut = _dev(p["lut"], dev).reshape(-1)
-    band_out = (plane + lut[ctb * 32 + band]).clamp(0, pmax)
-    # edge offset
-    eo = px("eo")
-    offs = _dev(p["offs"], dev).reshape(-1)
-    ys = _const(dev, ("hevc_sao_ys", Hc), lambda: np.arange(
-        Hc, dtype=np.int32)[:, None])
-    xs = _const(dev, ("hevc_sao_xs", Wc), lambda: np.arange(
-        Wc, dtype=np.int32)[None, :])
-    lo_x, hi_x, lo_y, hi_y = px("lo_x"), px("hi_x"), px("lo_y"), px("hi_y")
-    ok_any = torch.zeros_like(plane, dtype=torch.bool)
-    cat_val = torch.zeros_like(plane)
-    for cls, (ady, adx, bdy, bdx) in enumerate(_EO_NEIGH):
-        a = torch.roll(plane, (-ady, -adx), (0, 1))
-        b = torch.roll(plane, (-bdy, -bdx), (0, 1))
-        okc = ((ys + min(ady, bdy) >= lo_y)
-               & (ys + max(ady, bdy) <= hi_y)
-               & (xs + min(adx, bdx) >= lo_x)
-               & (xs + max(adx, bdx) <= hi_x))
-        edge = 2 + torch.sign(plane - a) + torch.sign(plane - b)
-        cat = torch.where(edge == 2, 0,
-                          torch.where(edge < 2, edge + 1, edge))
-        val = offs[ctb * 5 + cat]
-        sel = (eo == cls) & okc
-        ok_any = ok_any | sel
-        cat_val = torch.where(sel, val, cat_val)
-    edge_out = torch.where(ok_any, (plane + cat_val).clamp(0, pmax), plane)
-    return torch.where(typ == 1, band_out,
-                       torch.where(typ == 2, edge_out, plane))
+    # torch.roll's wrap, as jnp.roll's: the masks exclude those samples
+    return _sao_local(plane, plane[:, -1:], plane[:, :1], p, 0, log2_ctb,
+                      bd, shift)
 
 
 def sao_frame_tpu(y, u, v, prm):
@@ -389,3 +353,164 @@ def filters_tpu(dec, y, u, v, marks=None):
     if dec.sps.sao_enabled and (dec.sh.sao_luma or dec.sh.sao_chroma):
         y, u, v = sao_frame_tpu(y, u, v, build_sao_params(dec))
     return y.to(dt), u.to(dt), v.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# tile-column sharding across the mesh
+
+
+def sharded_filters(dec, mesh, axis="spatial"):
+    """Deblock + SAO with the picture sharded in equal tile columns over
+    `mesh[axis]` (one tile column per device).  dec's planes (host
+    arrays or tensors) go to the devices in column strips; returns the
+    filtered (y, u, v) on the first strip's device, in the planes' type,
+    bit-exact with filters_tpu.  Cross-shard traffic: the vertical-edge
+    pass fetches the left neighbour's 8 (luma) / 4 (chroma) boundary
+    columns and returns the 3 / 1 filtered p-side columns; edge SAO
+    exchanges 1-px column halos.  With loop_filter_across_tiles=0 the
+    boundary tc is zero and the halo contents are never used.
+
+    Reference analog: tiles decoded by execute2 jobs + cross-tile
+    deblock (hevcdec.c:1118); here the tiles live on different devices
+    and the halos ride copies between them."""
+    from ...parallel.mesh import axis_devices, ppermute, to_device
+
+    sps = dec.sps
+    devices = axis_devices(mesh, axis)
+    ndev = len(devices)
+    W = sps.width
+    if W % (ndev * 16) or sps.ctb_width % ndev:
+        raise ValueError("sharded_filters: width must split into "
+                         "16px-aligned, whole-CTB equal columns")
+    Ws = W // ndev
+    bd = sps.bit_depth
+    planes = [torch.as_tensor(p) for p in (dec.y, dec.u, dec.v)]
+    dt = planes[0].dtype
+    fwd = [(i, (i + 1) % ndev) for i in range(ndev)]
+    bwd = [((i + 1) % ndev, i) for i in range(ndev)]
+
+    def split(a, axis=1):
+        """a's ndev equal strips along `axis`, strip k on device k."""
+        n = a.shape[axis] // ndev
+        a = torch.as_tensor(a)
+        return [to_device(a.narrow(axis, k * n, n), d)
+                for k, d in enumerate(devices)]
+
+    shards = [[s.to(torch.int32) for s in split(p)] for p in planes]
+
+    def v_pass(pls, tcm, betam, halo, back):
+        """One plane's vertical edges, strip by strip, each with its left
+        neighbour's `halo` columns (zero-padded to 8, which keeps the
+        passes' 8px edge grid); the boundary edge's `back` filtered
+        p-side columns go home.  betam None: chroma."""
+        left = ppermute([p[:, -halo:] for p in pls], fwd)
+        out = []
+        for k, (pl, lh) in enumerate(zip(pls, left)):
+            ext = torch.cat([lh.new_zeros(lh.shape[0], 8 - halo), lh, pl],
+                            dim=1)
+            if betam is None:
+                ext = _chroma_pass_v(ext, tcm[k], bd)
+            else:
+                ext = _luma_pass_v(ext, tcm[k], betam[k], bd)
+            out.append(ext)
+        # the boundary edge edits only p0..p2 (chroma: p0) of the halo;
+        # merging more would clobber the strip's own q-side edits near
+        # its right edge with stale halo copies
+        home = ppermute([e[:, 8 - back:8] for e in out], bwd)
+        return [torch.cat([e[:, 8:-back], h], dim=1) if k < ndev - 1
+                else e[:, 8:] for k, (e, h) in enumerate(zip(out, home))]
+
+    if not dec.sh.deblocking_disabled:
+        dprm = build_deblock_params(dec)
+
+        def edge_map(m, nedge):
+            """(nseg, nedge - 1) map of the edges at x = 8(j+1) → one
+            edge per 8px block (edge j at x = 8j, j = 0 zeroed), in
+            strips on the devices."""
+            out = np.zeros((m.shape[0], nedge), np.int32)
+            out[:, 1:] = m
+            return split(out)
+
+        y, u, v = shards
+        y = v_pass(y, edge_map(dprm["tc_v"], W // 8),
+                   edge_map(dprm["beta_v"], W // 8), 8, 3)
+        y = [_luma_pass_h(p, t, b, bd) for p, t, b in
+             zip(y, split(dprm["tc_h"], 0), split(dprm["beta_h"], 0))]
+        uv = []
+        for pls, (tcv, tch) in zip((u, v), (dprm["chroma"][1],
+                                            dprm["chroma"][2])):
+            pls = v_pass(pls, edge_map(tcv, W // 16), None, 4, 1)
+            uv.append([_chroma_pass_h(p, t, bd)
+                       for p, t in zip(pls, split(tch, 0))])
+        shards = [y] + uv
+    if dec.sps.sao_enabled and (dec.sh.sao_luma or dec.sh.sao_chroma):
+        sprm = build_sao_params(dec)
+        lc = sprm["log2_ctb"]
+        for c_idx, pls in enumerate(shards):
+            shift = 0 if c_idx == 0 else 1
+            p = sprm["planes"][c_idx]
+            l1 = ppermute([q[:, -1:] for q in pls], fwd)
+            r1 = ppermute([q[:, :1] for q in pls], bwd)
+            out = []
+            for k, pl in enumerate(pls):
+                # the strip's CTB columns, from the one of its first pixel
+                c0 = (k * Ws) >> lc
+                c1 = (((k + 1) * Ws - 1) >> lc) + 1
+                pk = {name: a[:, c0:c1] for name, a in p.items()}
+                out.append(pl if not np.any(pk["typ"]) else _sao_local(
+                    pl, l1[k], r1[k], pk, (k * Ws) >> shift, lc, bd, shift,
+                    c0))
+            shards[c_idx] = out
+    return tuple(torch.cat([to_device(s, devices[0]) for s in pls],
+                           dim=1).to(dt) for pls in shards)
+
+
+def _sao_local(pl, l1, r1, p, xs0, log2_ctb, bd, shift, c0=0):
+    """SAO for one column strip pl int32 (Hc, Wc) with its 1-px halos
+    l1, r1 (Hc, 1): p holds the per-CTB maps of the strip's CTB columns,
+    the first being CTB column c0; xs0 is the strip's first column in
+    the picture (component coords), for the tile-bound masks.  Each
+    pixel reads its CTB's values by its CTB index, as sao_plane_tpu
+    does (no per-pixel copy of the maps)."""
+    Hc, Wc = pl.shape
+    dev = pl.device
+    cw = p["typ"].shape[1]
+    pmax = (1 << bd) - 1
+    ctb = _ctb_index(dev, log2_ctb, shift, Hc, Wc, cw,
+                     xs0 - (c0 << (log2_ctb - shift)))
+
+    def px(name):
+        return _dev(p[name], dev).reshape(-1)[ctb]
+    typ = px("typ")
+    # band offset: the CTB's band table at the sample's band
+    band = pl >> (bd - 5)
+    lut = _dev(p["lut"], dev).reshape(-1)
+    band_out = (pl + lut[ctb * 32 + band]).clamp(0, pmax)
+    # edge offset
+    eo = px("eo")
+    offs = _dev(p["offs"], dev).reshape(-1)
+    ys = _const(dev, ("hevc_sao_ys", Hc), lambda: np.arange(
+        Hc, dtype=np.int32)[:, None])
+    xs = _const(dev, ("hevc_sao_xs", Wc, xs0), lambda: np.arange(
+        xs0, xs0 + Wc, dtype=np.int32)[None, :])
+    lo_x, hi_x, lo_y, hi_y = px("lo_x"), px("hi_x"), px("lo_y"), px("hi_y")
+    ext = torch.cat([l1, pl, r1], dim=1)
+    ok_any = torch.zeros_like(pl, dtype=torch.bool)
+    cat_val = torch.zeros_like(pl)
+    for cls, (ady, adx, bdy, bdx) in enumerate(_EO_NEIGH):
+        a = torch.roll(ext, (-ady, -adx), (0, 1))[:, 1:-1]
+        b = torch.roll(ext, (-bdy, -bdx), (0, 1))[:, 1:-1]
+        okc = ((ys + min(ady, bdy) >= lo_y)
+               & (ys + max(ady, bdy) <= hi_y)
+               & (xs + min(adx, bdx) >= lo_x)
+               & (xs + max(adx, bdx) <= hi_x))
+        edge = 2 + torch.sign(pl - a) + torch.sign(pl - b)
+        cat = torch.where(edge == 2, 0,
+                          torch.where(edge < 2, edge + 1, edge))
+        val = offs[ctb * 5 + cat]
+        sel = (eo == cls) & okc
+        ok_any = ok_any | sel
+        cat_val = torch.where(sel, val, cat_val)
+    edge_out = torch.where(ok_any, (pl + cat_val).clamp(0, pmax), pl)
+    return torch.where(typ == 1, band_out,
+                       torch.where(typ == 2, edge_out, pl))

@@ -160,43 +160,85 @@ def _alive(maps, lvl8):
             (wd_v_uv > 0) & lv, (wd_h_uv > 0) & lv)
 
 
-def sb_body(r, c, planes, params, alive, dims):
+def _v_edges(pl, n, prm, al, lim_wp, r0, x40, halo=8, x4_off=0):
+    """The n // 4 vertical edges from 4px edge column x40 over rows
+    r0..r0+n, left to right, in place.  pl is padded by 8 rows and
+    `halo` columns (8: the whole frame's padding; a column shard's halo
+    in lf_sharded); prm and al are indexed by pl's own edge columns,
+    x4_off is their global 4px offset (for the frame-edge gate)."""
+    for x4 in range(x40, x40 + n // 4):
+        # the gate's position terms, on the host
+        if not (0 < x4 + x4_off < lim_wp) or not al[r0 // 4:(r0 + n) // 4,
+                                                    x4].any():
+            continue
+        x = x4 * 4 + halo - 8
+        E, I, Hh, wd, gate = (p[r0:r0 + n, x4] for p in prm)
+        pl[r0 + 8:r0 + 8 + n, x:x + 16] = edge_filter(
+            pl[r0 + 8:r0 + 8 + n, x:x + 16], E, I, Hh, wd, gate)
+
+
+def _h_edges(pl, n, prm, al, lim_hp, c0, y40, halo=8):
+    """The n // 4 horizontal edges from 4px edge row y40 over columns
+    c0..c0+n, top to bottom, in place (pl as in _v_edges)."""
+    for y4 in range(y40, y40 + n // 4):
+        if not (0 < y4 < lim_hp) or not al[y4, c0 // 4:(c0 + n) // 4].any():
+            continue
+        yy, xc = y4 * 4, c0 + halo
+        E, I, Hh, wd, gate = (p[y4, c0:c0 + n] for p in prm)
+        pl[yy:yy + 16, xc:xc + n] = edge_filter(
+            pl[yy:yy + 16, xc:xc + n].T, E, I, Hh, wd, gate).T
+
+
+def sb_body(r, c, planes, params, alive, dims, halos=(8, 8), x4_off=(0, 0)):
     """Filter all edges of superblock (r, c) in reference order:
     vertical edges left→right, then horizontal top→bottom, in place.
-    planes = (y, u, v) 8-px-padded int32; params = _plane_params;
-    alive = _alive; dims = the 4px edge limits (lim_w, lim_h, lim_wc,
-    lim_hc)."""
+    planes = (y, u, v) int32, padded by 8 rows and by halos (luma,
+    chroma) columns; params = _plane_params; alive = _alive; dims = the
+    4px edge limits (lim_w, lim_h, lim_wc, lim_hc); x4_off = the global
+    4px offset of the planes' first column (luma, chroma)."""
     y, u, v = planes
     luma_v, luma_h, chroma_v, chroma_h = params
     al_v, al_h, al_vc, al_hc = alive
     lim_w, lim_h, lim_wc, lim_hc = dims
-
-    def v_pass(pl, n, prm, al, lim_wp, r0, x40):
-        for x4 in range(x40, x40 + n // 4):
-            # the gate's position terms, on the host
-            if not (0 < x4 < lim_wp) or not al[r0 // 4:(r0 + n) // 4,
-                                               x4].any():
-                continue
-            x = x4 * 4
-            E, I, Hh, wd, gate = (p[r0:r0 + n, x4] for p in prm)
-            pl[r0 + 8:r0 + 8 + n, x:x + 16] = edge_filter(
-                pl[r0 + 8:r0 + 8 + n, x:x + 16], E, I, Hh, wd, gate)
-
-    def h_pass(pl, n, prm, al, lim_hp, c0, y40):
-        for y4 in range(y40, y40 + n // 4):
-            if not (0 < y4 < lim_hp) or not al[y4, c0 // 4:(c0 + n) // 4
-                                               ].any():
-                continue
-            yy = y4 * 4
-            E, I, Hh, wd, gate = (p[y4, c0:c0 + n] for p in prm)
-            pl[yy:yy + 16, c0 + 8:c0 + 8 + n] = edge_filter(
-                pl[yy:yy + 16, c0 + 8:c0 + 8 + n].T, E, I, Hh, wd, gate).T
-
-    v_pass(y, 64, luma_v, al_v, lim_w, r * 64, c * 16)
-    h_pass(y, 64, luma_h, al_h, lim_h, c * 64, r * 16)
+    _v_edges(y, 64, luma_v, al_v, lim_w, r * 64, c * 16, halos[0], x4_off[0])
+    _h_edges(y, 64, luma_h, al_h, lim_h, c * 64, r * 16, halos[0])
     for pl in (u, v):
-        v_pass(pl, 32, chroma_v, al_vc, lim_wc, r * 32, c * 8)
-        h_pass(pl, 32, chroma_h, al_hc, lim_hc, c * 32, r * 8)
+        _v_edges(pl, 32, chroma_v, al_vc, lim_wc, r * 32, c * 8, halos[1],
+                 x4_off[1])
+        _h_edges(pl, 32, chroma_h, al_hc, lim_hc, c * 32, r * 8, halos[1])
+
+
+def loopfilter_planes(planes, maps, lvl8, lim, mblim, dims, device):
+    """The filter of whole (y, u, v) planes (SB-aligned, host or device)
+    on `device`: maps = (wd_v, wd_h, wd_v_uv, wd_h_uv), lvl8 the
+    (sb_rows * 8, sb_cols * 8) levels, lim/mblim = _luts, dims as in
+    sb_body.  Returns the filtered planes as uint8 tensors there."""
+    device = torch.device(device)
+
+    def pad8(a):
+        return F.pad(torch.as_tensor(a, device=device).to(torch.int32),
+                     (8, 8, 8, 8))
+
+    planes = tuple(pad8(p) for p in planes)
+    params = _plane_params(maps, lvl8, torch.as_tensor(lim, device=device),
+                           torch.as_tensor(mblim, device=device), device)
+    alive = _alive(maps, lvl8)
+    for r in range(lvl8.shape[0] // 8):
+        for c in range(lvl8.shape[1] // 8):
+            sb_body(r, c, planes, params, alive, dims)
+    return tuple(p[8:-8, 8:-8].to(torch.uint8) for p in planes)
+
+
+def frame_lf_args(fs):
+    """(maps, lvl8, lim, mblim, dims) of a FrameState: its width maps,
+    its levels on the superblock grid, the sharpness tables and the 4px
+    edge limits of its MI dims."""
+    lim, mblim = _luts(fs.h.sharpness)
+    lvl8 = np.zeros((fs.sb_rows * 8, fs.sb_cols * 8), np.int32)
+    lvl8[:fs.rows, :fs.cols] = fs.lf_lvl
+    pw, ph = fs.cols * 8, fs.rows * 8
+    dims = (pw >> 2, ph >> 2, pw >> 3, ph >> 3)
+    return (fs.wd_v, fs.wd_h, fs.wd_v_uv, fs.wd_h_uv), lvl8, lim, mblim, dims
 
 
 def loopfilter_frame_tpu(fs, device="cuda"):
@@ -204,29 +246,9 @@ def loopfilter_frame_tpu(fs, device="cuda"):
     Bit-exact vs lf.loopfilter_frame.  Returns the filtered planes on
     the device (uint8, fs's shapes), or None when the frame's filter
     level is 0."""
-    h = fs.h
-    if not h.filter_level:
+    if not fs.h.filter_level:
         return None
-    device = torch.device(device)
-    lim, mblim = _luts(h.sharpness)
-
-    def pad8(a):
-        return F.pad(torch.as_tensor(a, device=device).to(torch.int32),
-                     (8, 8, 8, 8))
-
-    planes = (pad8(fs.y), pad8(fs.u), pad8(fs.v))
-    lvl8 = np.zeros((fs.sb_rows * 8, fs.sb_cols * 8), np.int32)
-    lvl8[:fs.rows, :fs.cols] = fs.lf_lvl
-    pw, ph = fs.cols * 8, fs.rows * 8
-    dims = (pw >> 2, ph >> 2, pw >> 3, ph >> 3)
-    maps = (fs.wd_v, fs.wd_h, fs.wd_v_uv, fs.wd_h_uv)
-    params = _plane_params(maps, lvl8, torch.as_tensor(lim, device=device),
-                           torch.as_tensor(mblim, device=device), device)
-    alive = _alive(maps, lvl8)
-    for r in range(fs.sb_rows):
-        for c in range(fs.sb_cols):
-            sb_body(r, c, planes, params, alive, dims)
-    out = tuple(p[8:-8, 8:-8].to(torch.uint8) for p in planes)
+    out = loopfilter_planes((fs.y, fs.u, fs.v), *frame_lf_args(fs), device)
     fs.y[:] = out[0].cpu().numpy()
     fs.u[:] = out[1].cpu().numpy()
     fs.v[:] = out[2].cpu().numpy()

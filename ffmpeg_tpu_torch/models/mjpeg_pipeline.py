@@ -95,33 +95,52 @@ def _unpack_coeffs(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int16)
 
 
+def plane_dims(spec: DecodeScaleSpec) -> Tuple[Tuple[int, int],
+                                               Tuple[int, int]]:
+    """((h, w) luma, (h, w) chroma) of the reconstructed planes, in the
+    DCT-downscaled grid."""
+    lr = spec.lowres
+    cw, ch = spec.chroma_dims
+    return ((-(-spec.height // lr), -(-spec.width // lr)),
+            (-(-ch // lr), -(-cw // lr)))
+
+
+def scale_ops(spec: DecodeScaleSpec) -> list:
+    """The op list that scales the reconstructed planes to the output."""
+    (h_l, w_l), _ = plane_dims(spec)
+    src_fmt = {(2, 2): "yuv420p", (2, 1): "yuv422p",
+               (1, 1): "yuv444p"}[(spec.sub_w, spec.sub_h)]
+    return build_ops(ScaleSpec(
+        src_w=w_l, src_h=h_l, src_fmt=src_fmt,
+        dst_w=spec.out_w, dst_h=spec.out_h, dst_fmt=spec.out_fmt,
+        filter=spec.filter, src_range=True,      # JPEG = full range
+        src_chroma_loc="center"))
+
+
+def reconstruct_planes(spec: DecodeScaleSpec, coeff_y, coeff_u, coeff_v,
+                       q_luma, q_chroma, rows: Tuple[int, int] = None):
+    """[y, u, v] planes from wire coefficients; rows = (luma, chroma)
+    heights to crop to (default: the whole planes')."""
+    (h_l, w_l), (ch_l, cw_l) = plane_dims(spec)
+    hy, hc = rows or (h_l, ch_l)
+    return [jpeg_plane_reconstruct(_unpack_coeffs(c), q, h, w,
+                                   scale=spec.lowres)
+            for c, q, h, w in ((coeff_y, q_luma, hy, w_l),
+                               (coeff_u, q_chroma, hc, cw_l),
+                               (coeff_v, q_chroma, hc, cw_l))]
+
+
 def build_decode_scale(spec: DecodeScaleSpec) -> Callable:
     """Returns fn(coeff_y, coeff_u, coeff_v, q_luma, q_chroma) → list of
     output component planes (batched over the leading dim), on the device
     of coeff_y.  coeff_* are uint8 wire tensors (..., rows, cols,
     ncoeff*2): int16 zigzag coefficients as raw bytes (see pack_coeffs).
     Raises unless float32 matmuls run in full float32."""
-    lr = spec.lowres
-    w_l, h_l = -(-spec.width // lr), -(-spec.height // lr)
-    cw, ch = spec.chroma_dims
-    cw_l, ch_l = -(-cw // lr), -(-ch // lr)
-    src_fmt = {(2, 2): "yuv420p", (2, 1): "yuv422p",
-               (1, 1): "yuv444p"}[(spec.sub_w, spec.sub_h)]
-    scale_spec = ScaleSpec(
-        src_w=w_l, src_h=h_l, src_fmt=src_fmt,
-        dst_w=spec.out_w, dst_h=spec.out_h, dst_fmt=spec.out_fmt,
-        filter=spec.filter, src_range=True,      # JPEG = full range
-        src_chroma_loc="center")
-    scale_fn = compile_ops(build_ops(scale_spec))
+    scale_fn = compile_ops(scale_ops(spec))
 
     def fn(coeff_y, coeff_u, coeff_v, q_luma, q_chroma):
-        y = jpeg_plane_reconstruct(_unpack_coeffs(coeff_y), q_luma,
-                                   h_l, w_l, scale=lr)
-        u = jpeg_plane_reconstruct(_unpack_coeffs(coeff_u), q_chroma,
-                                   ch_l, cw_l, scale=lr)
-        v = jpeg_plane_reconstruct(_unpack_coeffs(coeff_v), q_chroma,
-                                   ch_l, cw_l, scale=lr)
-        return scale_fn([y, u, v])
+        return scale_fn(reconstruct_planes(spec, coeff_y, coeff_u, coeff_v,
+                                           q_luma, q_chroma))
 
     return fn
 

@@ -29,7 +29,10 @@ planes on the card against the CPU decode, and phase 29's command (t)
 the CLI on the CPU and the reference's committed sizes; the VVC
 decoder on small crafted GOPs (serial and threads=4) against the CPU and
 on the committed 10-bit GOP against the reference's sha256, and phase
-30's -bsf and AV1 copy commands against the reference CLI's sha256.
+30's -bsf and AV1 copy commands against the reference CLI's sha256;
+and the multi-device layer over mesh positions that are all the card
+(sharded_deblock, the sharded VP9 loop filter, sharded_filters and
+dryrun_multichip) against the unsharded paths on the card and the CPU.
 Marked
 `gpu`: they need a CUDA device (and nvcc for the kernels), and skip
 without one.  They use no jax, so on a machine with a
@@ -1121,3 +1124,91 @@ def test_cli_bsf_and_av1_remux_on_card_match_reference(cuda, tmp_path,
     sha = hashlib.sha256((tmp_path / fx.BSF_FILES[name]).read_bytes())
     assert sha.hexdigest() == json.loads(
         fx.CLI_GOLDEN.read_text())["w_sha256"][name]
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer, every mesh position the card (chip_smoke.py
+# phase 31 (a)-(d) at small sizes)
+
+
+def test_sharded_deblock_on_card_matches_unsharded(cuda):
+    """sharded_deblock over 4 positions of the card against deblock_plane
+    on the card and on the CPU, on blocky content that it filters."""
+    from ffmpeg_tpu_torch.ops.deblock import deblock_plane
+    from ffmpeg_tpu_torch.parallel.halo import sharded_deblock
+    from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 255, (16, 8)).repeat(8, 0).repeat(8, 1)
+    plane = torch.from_numpy(np.clip(base + rng.integers(-3, 4, (128, 64)),
+                                     0, 255).astype(np.uint8))
+    got = sharded_deblock(plane.to(cuda),
+                          make_mesh(4, spatial=4, devices=[cuda] * 4), qp=40)
+    want = deblock_plane(plane, qp=40)
+    assert got.is_cuda and not torch.equal(want, plane)
+    assert torch.equal(got, deblock_plane(plane.to(cuda), qp=40))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_vp9_loopfilter_sharded_on_card_matches_host(cuda):
+    """loopfilter_sharded over 2 positions of the card against the host's
+    lf.loopfilter_frame on the pre-filter state of each frame of the
+    small crafted stream (2 superblock columns)."""
+    import copy
+    from ffmpeg_tpu_torch.codecs.vp9 import VP9Core, lf, recon_tpu
+    from ffmpeg_tpu_torch.codecs.vp9.lf_sharded import loopfilter_sharded
+    from ffmpeg_tpu_torch.io.ivf import read_ivf
+    from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+    _par, _tb, pkts = read_ivf(fx.VP9_SMALL.read_bytes())
+    mesh = make_mesh(2, spatial=2, devices=[cuda] * 2)
+    core = VP9Core(native=True, device=cuda)
+    core.capture = []
+    n = 0
+    for p in pkts:
+        core.decode_frame(p.data)
+        h, fs, rec = core.capture[-1]
+        if not h.filter_level:
+            continue
+        recon_tpu.reconstruct(fs, rec, cuda)
+        host = copy.copy(fs)
+        host.y, host.u, host.v = fs.y.copy(), fs.u.copy(), fs.v.copy()
+        lf.loopfilter_frame(host)
+        out = loopfilter_sharded(fs, mesh)
+        for a, b, t in zip((host.y, host.u, host.v), (fs.y, fs.u, fs.v),
+                           out):
+            np.testing.assert_array_equal(b, a)
+            assert t.is_cuda and np.array_equal(t.cpu().numpy(), a)
+        n += 1
+    assert n
+
+
+def test_hevc_sharded_filters_on_card_match_filters_tpu(cuda):
+    """sharded_filters over 2 positions of the card (one CTB column each)
+    on the small crafted stream's first picture, against filters_tpu on
+    the card and on the CPU."""
+    import copy
+    from ffmpeg_tpu_torch.codecs.hevc import filter_tpu, recon_tpu
+    from ffmpeg_tpu_torch.parallel.mesh import make_mesh
+    ctx = CodecContext.open_decoder(CodecParameters(codec_id="hevc"),
+                                    device=cuda)
+    ctx.codec.capture = []
+    ctx.decode_all([Packet(data=p, pts=i) for i, p in
+                    enumerate(fx.hevc_pictures(fx.HEVC_SMALL.read_bytes()))])
+    dec, rec = ctx.codec.capture[0]
+    pre = recon_tpu.reconstruct(dec, rec, cuda)
+    sdec = copy.copy(dec)
+    sdec.y, sdec.u, sdec.v = pre
+    got = filter_tpu.sharded_filters(
+        sdec, make_mesh(2, spatial=2, devices=[cuda] * 2))
+    want = filter_tpu.filters_tpu(dec, *pre)
+    cpu = filter_tpu.filters_tpu(dec, *(p.cpu() for p in pre))
+    assert any(not torch.equal(w, p) for w, p in zip(want, pre))
+    for g, w, c in zip(got, want, cpu):
+        assert g.is_cuda and torch.equal(g, w) and torch.equal(g.cpu(), c)
+
+
+def test_dryrun_multichip_on_card(cuda):
+    """entry.dryrun_multichip over 4 positions of the card: each of its
+    five legs passes its own check against its unsharded counterpart."""
+    legs = entry.dryrun_multichip(4, device=cuda)
+    assert all(t.is_cuda for t in legs["decode_scale"])
+    assert legs["deblock"].is_cuda and legs["audio"].is_cuda

@@ -48,7 +48,8 @@ picture encoded to WebP and QOI and a yuv420p one to FFV1; then the
 bitstream filters, AV1 and VVC: a -bsf noise copy and the AV1 stream
 copied into IVF and through av1_frame_split to the reference CLI's
 sha256, the committed 10-bit VVC GOP to the reference CLI's framemd5,
-and the host Pipeline; all on the CPU."""
+and the host Pipeline; then the multi-device layer's dryrun_multichip
+over four cpu positions; all on the CPU."""
 
 import re
 import subprocess
@@ -319,7 +320,8 @@ for mod in ("cli.ffmpeg", "cli.ffprobe", "cli.sync_queue", "cli.textformat",
             "codecs.subtitles", "codecs.subtitles2", "codecs.webp",
             "codecs.webp_vp8l", "codecs.webp_vp8l_enc", "codecs.cbs",
             "codecs.bsf", "codecs.parsers", "codecs.av1", "parallel",
-            "parallel.executor", "parallel.pipeline",
+            "parallel.executor", "parallel.pipeline", "parallel.mesh",
+            "parallel.halo", "codecs.vp9.lf_sharded",
             *(f"codecs.vvc.{m}" for m in (
                 "tables", "cabac", "params", "inter", "ctu", "craft")),
             *(f"codecs.vp8.{m}" for m in (
@@ -425,6 +427,10 @@ with tempfile.TemporaryDirectory() as tmp:
     assert (d / "out_vvc10.md5").read_text() == gold["y_10_framemd5"]
     from ffmpeg_tpu_torch.parallel.pipeline import Pipeline
     assert list(Pipeline(range(4), [lambda x: x + 1]).run()) == [1, 2, 3, 4]
+from ffmpeg_tpu_torch.entry import dryrun_multichip
+assert set(dryrun_multichip(4, device="cpu")) == {
+    "decode_scale", "decode_scale_diff", "audio", "deblock", "vp9",
+    "hevc"}
 assert me.KERNEL_LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
