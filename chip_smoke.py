@@ -94,7 +94,10 @@ Drives the port's paths through their user entry points at full size:
   the row-sharded deblock with halo exchange on 1080p planes, the VP9
   loop filter in tile columns on the 1080p loop-filter keyframe, the
   HEVC deblock and SAO in tile columns on the 1080p SAO keyframe, and
-  entry.dryrun_multichip(8).
+  entry.dryrun_multichip(8);
+- the general-length scan decode (ops/huffman.jpeg_scan_decode, any
+  Huffman table) on the card: 2 committed 1920x1080 frames with the
+  standard (Annex K) tables and the flagship's 8 frames.
 
 Phases, one line each:
 
@@ -185,8 +188,9 @@ Phases, one line each:
    committed 1920x1080 loop-filter stream against its golden, and the
    port's loopfilter_frame_tpu on the card against the host's
    lf.loopfilter_frame on its keyframe; torch.profiler, in a child
-   process, over the keyframe and the first inter frame (kernels and
-   copies, the device's busy share).
+   process started after the pass and run beside these checks, over the
+   keyframe and the first inter frame (kernels and copies, the device's
+   busy share).
 14. the windowed VP9 decoder, Vp9TpuDecoder(device).decode: the same
    VP9_FRAMES frames of the bench stream as one window with
    emit_planes=True (after a warm decode of frames 0-1), every frame's planes on the card and
@@ -196,8 +200,9 @@ Phases, one line each:
    the emitted planes; the loop-filter stream through the windowed
    decoder against its golden; loopfilter_wavefront on its keyframe
    against the host filter's planes of phase 13, timed; torch.profiler,
-   in a child process, over one inter frame as a window and over the
-   wavefront on that keyframe (kernels, launch calls, busy share).
+   in a child process started after the window and run beside these
+   checks, over one inter frame as a window and over the wavefront on
+   that keyframe (kernels, launch calls, busy share).
 15. the HEVC decoder, CodecContext.open_decoder("hevc") on the card: the
    3 pictures (I P P) of tests/data/bench/hevc_1080p.hevc (1920x1080,
    deblock and SAO off), one packet each, against the reference's
@@ -210,7 +215,8 @@ Phases, one line each:
    reference's): device_recon_fps, each replay equal to its picture; the
    crafted 1920x1080 IDR + P stream with SAO and deblocking against its
    golden, and filters_tpu on its keyframe against the host filter.py,
-   both timed; torch.profiler, in a child process, over the keyframe
+   both timed; torch.profiler, in a child process started after the
+   decode and run beside the replay and the filters, over the keyframe
    and the first P frame (kernels, launch calls, the device's busy
    share of the picture's wall time and of its device stage);
 16. the H.264 decoder, CodecContext.open_decoder("h264") on the card:
@@ -226,7 +232,9 @@ Phases, one line each:
    golden; torch.profiler, in a child process, over the I and the P
    picture (kernels, launch calls, the device's busy share).
 17. the H.264 encoder, CodecContext.open_encoder("h264") on the card with
-   its defaults (qp 26, gop 25, me_range 8, subpel 2): the first 2
+   its defaults (qp 26, gop 25, me_range 8, subpel 2), in a child process
+   (h264_encode) that main() starts before phase 13, so that its host
+   macroblock loop runs beside phases 13-16: the first 2
    frames of testing.mpeg2_clip at 1920x1080, I then P, both packets
    equal to the reference's committed sha256
    (tests/data/port/roundtrip_1080p_golden.npz), K2 launched once (the
@@ -462,13 +470,27 @@ Phases, one line each:
    filters_tpu on the card, timed beside it; (d) entry.dryrun_multichip(8)
    (its five legs each against its unsharded counterpart); (e) (a) and
    (c) over distinct cards where more than one is visible.
+32. the general-length scan decode, ops/huffman.jpeg_scan_decode (PyTorch
+   on the card, 16-bit table lookups, codes of any length): (a) the 2
+   frames of testing.HUFFMAN_ANNEXK (1920x1080, quality 88, one MCU per
+   restart interval, the encoder's default Annex K tables; made by
+   tools/gen_torch_huffman_fixture.py), split by the port's C++
+   mjpeg_split_segments with build_jpeg_luts per frame
+   (testing.general_scan_inputs), each bit-exact against the C++ host
+   decoder; build_jpeg_luts9 refusing each frame's tables, and a decode
+   with the table entries of codes over 9 bits zeroed giving other
+   coefficients; (b) the flagship's 8 frames, each bit-exact against
+   K1's coefficients on the same frames (K1 launched once); (c) one
+   frame's ms a call (CUDA events, median of 3), the steps against
+   max_iter, and one call's launches on the host and kernels on the
+   device (torch.profiler), with the launches a step derived from them.
 Phases 9-16, 18, 20-25, 27, 28 and 31 run PyTorch only: K1 and K2 are
 not on their paths, and each prints their launch counts over its run
 (0).  K2's launches in the JSON line count phases 7, 17, 26 (d), 29 (t)
-and 30 (y), K1's phases 4, 19 and 30 (z).  Phases 13-31 print their wall
-times, and the script its own.  The CPU decodes that phases 13 and 18
-hold the card's frames against run in child processes started after
-phase 7 (cpu_oracle), beside the card's work.
+and 30 (y), K1's phases 4, 19, 30 (z) and 32 (b).  Phases 13-32 print
+their wall times, and the script its own.  The CPU decodes that phases
+13 and 18 hold the card's frames against run in child processes started
+after phase 7 (cpu_oracle), beside the card's work.
 
 Then a JSON line with each kernel's launches, error, time, plain time
 and bound, and as the last line {"ok": true, "device": {...}}.  Any
@@ -693,11 +715,13 @@ def main() -> int:
     phase10_decoder_graph(dev, card)
     phase11_dataloader(dev, card)
     phase12_audio(dev, card)
+    encode = Child(f"h264_encode({str(dev)!r})", "phase 17's encode",
+                   timeout=900)
     lf_key = phase13_vp9(dev, card, oracles["vp9"])
     phase14_vp9_window(dev, card, lf_key)
     hevc_key = phase15_hevc(dev, card)
     phase16_h264(dev, card)
-    clip, k2_enc = phase17_h264_encode(dev, card)
+    clip, k2_enc = phase17_h264_encode(dev, card, encode)
     phase18_mpeg2_decode(dev, card, mpeg2_pkts, oracles["mpeg2"])
     work.cleanup()
     k1_enc = phase19_mjpeg_encode(dev, card, clip)
@@ -714,7 +738,8 @@ def main() -> int:
         rows29 = phase29_images(dev, card, Path(tmp))
         rows30 = phase30_bsf_av1_vvc(dev, card, Path(tmp), out)
     phase31_multidevice(dev, card, lf_key, hevc_key)
-    launches += k1_enc + rows30["z"]["k1"]
+    k1_general = phase32_general_scan(dev, card)
+    launches += k1_enc + rows30["z"]["k1"] + k1_general
     k1_err = max(k1_err, rows30["z"]["k1_err"])
     k2_launches += (k2_enc + rows26["d"]["k2"] + rows29["t_m2v"]["k2"]
                     + rows30["y_m2v"]["k2"])
@@ -1071,6 +1096,40 @@ def median_ms(fn, reps: int = 3) -> float:
     return statistics.median(ts)
 
 
+class Child:
+    """`chip_smoke.<call>` in a child process on the card, started now and
+    read later, so that it runs beside the main process's work (the
+    torch.profiler sessions, which lose records in a process that has
+    traced before, and the host-bound H.264 encode).  result() waits for
+    it (`timeout` s at most) and returns the JSON object on its last line
+    of output; at exit the child is killed if it still runs."""
+
+    def __init__(self, call: str, what: str, timeout: float = 600):
+        import atexit
+        self.what, self.timeout = what, timeout
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+    def result(self) -> dict:
+        try:
+            out, err = self.proc.communicate(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"{self.what} exited {self.proc.returncode}: "
+                               f"{err[-3000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+
 def phase9_decode_scale(dev, card) -> None:
     """The entry() twin at full width: the fixture's coefficients at
     DecodeScaleSpec.auto(1920, 1080, 224, 224) through build_decode_scale
@@ -1347,21 +1406,19 @@ def audio_profile(pass_ms: float, device: str = "cuda:0") -> None:
     frames, _ = one_pass()
     pcm = np.concatenate([f.audio_data for f in frames], axis=1)
     imdct, fir, _ = _audio_device_stages(dev, *read_adts(data), pcm)
+
+    def kernels(fn):
+        # a session after the process's first may lose its kernel
+        # records (on an H100, once, every one of the IMDCT's or the
+        # FIR's), so one that saw none is run again, three times at most
+        for _ in range(3):
+            seen = _kernels(profile_device(fn)[0])
+            if seen:
+                return seen
+        return ""
     print(json.dumps({"pass": count_launches(one_pass, pass_ms),
-                      "imdct": _kernels(profile_device(imdct)[0]),
-                      "fir": _kernels(profile_device(fir)[0])}), flush=True)
-
-
-def _audio_profile_in_child(pass_ms: float, dev) -> dict:
-    """audio_profile() in a child process on `dev`; its JSON line."""
-    r = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; "
-         f"chip_smoke.audio_profile({pass_ms!r}, {str(dev)!r})"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f"phase 12's profile exited {r.returncode}: "
-                           f"{r.stderr[-3000:]}")
-    return json.loads(r.stdout.strip().splitlines()[-1])
+                      "imdct": kernels(imdct), "fir": kernels(fir)}),
+          flush=True)
 
 
 def phase12_audio(dev, card) -> None:
@@ -1522,7 +1579,8 @@ def phase12_audio(dev, card) -> None:
 
     # torch.profiler, in a process of its own: one pass, then the IMDCT
     # and the FIR alone
-    prof = _audio_profile_in_child(pass_s * 1e3, dev)
+    prof = Child(f"audio_profile({pass_s * 1e3!r}, {str(dev)!r})",
+                 "phase 12's profile").result()
     if "not measured" not in prof["pass"] and not (prof["imdct"]
                                                    and prof["fir"]):
         raise RuntimeError("the profiler saw no CUDA kernel of the IMDCT or "
@@ -1573,17 +1631,6 @@ def vp9_profile(kf_ms: float, inter_ms: float, device: str = "cuda:0"):
         out[name] = summarize_launches(
             *profile_device(one(p), warm=False, cpu=False), ms)
     print(json.dumps(out), flush=True)
-
-
-def _vp9_profile_in_child(kf_ms: float, inter_ms: float, dev) -> dict:
-    r = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.vp9_profile("
-         f"{kf_ms!r}, {inter_ms!r}, {str(dev)!r})"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f"phase 13's profile exited {r.returncode}: "
-                           f"{r.stderr[-3000:]}")
-    return json.loads(r.stdout.strip().splitlines()[-1])
 
 
 def phase13_vp9(dev, card, oracle) -> dict:
@@ -1665,6 +1712,8 @@ def phase13_vp9(dev, card, oracle) -> dict:
           f"device reconstruction of the {nf - 1} inter frames: median "
           f"{statistics.median(dev_inter):.2f} ms, sum "
           f"{sum(dev_inter):.1f} ms", flush=True)
+    prof = Child(f"vp9_profile({walls[0]!r}, {walls[1]!r}, {str(dev)!r})",
+                 "phase 13's profile")
 
     # frames 0 and 1 on the card (the warm decode's) against the port's
     # CPU run (in a child process since phase 7)
@@ -1709,7 +1758,7 @@ def phase13_vp9(dev, card, oracle) -> dict:
           f"{h.filter_level}, sharpness {h.sharpness}): {tpu_ms:.1f} ms on "
           f"the card against {host_ms:.1f} ms on the host", flush=True)
 
-    prof = _vp9_profile_in_child(walls[0], walls[1], dev)
+    prof = prof.result()
     print(f"phase 13 vp9 profile [{card}]: keyframe: {prof['keyframe']}; "
           f"inter frame 1: {prof['inter']}", flush=True)
     print(f"phase 13 wall time: {time.monotonic() - t_phase:.1f} s "
@@ -1793,17 +1842,6 @@ def vp9_window_profile(device: str = "cuda:0"):
     print(json.dumps(out), flush=True)
 
 
-def _vp9_window_profile_in_child(dev) -> dict:
-    r = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; "
-         f"chip_smoke.vp9_window_profile({str(dev)!r})"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f"phase 14's profile exited {r.returncode}: "
-                           f"{r.stderr[-3000:]}")
-    return json.loads(r.stdout.strip().splitlines()[-1])
-
-
 def phase14_vp9_window(dev, card, lf_key) -> None:
     """The windowed VP9 decoder (models/vp9_tpu.py) at full width on the
     card: the bench stream's first VP9_FRAMES frames against the
@@ -1855,6 +1893,7 @@ def phase14_vp9_window(dev, card, lf_key) -> None:
           f"build_ms_per_frame {st['build_s'] / n * 1e3:.2f}, "
           f"device_ms_per_frame {st['device_s'] / n * 1e3:.2f} (the "
           f"host's launches included)", flush=True)
+    prof = Child(f"vp9_window_profile({str(dev)!r})", "phase 14's profile")
 
     # the checksum path on frames 0-2
     sums = Vp9TpuDecoder(device=dev).decode(data[:3])
@@ -1906,7 +1945,7 @@ def phase14_vp9_window(dev, card, lf_key) -> None:
           f"{lf_key['host_ms']:.1f} ms and loopfilter_frame_tpu's "
           f"{lf_key['tpu_ms']:.1f} ms (phase 13)", flush=True)
 
-    prof = _vp9_window_profile_in_child(dev)
+    prof = prof.result()
     print(f"phase 14 vp9 window profile [{card}]: inter frame 3 as a window "
           f"of one: {prof['inter']}; loopfilter_wavefront on the "
           f"loop-filter keyframe: {prof['wavefront']}", flush=True)
@@ -1960,17 +1999,6 @@ def hevc_profile(walls: list, device_ms: list, device: str = "cuda:0"):
         out[name] = (f"{summarize_launches(device, api, ms)}; busy "
                      f"{busy / dms:.1%} of its device stage ({dms:.2f} ms)")
     print(json.dumps(out), flush=True)
-
-
-def _hevc_profile_in_child(walls: list, device_ms: list, dev) -> dict:
-    r = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.hevc_profile("
-         f"{walls!r}, {device_ms!r}, {str(dev)!r})"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f"phase 15's profile exited {r.returncode}: "
-                           f"{r.stderr[-3000:]}")
-    return json.loads(r.stdout.strip().splitlines()[-1])
 
 
 def _hevc_open(dev):
@@ -2051,6 +2079,9 @@ def phase15_hevc(dev, card) -> dict:
           f"frame 1 ({stats[1]['levels']} levels) {_hevc_split(stats[1])}; "
           f"P frame 2 ({stats[2]['levels']} levels) "
           f"{_hevc_split(stats[2])}", flush=True)
+    walls = [_hevc_frame_ms(st) for st in stats[:2]]
+    prof = Child(f"hevc_profile({walls!r}, {devms[:2]!r}, {str(dev)!r})",
+                 "phase 15's profile")
 
     # the device replay of the recorded pictures, references staged
     # (benchrows.recon_row_hevc): the DPB's tensors are on the card
@@ -2102,8 +2133,7 @@ def phase15_hevc(dev, card) -> dict:
           f"ms (CUDA events, mean of 3) against {host_ms:.1f} ms on the "
           f"host", flush=True)
 
-    prof = _hevc_profile_in_child([_hevc_frame_ms(st) for st in stats[:2]],
-                                  devms[:2], dev)
+    prof = prof.result()
     print(f"phase 15 hevc profile [{card}]: keyframe: {prof['keyframe']}; "
           f"P frame 1: {prof['p']}", flush=True)
     print(f"phase 15 wall time: {time.monotonic() - t_phase:.1f} s",
@@ -2167,17 +2197,6 @@ def h264_profile(walls: list, device_ms: list, device: str = "cuda:0"):
         out[name] = (f"{summarize_launches(device, api, ms)}; busy "
                      f"{busy / dms:.1%} of its device stage ({dms:.2f} ms)")
     print(json.dumps(out), flush=True)
-
-
-def _h264_profile_in_child(walls: list, device_ms: list, dev) -> dict:
-    r = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.h264_profile("
-         f"{walls!r}, {device_ms!r}, {str(dev)!r})"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f"phase 16's profile exited {r.returncode}: "
-                           f"{r.stderr[-3000:]}")
-    return json.loads(r.stdout.strip().splitlines()[-1])
 
 
 def _h264_check(frames, gold, dev, what, size):
@@ -2262,7 +2281,8 @@ def phase16_h264(dev, card) -> None:
           flush=True)
 
     walls = [sum(st["host"].values()) for st in stats[:2]]
-    prof = _h264_profile_in_child(walls, devms[:2], dev)
+    prof = Child(f"h264_profile({walls!r}, {devms[:2]!r}, {str(dev)!r})",
+                 "phase 16's profile").result()
     print(f"phase 16 h264 profile [{card}]: I picture: {prof['i']}; P "
           f"picture: {prof['p']}; {read_counts()} over the phase",
           flush=True)
@@ -2282,17 +2302,52 @@ def _enc_split(st: dict) -> str:
             f"{st['d2h']:.3f})")
 
 
-def phase17_h264_encode(dev, card):
+def h264_encode(device: str = "cuda:0") -> None:
+    """Phase 17's encode, in a process of its own that main() starts
+    before phase 13 (Child), so that the host macroblock loop runs beside
+    phases 13-16: the clip's first H264_ENC_FRAMES frames through
+    open_encoder("h264") with its defaults on `device`, K2's launches
+    counted from 0.  Prints one JSON line: the packets (hex), the
+    encode's seconds, each frame's stats and K2's launches."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from ffmpeg_tpu_torch.codecs import CodecContext, EncoderParameters
+    from ffmpeg_tpu_torch.ops import me
+    from ffmpeg_tpu_torch.testing import (H264_ENC_FRAMES, RT_FRAMES,
+                                          mpeg2_clip)
+    dev = torch.device(device)
+    clip = mpeg2_clip(RT_FRAMES, ENC_W, ENC_H)
+    # the process's first CUDA work (its context, K2's library, the
+    # first launches of K2 and of the argmin's kernels), outside the
+    # frames' split
+    plane = torch.zeros((ENC_H + 8, ENC_W), dtype=torch.uint8, device=dev)
+    me.motion_search(plane, plane, block=16, search=8)[0].cpu()
+    zero_counts()
+    ctx = CodecContext.open_encoder(EncoderParameters("h264", ENC_W, ENC_H),
+                                    device=dev)
+    ctx.codec.stats = []
+    pkts = []
+    t = time.perf_counter()
+    for f in clip[:H264_ENC_FRAMES]:
+        ctx.send_frame(f)
+        pkts.append(ctx.receive_packet().data)
+    secs = time.perf_counter() - t
+    print(json.dumps({"packets": [p.hex() for p in pkts], "seconds": secs,
+                      "stats": ctx.codec.stats, "k2": me.KERNEL_LAUNCHES},
+                     default=float), flush=True)
+
+
+def phase17_h264_encode(dev, card, encode: Child):
     """The H.264 encoder at 1920x1080 on the card: the clip's first 2
     frames (I, P) through open_encoder("h264") with its defaults, K2 once
-    for the P frame, both packets equal to the reference's sha256; then
-    both packets through open_decoder("h264") on the card, the cropped
-    1920x1080 planes equal to the sha256 of the reference's decode.
-    Returns the 8-frame clip (for phase 19) and K2's launches."""
+    for the P frame, both packets equal to the reference's sha256 (the
+    encode runs in `encode`, h264_encode's process, beside phases 13-16);
+    then both packets through open_decoder("h264") on the card, the
+    cropped 1920x1080 planes equal to the sha256 of the reference's
+    decode.  Returns the 8-frame clip (for phase 19) and K2's launches."""
     import hashlib
     import numpy as np
     import torch
-    from ffmpeg_tpu_torch.codecs import CodecContext, EncoderParameters
     from ffmpeg_tpu_torch.ops import me
     from ffmpeg_tpu_torch.testing import (H264_ENC_FRAMES, ROUNDTRIP_GOLDEN,
                                           RT_FRAMES, clip_checksum,
@@ -2303,18 +2358,10 @@ def phase17_h264_encode(dev, card):
     if clip_checksum(clip) != str(g["clip_sha256"]):
         raise RuntimeError("the seeded clip differs from the golden's")
 
-    # the main path: encode I then P, then decode both, on the card
-    zero_counts()
-    ctx = CodecContext.open_encoder(EncoderParameters("h264", ENC_W, ENC_H),
-                                    device=dev)
-    ctx.codec.stats = []
-    pkts = []
-    t = time.perf_counter()
-    for f in clip[:H264_ENC_FRAMES]:
-        ctx.send_frame(f)
-        pkts.append(ctx.receive_packet().data)
-    enc_s = time.perf_counter() - t
-    enc_launches = me.KERNEL_LAUNCHES
+    # the main path: encode I then P (in the child), then decode both
+    enc = encode.result()
+    pkts = [bytes.fromhex(h) for h in enc["packets"]]
+    enc_s, enc_launches, st = enc["seconds"], enc["k2"], enc["stats"]
     sha = [hashlib.sha256(p).hexdigest() for p in pkts]
     if sha != g["h264_packet_sha256"].tolist():
         raise RuntimeError(f"H.264 packets {[len(p) for p in pkts]} B differ "
@@ -2323,21 +2370,22 @@ def phase17_h264_encode(dev, card):
     if enc_launches != 1:
         raise RuntimeError(f"K2 launched {enc_launches} times for one P "
                            f"frame")
-    st = ctx.codec.stats
     print(f"phase 17 h264 encode [{card}]: 1920x1080 I P through "
-          f"open_encoder('h264') on the card (qp 26, me_range 8, subpel 2), "
-          f"packets {[len(p) for p in pkts]} B equal to the reference's "
+          f"open_encoder('h264') on the card (qp 26, me_range 8, subpel 2) "
+          f"in a process beside phases 13-16, packets "
+          f"{[len(p) for p in pkts]} B equal to the reference's "
           f"sha256; K2 launches {enc_launches}; {enc_s:.1f} s, "
           f"{H264_ENC_FRAMES / enc_s:.4f} frames/s; I frame "
           f"{_enc_split(st[0])}; P frame {_enc_split(st[1])}", flush=True)
 
+    zero_counts()
     stats = []
     data = b"".join(pkts)
     t = time.perf_counter()
     frames = h264_decode(data, dev, None, stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    launches = me.KERNEL_LAUNCHES
+    launches = enc_launches + me.KERNEL_LAUNCHES
     _h264_check(frames, g["h264_plane_sha256"], dev,
                 "the encoder's 1080p stream", (1920, 1080))
     print(f"phase 17 h264 decode [{card}]: the encoder's 2 packets (CAVLC, "
@@ -2347,7 +2395,7 @@ def phase17_h264_encode(dev, card):
           f"{2 / wall:.3f} frames/s ({wall * 1e3:.1f} ms, wall, no warm "
           f"decode: phase 16 ran the decoder); I picture "
           f"{_h264_split(stats[0])}; P picture {_h264_split(stats[1])}; "
-          f"{read_counts()} over the encode and decode", flush=True)
+          f"{read_counts()} over the decode", flush=True)
     print(f"phase 17 wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
     return clip, launches
@@ -2763,18 +2811,6 @@ def audio_decoders_profile(device: str = "cuda:0") -> None:
     print(json.dumps(out), flush=True)
 
 
-def _audio_decoders_profile_in_child(dev) -> dict:
-    """audio_decoders_profile() in a child process on `dev`; its line."""
-    r = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke; "
-         f"chip_smoke.audio_decoders_profile({str(dev)!r})"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f"phase 23's profile exited {r.returncode}: "
-                           f"{r.stderr[-3000:]}")
-    return json.loads(r.stdout.strip().splitlines()[-1])
-
-
 def phase23_audio_decoders(dev, card) -> None:
     """The audio decoders on the card: the filterbanks against their CPU
     runs; each committed stream through open_decoder on the card against
@@ -2855,7 +2891,8 @@ def phase23_audio_decoders(dev, card) -> None:
     if huffman.KERNEL_LAUNCHES or me.KERNEL_LAUNCHES:
         raise RuntimeError(f"phase 23 launched K1 or K2: {counts}")
 
-    prof = _audio_decoders_profile_in_child(dev)
+    prof = Child(f"audio_decoders_profile({str(dev)!r})",
+                 "phase 23's profile").result()
     for name in names:
         r = rows[name]
         st, got = r["st"], r["got"]
@@ -3039,29 +3076,6 @@ def filters_profile(device: str = "cuda:0") -> None:
     print(json.dumps(out), flush=True)
 
 
-def _filters_profile_start(dev):
-    """filters_profile() started in a child process on `dev`; pass the
-    handle to _filters_profile_result."""
-    return subprocess.Popen(
-        [sys.executable, "-c", "import chip_smoke; "
-         f"chip_smoke.filters_profile({str(dev)!r})"],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-
-def _filters_profile_result(child) -> dict:
-    """The child's JSON line, after it ends (600 s at most)."""
-    try:
-        out, err = child.communicate(timeout=600)
-    except subprocess.TimeoutExpired:
-        child.kill()
-        child.communicate()
-        raise
-    if child.returncode != 0:
-        raise RuntimeError(f"phase 24's profile exited {child.returncode}: "
-                           f"{err[-3000:]}")
-    return json.loads(out.strip().splitlines()[-1])
-
-
 def phase24_filters(dev, card) -> None:
     """The video filters on the card at 1920x1080 through parse_graph:
     each chain of testing.FILTER_CHAINS against the reference's golden,
@@ -3115,7 +3129,7 @@ def phase24_filters(dev, card) -> None:
         runs.append((chain, feeds, g, got, notes, ms / n_in, n_in))
 
     t_child = time.monotonic()
-    child = _filters_profile_start(dev)
+    child = Child(f"filters_profile({str(dev)!r})", "phase 24's profile")
     for chain, feeds, g, got, notes, ms, n_in in runs:
         t = time.monotonic()
         gc = parse_graph(chain.graph_text(), device="cpu")
@@ -3174,7 +3188,7 @@ def phase24_filters(dev, card) -> None:
     if huffman.KERNEL_LAUNCHES or me.KERNEL_LAUNCHES:
         raise RuntimeError(f"phase 24 launched K1 or K2: {counts}")
 
-    prof = _filters_profile_result(child)
+    prof = child.result()
     split["profile (beside the CPU runs)"] = time.monotonic() - t_child
     for chain, parts, ms, n_in in rows:
         pr = prof[chain.name]
@@ -3250,29 +3264,6 @@ def audio_codecs_profile(device: str = "cuda:0") -> None:
                      "busy_ms": sum(us for _, us in ev) / 1e3,
                      "names": names}
     print(json.dumps(out), flush=True)
-
-
-def _audio_codecs_profile_start(dev):
-    """audio_codecs_profile() started in a child process on `dev`; pass
-    the handle to _audio_codecs_profile_result."""
-    return subprocess.Popen(
-        [sys.executable, "-c", "import chip_smoke; "
-         f"chip_smoke.audio_codecs_profile({str(dev)!r})"],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-
-def _audio_codecs_profile_result(child) -> dict:
-    """The child's JSON line, after it ends (600 s at most)."""
-    try:
-        out, err = child.communicate(timeout=600)
-    except subprocess.TimeoutExpired:
-        child.kill()
-        child.communicate()
-        raise
-    if child.returncode != 0:
-        raise RuntimeError(f"phase 25's profile exited {child.returncode}: "
-                           f"{err[-3000:]}")
-    return json.loads(out.strip().splitlines()[-1])
 
 
 def _stage_split(stats: list, wall_ms: float) -> str:
@@ -3395,7 +3386,8 @@ def phase25_audio_codecs(dev, card) -> None:
         rows[name] = {"st": st, "got": got, "pre": pre, "walls": walls,
                       "stats": stats}
     counts = read_counts()
-    child = _audio_codecs_profile_start(dev)
+    child = Child(f"audio_codecs_profile({str(dev)!r})",
+                  "phase 25's profile")
     try:
         for name, r in rows.items():
             st = r["st"]
@@ -3414,7 +3406,7 @@ def phase25_audio_codecs(dev, card) -> None:
             r["checks"] = checks
             r["secs"] = pcm.size / st["channels"] / st["sample_rate"]
     finally:
-        prof = _audio_codecs_profile_result(child)
+        prof = child.result()
     for name, r in rows.items():
         st = r["st"]
         med = statistics.median(r["walls"])
@@ -4918,6 +4910,107 @@ def phase31_multidevice(dev, card, lf_key, hevc_key) -> None:
         raise RuntimeError(f"phase 31: {counts}, not 0/0")
     print(f"phase 31 {counts}; wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
+
+
+def phase32_general_scan(dev, card) -> int:
+    """ops/huffman.jpeg_scan_decode, the general-length scan decode, on
+    the card (phase 32 in the module docstring): (a) the standard-table
+    fixture against the C++ host decoder, with its > 9-bit codes shown to
+    be decoded; (b) the flagship's 8 frames against K1; (c) its time,
+    steps and launches.  Returns K1's launches in this phase (one, (b))."""
+    import statistics
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.codecs.mjpeg import _JpegState, _parse_until_scan
+    from ffmpeg_tpu_torch.io.mjpeg import split_packets
+    from ffmpeg_tpu_torch.models.mjpeg_tpu_entropy import (
+        MjpegTpuEntropyPipeline, TpuEntropySpec)
+    from ffmpeg_tpu_torch.ops import huffman
+    from ffmpeg_tpu_torch.testing import (BATCH, FIXTURE, H, HUFFMAN_ANNEXK,
+                                          OUT, STRIDE, W,
+                                          general_scan_inputs, host_decode,
+                                          packed_cap)
+    from ffmpeg_tpu_torch.timing import cuda_ms
+    t_phase = time.monotonic()
+    zero_counts()
+
+    def decode(args, what, want=None, oracle="the C++ host decoder"):
+        stats = {}
+        got = huffman.jpeg_scan_decode(*args, stats=stats)
+        torch.cuda.synchronize()
+        if got.device != dev or got.dtype != torch.int32:
+            raise RuntimeError(f"phase 32: {what} came back as {got.dtype} "
+                               f"on {got.device}")
+        if want is not None and not np.array_equal(got.cpu().numpy(), want):
+            raise RuntimeError(f"phase 32: {what} differs from {oracle}")
+        return got, stats["steps"]
+
+    # (a) the Annex K fixture against the C++ host decoder
+    pkts = split_packets(HUFFMAN_ANNEXK.read_bytes())
+    if len(pkts) != 2:
+        raise RuntimeError(f"phase 32: {len(pkts)} standard-table frames")
+    steps, cut_diff = [], []
+    for i, p in enumerate(pkts):
+        st = _JpegState()
+        _parse_until_scan(p, st)
+        try:
+            huffman.build_jpeg_luts9(st)
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError("phase 32 (a): the fixture's tables fit K1's "
+                               "9 bits")
+        args = general_scan_inputs(p, dev)
+        got, n = decode(args, f"standard-table frame {i}",
+                        host_decode(p).astype(np.int32))
+        steps.append(n)
+        buf, bitpos, valid, luts = args
+        cut = torch.where((luts >> 8) > 9, 0, luts)
+        cut_diff.append(int((decode((buf, bitpos, valid, cut),
+                                    "the cut tables")[0] != got).sum()))
+        if not cut_diff[-1]:
+            raise RuntimeError(f"phase 32 (a): frame {i} decodes the same "
+                               f"without its codes of over 9 bits")
+    lanes = int(args[1].numel())
+    print(f"phase 32 (a) [{card}]: jpeg_scan_decode on the 2 standard-table "
+          f"(Annex K, codes to 16 bits) 1920x1080 frames, {lanes} lanes "
+          f"each, equal to mjpeg_decode_scan; build_jpeg_luts9 refuses both "
+          f"frames' tables; with the > 9-bit entries zeroed "
+          f"{cut_diff} coefficients differ", flush=True)
+
+    # (b) the flagship's 8 frames against K1
+    fpk = split_packets(FIXTURE.read_bytes())
+    spec = TpuEntropySpec(W, H, OUT, OUT, batch=BATCH, stride=STRIDE,
+                          packed_cap=packed_cap(fpk))
+    pipe = MjpegTpuEntropyPipeline(spec, max(fpk, key=len), device=dev)
+    for i, p in enumerate(fpk):
+        pipe.prep_frame(p, i)
+    regions = torch.from_numpy(pipe.regions).to(dev)
+    k1 = huffman.jpeg_scan_decode_packed(
+        regions, *pipe.program.split_regions(regions), pipe.hdr).cpu().numpy()
+    fsteps = [decode(general_scan_inputs(p, dev), f"flagship frame {i}",
+                     k1[i], "K1")[1] for i, p in enumerate(fpk)]
+    print(f"phase 32 (b) [{card}]: jpeg_scan_decode on the flagship's "
+          f"{len(fpk)} frames equal to K1's coefficients (one K1 launch); "
+          f"steps {fsteps}", flush=True)
+
+    # (c) time, steps and launches of one standard-table frame
+    args = general_scan_inputs(pkts[0], dev)
+    ms = statistics.median(cuda_ms(lambda: huffman.jpeg_scan_decode(*args),
+                                   1) for _ in range(3))
+    dev_k, api = profile_device(lambda: huffman.jpeg_scan_decode(*args))
+    print(f"phase 32 (c) [{card}]: one standard-table frame "
+          f"{ms:.3f} ms a call (CUDA events, median of 3); {steps} steps "
+          f"of max_iter {huffman.BLOCKS_PER_SEG * 130}; one call "
+          f"{summarize_launches(dev_k, api, ms)}; "
+          f"~{api / max(steps[0], 1):.1f} launch calls a step (derived)",
+          flush=True)
+    counts = read_counts()
+    if counts != "K1/K2 launches 1/0":
+        raise RuntimeError(f"phase 32: {counts}, not 1/0")
+    print(f"phase 32 {counts}; wall time: {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    return huffman.KERNEL_LAUNCHES
 
 
 if __name__ == "__main__":

@@ -2,31 +2,31 @@
 
 A second package beside `ffmpeg_tpu`, which stays the reference.  Module
 paths mirror the reference's (`ffmpeg_tpu_torch/models/mjpeg_tpu_entropy.py`
-is the counterpart of `ffmpeg_tpu/models/mjpeg_tpu_entropy.py`).  Dense
+is the counterpart of `ffmpeg_tpu/models/mjpeg_tpu_entropy.py`), and so
+do the public names of each module: tests/test_torch_parity.py holds every
+module of the reference to its counterpart here, but for the few names
+that exist only for the TPU (ROADMAP.md, "Not ported, by design").  Dense
 math is PyTorch; each Pallas kernel of the reference is a kernel written
-by hand for Hopper under `csrc/`, built at first use by `_cuda_build`.
+by hand for Hopper under `csrc/`, built at first use by `_cuda_build`:
+K1, the segment-parallel JPEG Huffman decode (`ops.huffman`), and K2,
+the full-search SAD cost volume (`ops.me`).
+
+The port is complete: every module of the reference has its counterpart
+(codecs, containers, protocols, filters, the CLI, the multi-device
+layer); ROADMAP.md says where each part stands and what comes next.
 
 The port imports torch and never jax, and nothing of `ffmpeg_tpu`: it
-keeps its own copies of what it needs (`utils/`, `core/`,
-`formats/pixfmt.py`, `scale/colorspace.py`, `scale/filters.py`, the
-Huffman table builders in `ops/huffman.py`, and the host C++ under
-`csrc/host/`, built by `native`).  Its entry points run on the card
-(`device="cuda"`) unless the caller asks for another device.
-
-Ported so far:
-- the flagship path, batched 1080p MJPEG with restart markers decoded
-  and scaled to 224x224 rgb24
-  (`models.mjpeg_tpu_entropy.MjpegTpuEntropyPipeline`), with K1;
-- the MPEG-2 encoder's I/P path (`codecs.CodecContext.open_encoder`,
-  `codecs.mpeg12_enc.Mpeg2Encoder`) with motion search by K2
-  (`ops.me`), the 8x8 transforms (`ops.idct`) and motion compensation
-  (`ops.mc`);
-- the MJPEG decoder, the filter graph and the decode→scale twin
-  (`entry.entry`); the audio frontend (`codecs.aac`, `ops.tx`,
-  `resample`);
-- the VP9 decoder's per-frame path (`codecs.vp9.VP9Decoder`: the C++
-  tile parse, `codecs.vp9.recon_tpu` on the device, the host loop
-  filter), with `codecs.vp9.lf_tpu` as the device loop filter.
+keeps its own copies of the host modules it shares with the reference,
+and its own host C++ under `csrc/host/`, built by `native`.  Its entry
+points run on the card (`device="cuda"`) unless the caller asks for
+another device.
 """
 
 __version__ = "0.1.0"
+
+from .core.frame import Frame
+from .core.packet import Packet
+from .utils.rational import Rational
+from .utils import log
+
+__all__ = ["Frame", "Packet", "Rational", "log", "__version__"]

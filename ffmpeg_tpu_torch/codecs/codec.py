@@ -93,6 +93,8 @@ class Codec(LogMixin):
 
     codec_id = "none"
     codec_type = MediaType.VIDEO
+    is_encoder = False
+    capabilities: tuple = ()       # e.g. ("delay",)
 
     def __init__(self, par, options: Optional[dict] = None):
         self.par = par

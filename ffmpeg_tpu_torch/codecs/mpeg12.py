@@ -774,6 +774,13 @@ class Mpeg12Decoder(Codec):
         self._next_frame = None
 
 
+_ZZ_OF_RASTER = {int(ZIGZAG[i]): i for i in range(64)}
+
+
+def i_zz(pos):
+    return _ZZ_OF_RASTER[pos]
+
+
 def _up(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array copied to `device`."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)

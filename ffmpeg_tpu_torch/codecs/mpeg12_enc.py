@@ -34,6 +34,7 @@ import torch
 from ..core.frame import Frame, host_array
 from ..core.packet import Packet, PKT_FLAG_KEY
 from ..formats import pixfmt as _pf
+from ..io.stream import MediaType
 from ..ops.idct import ZIGZAG, fdct8x8, idct8x8
 from ..ops.me import motion_search
 from ..utils.error import NotSupported
@@ -120,6 +121,8 @@ def _write_mv_delta(bw: _BW, delta: int, f_code: int):
 @register_encoder
 class Mpeg2Encoder(Codec):
     codec_id = "mpeg2video"
+    codec_type = MediaType.VIDEO
+    is_encoder = True
 
     F_CODE = 2                   # half-pel deltas in [-32, 31]
     SEARCH = 8                   # full-pel search radius

@@ -297,6 +297,10 @@ class NormalizeFilter(TraceableFilter):
                     for c, m, s in zip(comps, mean, std)]
         return fn, props
 
+    def update_frame_props(self, frame, out_props):
+        frame = super().update_frame_props(frame, out_props)
+        return frame
+
 
 @register_filter
 class LutFilter(TraceableFilter):

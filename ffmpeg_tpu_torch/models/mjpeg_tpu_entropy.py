@@ -45,20 +45,23 @@ _LUT_BYTES = 512 * 12
 
 @dataclass(frozen=True)
 class TpuEntropySpec:
-    """The reference's spec, less two fields: `long_frac`, which the
-    reference never reads, and `lut_bits`, which picks the TPU kernel's
-    256-row half table (a VMEM saving); K1 always reads the 512-row
-    table, which decodes <= 8-bit streams too."""
+    """The reference's spec, field for field.  Two fields are read by
+    nothing here: `long_frac`, which the reference never reads either,
+    and `lut_bits`, which picks the TPU kernel's 256-row half table (a
+    VMEM saving); K1 always reads the 512-row table, which decodes
+    <= 8-bit streams too."""
     width: int
     height: int
     out_w: int
     out_h: int
     batch: int = 8
     stride: int = 192            # max segment bytes + 5 that prep accepts
+    long_frac: int = 16          # unread (see above)
     out_fmt: str = "rgb24"
     filter: str = "bicubic"
     packed_cap: int = 0          # bytes per frame region; 0 = auto from
                                  # the first packet (x1.3 + slack)
+    lut_bits: int = 9            # max Huffman code length; unread
 
     @property
     def mcus(self):

@@ -5,6 +5,11 @@ A scan with a restart marker after every MCU is thousands of independent,
 byte-aligned bit segments per frame, each with its DC predictors reset.
 They decode in parallel, one lane per segment:
 
+- `jpeg_scan_decode` decodes any baseline Huffman table (codes up to 16
+  bits, as the Annex K tables have) from one destuffed buffer with
+  16-bit table lookups, in PyTorch on the inputs' device; its tables
+  come from `build_jpeg_luts`.  It is the reference's XLA program, not a
+  Pallas kernel, so it has no hand-written kernel.
 - `jpeg_scan_decode9` is the plain PyTorch version: a loop that decodes
   one Huffman symbol on every lane per step, with table gathers.  It is
   the oracle for K1 and the path CPU tensors take.
@@ -13,8 +18,9 @@ They decode in parallel, one lane per segment:
   tensor it launches the hand-written kernel csrc/jpeg_huffman.cu; on a
   CPU tensor it gathers the lanes and runs `jpeg_scan_decode9`.
 
-`build_jpeg_luts9` (numpy) builds the per-frame tables K1 reads; it is
-the port's copy of the reference's, held equal to it by a test.
+`build_jpeg_luts9` (numpy) builds the per-frame tables K1 reads; it and
+`build_jpeg_luts` are the port's copies of the reference's, held equal to
+them by tests.
 
 Reference for the sequential semantics: libavcodec/mjpegdec.c
 decode_block / ITU T.81 §F.2.2.
@@ -53,6 +59,21 @@ def build_lut(counts: np.ndarray, values: np.ndarray) -> np.ndarray:
             vi += 1
         code <<= 1
     return lut
+
+
+def build_jpeg_luts(st) -> np.ndarray:
+    """From a parsed _JpegState: (4, 65536) int32 LUTs ordered
+    [dc_luma, dc_chroma, ac_luma, ac_chroma]."""
+    comps = st.components
+    dcl = build_lut(st.dc_counts[comps[0].dc_tab],
+                    st.dc_values[comps[0].dc_tab])
+    dcc = build_lut(st.dc_counts[comps[1].dc_tab],
+                    st.dc_values[comps[1].dc_tab])
+    acl = build_lut(st.ac_counts[comps[0].ac_tab],
+                    st.ac_values[comps[0].ac_tab])
+    acc = build_lut(st.ac_counts[comps[1].ac_tab],
+                    st.ac_values[comps[1].ac_tab])
+    return np.stack([dcl, dcc, acl, acc])
 
 
 def build_jpeg_luts9(st) -> np.ndarray:
@@ -165,6 +186,126 @@ def jpeg_scan_decode9(rows: torch.Tensor, valid: torch.Tensor,
         blk = torch.where((~done) & bdone, blk + 1, blk)
         k = torch.where(done, k, torch.where(bdone, -1, k_new))
     return out[:, :NC].to(torch.int32).reshape(L, BLOCKS_PER_SEG, 64)
+
+
+def jpeg_scan_decode(buf: torch.Tensor, bitpos0: torch.Tensor,
+                     valid: torch.Tensor, luts: torch.Tensor,
+                     blocks_per_seg: int = 6,
+                     comp_of_blk=(0, 0, 0, 0, 1, 2), max_iter: int = 0,
+                     blk_end: torch.Tensor | None = None, *,
+                     stats: dict | None = None) -> torch.Tensor:
+    """Segment-parallel scan decode for any baseline Huffman table, on the
+    device of its inputs (the reference's jpeg_scan_decode).
+
+    buf:      (NB,) uint8 destuffed scan bytes (all lanes' segments),
+              padded by >= 4 bytes.
+    bitpos0:  (L,) integer bit offset of each lane's segment start.
+    valid:    (L,) bool lane mask (padding lanes decode nothing).
+    luts:     (4, 65536) int32 from build_jpeg_luts.
+    blk_end:  optional (L,) integer blocks per lane (a short final
+              restart interval decodes fewer); defaults to blocks_per_seg.
+    stats:    optional dict; gets "steps", the loop steps run.
+    Returns (L, blocks_per_seg, 64) int32 zigzag coefficient blocks.
+
+    Every input must be a tensor on one device; mixed devices raise.
+    One step decodes one symbol on every lane with 16-bit table lookups;
+    it runs at most `max_iter` steps (blocks_per_seg * 130 when <= 0).
+    A lane past its last block is left as it is by a step, so the loop
+    asks whether any lane is still busy only every 8 steps (one host
+    sync each) and gives the result of the reference's loop, which asks
+    every step.  Arithmetic is int32 throughout, so the flat coefficient
+    index needs L * blocks_per_seg * 64 < 2**31; writes that the
+    reference drops go to one spare slot past the end, sliced off.
+    """
+    tensors = {"buf": buf, "bitpos0": bitpos0, "valid": valid,
+               "luts": luts}
+    if blk_end is not None:
+        tensors["blk_end"] = blk_end
+    dev = buf.device
+    if any(t.device != dev for t in tensors.values()):
+        raise ValueError("jpeg_scan_decode: inputs on several devices: "
+                         + ", ".join(f"{k} {t.device}"
+                                     for k, t in tensors.items()))
+    if luts.numel() != 4 * 65536:
+        raise ValueError(f"jpeg_scan_decode: luts of shape "
+                         f"{tuple(luts.shape)}, not (4, 65536)")
+    i32 = torch.int32
+    L = bitpos0.shape[0]
+    NBLK = blocks_per_seg
+    NC = L * NBLK * 64
+    if NC >= 2 ** 31:
+        raise ValueError("jpeg_scan_decode: L * blocks_per_seg * 64 must "
+                         "be below 2**31")
+    if max_iter <= 0:
+        max_iter = NBLK * 130
+    # 24-bit windows, so that a 16-bit peek at any bit offset is one gather
+    b = buf.to(i32)
+    buf24 = ((b << 16) | (F.pad(b[1:], (0, 1)) << 8)
+             | F.pad(b[2:], (0, 2)))
+    nb = buf24.shape[0]
+    lflat = luts.to(i32).reshape(-1)
+    ncomp = len(comp_of_blk)
+    comp_map = torch.tensor(list(comp_of_blk), dtype=i32, device=dev)
+    lane_base = torch.arange(L, dtype=i32, device=dev) * (NBLK * 64)
+    end = (torch.full((L,), NBLK, dtype=i32, device=dev) if blk_end is None
+           else blk_end.to(i32))
+    c16 = torch.full((L,), 16, dtype=i32, device=dev)
+    one = torch.ones_like(c16)
+    spare = torch.full_like(c16, NC)
+
+    def peek16(cur):
+        w = buf24.index_select(0, (cur >> 3).clamp(0, nb - 1))
+        return (w >> (8 - (cur & 7))) & 0xFFFF
+
+    cur = bitpos0.to(i32)
+    blk = torch.where(valid.to(torch.bool), 0, end).to(i32)
+    k = torch.full_like(c16, -1)
+    p0 = p1 = p2 = torch.zeros_like(c16)
+    out = torch.zeros(NC + 1, dtype=i32, device=dev)   # + the spare slot
+    steps = 0
+    while steps < max_iter:
+        if steps % _DONE_CHECK == 0 and not bool((blk < end).any()):
+            break
+        steps += 1
+        busy = blk < end
+        bc = blk.clamp(0, NBLK - 1)
+        comp = comp_map.index_select(0, bc % ncomp)
+        is_dc = k < 0
+        is_ac = ~is_dc
+        c0, c1 = comp == 0, comp == 1
+        sel = (is_ac.to(i32) << 1) + (comp > 0).to(i32)
+        e = lflat.index_select(0, (sel << 16) + peek16(cur))
+        ln = e >> 8
+        sym = e & 255
+        cur = torch.where(busy, cur + ln, cur)
+        run = sym >> 4            # 0 for DC symbols (sym <= 11)
+        sz = sym & 15
+        pw = one << sz
+        mag = (peek16(cur) >> (c16 - sz)) & (pw - 1)
+        val = torch.where((sz > 0) & (mag < (pw >> 1)), mag - pw + 1, mag)
+        cur = torch.where(busy, cur + sz, cur)
+        predc = torch.where(c0, p0, torch.where(c1, p1, p2))
+        pred_new = predc + val
+        coef = torch.where(is_dc, pred_new, val)
+        pos = torch.where(is_dc, 0, k + run)
+        no_sz = sz == 0
+        eob = is_ac & no_sz & (run == 0)
+        zrl = is_ac & no_sz & (run == 15)
+        write = (is_dc | ~no_sz) & busy & (pos < 64)
+        idx = torch.where(write, lane_base + bc * 64 + pos.clamp(0, 63),
+                          spare)
+        out.index_put_((idx,), coef)
+        upd = is_dc & busy
+        p0 = torch.where(upd & c0, pred_new, p0)
+        p1 = torch.where(upd & c1, pred_new, p1)
+        p2 = torch.where(upd & (comp == 2), pred_new, p2)
+        k_new = torch.where(is_dc, 1, torch.where(zrl, k + 16, pos + 1))
+        bdone = is_ac & (eob | (k_new >= 64))
+        blk = torch.where(busy & bdone, blk + 1, blk)
+        k = torch.where(busy, torch.where(bdone, -1, k_new), k)
+    if stats is not None:
+        stats["steps"] = steps
+    return out[:NC].reshape(L, NBLK, 64)
 
 
 def segment_starts(lens: torch.Tensor, hdr: int) -> torch.Tensor:

@@ -116,6 +116,10 @@ W, H, OUT, BATCH, STRIDE = 1920, 1080, 224, 8, 192
 DECODE_SCALE_GOLDEN = DATA / "flagship_1080p_8_decode_scale_golden.npz"
 GRAPH_TEXT = f"scale={OUT}:{OUT}:format=rgb24"
 GRAPH_FRAMES = 2             # frames of the graph golden
+# The general scan decode's fixture: 2 testsrc frames at 1920x1080 with
+# the MJPEG encoder's default (Annex K) Huffman tables, codes of up to 16
+# bits (tools/gen_torch_huffman_fixture.py)
+HUFFMAN_ANNEXK = DATA / "huffman_annexk_1080p_2.mjpeg"
 
 # The MPEG-2 encode golden: I P P P of mpeg2_clip at 1920x1080, fixed
 # qscale (so that rate control cannot amplify rounding differences).
@@ -213,6 +217,53 @@ def host_decode(pkt: bytes) -> np.ndarray:
     y = y.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4)
     return np.concatenate([y.reshape(-1, 4, 64), u.reshape(-1, 1, 64),
                            v.reshape(-1, 1, 64)], axis=1)
+
+
+def scan_segments(pkt: bytes):
+    """One baseline frame's scan destuffed and split at its restart
+    markers by the port's C++ (mjpeg_split_segments), as
+    ops/huffman.jpeg_scan_decode takes it: (header state, buffer, bit
+    offset of each segment, blocks in each segment, MCU grid (mx, my));
+    numpy arrays."""
+    import ctypes
+    from . import native
+    st = _JpegState()
+    off, _ = _parse_until_scan(pkt, st)
+    scan = pkt[off:]
+    hmax = max(c.h for c in st.components)
+    vmax = max(c.v for c in st.components)
+    mx, my = -(-st.width // (8 * hmax)), -(-st.height // (8 * vmax))
+    nmcu, ri = mx * my, st.restart_interval
+    buf = np.zeros(len(scan) + 16, np.uint8)
+    offs = np.zeros(nmcu + 3, np.int32)
+    n = native.get().mjpeg_split_segments(
+        scan, len(scan), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        len(buf), offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        nmcu + 2)
+    if ri < 1 or n != -(-nmcu // ri):
+        raise ValueError(f"scan_segments: {n} segments for {nmcu} MCUs "
+                         f"with restart interval {ri}")
+    nb = sum(c.h * c.v for c in st.components)
+    blk_end = (np.minimum(ri, nmcu - np.arange(n) * ri) * nb) \
+        .astype(np.int32)
+    return st, buf, offs[:n] * 8, blk_end, (mx, my)
+
+
+def general_scan_inputs(pkt: bytes, device):
+    """The inputs of ops/huffman.jpeg_scan_decode for one 4:2:0 frame with
+    one MCU per restart interval (scan_segments): the buffer, the bit
+    offsets, all lanes valid and the frame's tables from build_jpeg_luts;
+    tensors on `device`."""
+    import torch
+    from .ops.huffman import build_jpeg_luts
+    st, buf, bitpos, blk_end, _ = scan_segments(pkt)
+    if (blk_end != 6).any():
+        raise ValueError("general_scan_inputs: not one 4:2:0 MCU a segment")
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+    return (t(buf), t(bitpos), t(np.ones(len(bitpos), bool)),
+            t(build_jpeg_luts(st)))
 
 
 def scan_coeffs(pkt: bytes, L: int):

@@ -24,6 +24,10 @@ class InvalidData(FFTPUError):
     """AVERROR_INVALIDDATA: bitstream corrupt or unsupported."""
 
 
+class BugError(FFTPUError):
+    """AVERROR_BUG: internal invariant violated."""
+
+
 class NotSupported(FFTPUError):
     """AVERROR(ENOSYS)/PATCHWELCOME: feature not (yet) implemented."""
 

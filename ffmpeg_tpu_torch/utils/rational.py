@@ -1,6 +1,6 @@
 """Rational numbers for time bases and frame rates, and timestamp
-rescaling (the port's copy of the part of ffmpeg_tpu/utils/rational.py
-it uses; analog of libavutil/rational.h and mathematics.c).  Python ints
+rescaling (the port's copy of ffmpeg_tpu/utils/rational.py; analog of
+libavutil/rational.h and mathematics.c).  Python ints
 are arbitrary precision, so no INT64 overflow handling is needed; the
 rounding modes are the reference's (libavutil/mathematics.h:79-94)."""
 
@@ -112,6 +112,11 @@ class Rational:
         return self.cmp(other) <= 0
 
 
+# Common timebases.
+TIME_BASE = 1000000  # AV_TIME_BASE
+TIME_BASE_Q = Rational(1, TIME_BASE)
+
+
 def _div_round(a: int, b: int, rnd: Rounding) -> int:
     """Integer a/b with an explicit rounding mode (b > 0)."""
     mode = Rounding(rnd & ~Rounding.PASS_MINMAX)
@@ -142,6 +147,11 @@ def rescale_rnd(a: int, b: int, c: int,
     return _div_round(a * b, c, rnd)
 
 
+def rescale(a: int, b: int, c: int) -> int:
+    """av_rescale: a*b/c rounded to nearest, halfway away from zero."""
+    return rescale_rnd(a, b, c, Rounding.NEAR_INF)
+
+
 def rescale_q_rnd(a: int, bq: Rational, cq: Rational,
                   rnd: Rounding = Rounding.NEAR_INF) -> int:
     """av_rescale_q_rnd: convert timestamp a from timebase bq to cq."""
@@ -158,3 +168,9 @@ def compare_ts(ts_a: int, tb_a: Rational, ts_b: int, tb_b: Rational) -> int:
     a = ts_a * tb_a.num * tb_b.den
     b = ts_b * tb_b.num * tb_a.den
     return (a > b) - (a < b)
+
+
+def gcd_q(a: Rational, b: Rational, max_den: int = 1 << 30) -> Rational:
+    """av_gcd_q-style: gcd of two rationals (used for timebase merging)."""
+    g = math.gcd(a.num * b.den, b.num * a.den)
+    return Rational(g, a.den * b.den).reduce()

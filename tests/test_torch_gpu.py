@@ -115,6 +115,22 @@ def test_k1_matches_plain_on_corrupt_bytes_and_padding_lanes(cuda):
     _check_k1(pipe, junk, lens0, luts)
 
 
+def test_general_scan_decode_on_card_matches_cpu(cuda):
+    """ops/huffman.jpeg_scan_decode on the standard-table fixture's first
+    frame: the card's run equals the CPU's on the same inputs, and both
+    the C++ host decoder's."""
+    from ffmpeg_tpu_torch.io.mjpeg import split_packets
+    pkt = split_packets(fx.HUFFMAN_ANNEXK.read_bytes())[0]
+    args = fx.general_scan_inputs(pkt, "cpu")
+    want = huffman.jpeg_scan_decode(*args)
+    got = huffman.jpeg_scan_decode(*(a.to(cuda) for a in args))
+    assert got.is_cuda and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(want.numpy(), fx.host_decode(pkt))
+    with pytest.raises(ValueError, match="several devices"):
+        huffman.jpeg_scan_decode(args[0].to(cuda), *args[1:])
+
+
 def test_pipeline_on_card_matches_golden(cuda):
     pkts = fixture_packets()
     spec = TpuEntropySpec(fx.W, fx.H, fx.OUT, fx.OUT, batch=8,

@@ -49,7 +49,10 @@ bitstream filters, AV1 and VVC: a -bsf noise copy and the AV1 stream
 copied into IVF and through av1_frame_split to the reference CLI's
 sha256, the committed 10-bit VVC GOP to the reference CLI's framemd5,
 and the host Pipeline; then the multi-device layer's dryrun_multichip
-over four cpu positions; all on the CPU."""
+over four cpu positions; then the package's exports, and the general
+scan decode on a fixture frame and on a frame of
+tools/gen_torch_huffman_fixture.py's encoder, each against the C++ host
+decoder; all on the CPU."""
 
 import re
 import subprocess
@@ -432,6 +435,20 @@ assert set(dryrun_multichip(4, device="cpu")) == {
     "decode_scale", "decode_scale_diff", "audio", "deblock", "vp9",
     "hevc"}
 assert me.KERNEL_LAUNCHES == 0
+from ffmpeg_tpu_torch import Frame, Packet, Rational, log
+from ffmpeg_tpu_torch.codecs import Codec, register_decoder, register_encoder
+from ffmpeg_tpu_torch.testing import general_scan_inputs
+import importlib.util
+spec = importlib.util.spec_from_file_location(
+    "gen_torch_huffman_fixture",
+    sys.argv[1] + "/tools/gen_torch_huffman_fixture.py")
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+k1_before = huffman.KERNEL_LAUNCHES
+for pkt in (pkts[0], tool.encode(64, 48, 1)[0]):
+    coef = huffman.jpeg_scan_decode(*general_scan_inputs(pkt, "cpu"))
+    assert np.array_equal(coef.numpy(), host_decode(pkt))
+assert huffman.KERNEL_LAUNCHES == k1_before
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ffmpeg_tpu")
              or m.startswith(("jax.", "ffmpeg_tpu.")))
@@ -462,7 +479,8 @@ def test_port_sources_never_import_jax():
                                             "vp9_mc_ab_torch.py",
                                             "hevc_dispatch_count_torch.py",
                                             "h264_dispatch_count_torch.py",
-                                            "filter_ops_count_torch.py"))]
+                                            "filter_ops_count_torch.py",
+                                            "gen_torch_huffman_fixture.py"))]
     hits = [str(p.relative_to(REPO)) for p in files
             if pat.search(p.read_text())]
     assert not hits, hits
