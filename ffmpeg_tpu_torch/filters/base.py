@@ -27,6 +27,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type
 
 import torch
 
+from .. import trace
 from ..core.frame import Frame, device_planes
 from ..io.stream import MediaType
 from ..utils.error import FilterNotFound, InvalidData
@@ -156,6 +157,7 @@ class TraceableFilter(Filter):
         cache = self.__dict__.setdefault("_tracer_cache", {})
         hit = cache.get(props)
         if hit is None:
+            trace.count("graph.tracers_built")
             hit = cache[props] = self.make_tracer(props)
         fn, out_props = hit
         out = frame.clone_props()

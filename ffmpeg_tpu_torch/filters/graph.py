@@ -25,6 +25,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import trace
 from ..core.frame import Frame, device_planes
 from ..utils.error import InvalidData
 from .base import Filter, TraceableFilter, get_filter
@@ -46,6 +47,7 @@ class FusedChain(TraceableFilter):
         hit = self._cache.get(props)
         if hit is not None:
             return hit
+        trace.count("graph.tracers_built")
         fns = []
         cur = props
         for p in self.parts:
@@ -181,13 +183,14 @@ class FilterGraph:
     # convenience: run a full stream through a single-input/-output graph
     def run(self, frames, input_label: str = "in",
             output_label: str = "out") -> List[Frame]:
-        out: List[Frame] = []
-        for f in frames:
-            self.feed(f, input_label)
+        with trace.span("graph.run"):
+            out: List[Frame] = []
+            for f in frames:
+                self.feed(f, input_label)
+                out.extend(self.pull(output_label))
+            self.feed_eof(input_label)
             out.extend(self.pull(output_label))
-        self.feed_eof(input_label)
-        out.extend(self.pull(output_label))
-        return out
+            return out
 
 
 # ---------------------------------------------------------------------------

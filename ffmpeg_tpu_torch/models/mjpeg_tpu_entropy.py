@@ -33,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import native
+from .. import native, trace
 from ..codecs.mjpeg import _JpegState, _parse_until_scan
 from ..ops.huffman import build_jpeg_luts9, jpeg_scan_decode_packed
 from ..ops.idct import ZIGZAG, _dct8_matrix
@@ -254,27 +254,38 @@ class MjpegTpuEntropyPipeline:
         region `slot` of self.regions.  The reference's `regions=`
         argument, a caller's buffer for its `fn_window` staging, goes
         with that staging (see the class docstring)."""
-        if self._copied is not None:
-            self._copied.synchronize()       # last batch has left _host
-        st = _JpegState()
-        off, _ = _parse_until_scan(data, st)
-        qy = st.qtabs[st.components[0].q_idx].astype(np.int32)
-        if not np.array_equal(qy, self._qy):
-            raise ValueError("mjpeg_tpu_entropy: quant tables changed "
-                             "mid-stream (rebuild the pipeline)")
-        region = self.regions[slot]
-        # frames usually repeat DHTs, so cache the LUT on the raw table
-        # bytes (bounded — JPEG DHTs are tiny)
-        key = (st.dc_counts.tobytes() + st.dc_values.tobytes()
-               + st.ac_counts.tobytes() + st.ac_values.tobytes())
-        lut = self._lut_cache.get(key)
-        if lut is None:
-            lut = build_jpeg_luts9(st).view(np.uint8).reshape(-1)
-            if len(self._lut_cache) > 64:
-                self._lut_cache.clear()
-            self._lut_cache[key] = lut
-        region[2 * self.nmcu:self.hdr] = lut
-        scan = data[off:]
+        with trace.span("mjpeg.prep"):
+            with trace.span("mjpeg.prep.wait"):
+                if self._copied is not None:
+                    self._copied.synchronize()   # last batch has left _host
+            with trace.span("mjpeg.prep.parse"):
+                st = _JpegState()
+                off, _ = _parse_until_scan(data, st)
+                qy = st.qtabs[st.components[0].q_idx].astype(np.int32)
+                if not np.array_equal(qy, self._qy):
+                    raise ValueError("mjpeg_tpu_entropy: quant tables "
+                                     "changed mid-stream (rebuild the "
+                                     "pipeline)")
+            with trace.span("mjpeg.prep.table"):
+                region = self.regions[slot]
+                # frames usually repeat DHTs, so cache the LUT on the raw
+                # table bytes (bounded — JPEG DHTs are tiny)
+                key = (st.dc_counts.tobytes() + st.dc_values.tobytes()
+                       + st.ac_counts.tobytes() + st.ac_values.tobytes())
+                lut = self._lut_cache.get(key)
+                if lut is None:
+                    trace.count("mjpeg.tables_built")
+                    lut = build_jpeg_luts9(st).view(np.uint8).reshape(-1)
+                    if len(self._lut_cache) > 64:
+                        self._lut_cache.clear()
+                    self._lut_cache[key] = lut
+                region[2 * self.nmcu:self.hdr] = lut
+            with trace.span("mjpeg.prep.split"):
+                self._split(data[off:], region)
+
+    def _split(self, scan: bytes, region: np.ndarray) -> None:
+        """Destuff `scan` and split it at its restart markers into
+        `region`: the segment lengths, then the packed segments."""
         dst = region[self.hdr:]
         n = self.lib.mjpeg_split_segments(
             scan, len(scan),
@@ -302,8 +313,9 @@ class MjpegTpuEntropyPipeline:
         """Copy the prepared batch to the device (from pinned memory on
         CUDA) and decode it; returns the output components on the
         device, each (batch, out_h, out_w)."""
-        regions = self._host.to(self.device, non_blocking=True)
-        if self.device.type == "cuda":
-            self._copied = torch.cuda.Event()
-            self._copied.record(torch.cuda.current_stream(self.device))
-        return self.program(regions)
+        with trace.span("mjpeg.run_batch"):
+            regions = self._host.to(self.device, non_blocking=True)
+            if self.device.type == "cuda":
+                self._copied = torch.cuda.Event()
+                self._copied.record(torch.cuda.current_stream(self.device))
+            return self.program(regions)

@@ -472,8 +472,7 @@ def test_port_sources_never_import_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|ffmpeg_tpu)\b", re.M)
     files = [*(REPO / "ffmpeg_tpu_torch").rglob("*.py"),
              REPO / "chip_smoke.py",
-             *(REPO / "tools" / n for n in ("profile_torch_flagship.py",
-                                            "k1_breakdown_torch.py",
+             *(REPO / "tools" / n for n in ("k1_breakdown_torch.py",
                                             "kernel_ab_torch.py",
                                             "vp9_window_ab_torch.py",
                                             "vp9_mc_ab_torch.py",
