@@ -9,10 +9,37 @@
 // Re-derived from the JPEG spec; plays the role of the scan loop in
 // libavcodec/mjpegdec.c.  Coefficients are emitted in zigzag order.
 //
+// The split reads its scan 64 bytes at a time and takes every 0xFF in
+// them as an event, in order: the plain bytes before it are copied as one
+// run, and the marker is handled as the byte loop handles it (FF 00 keeps
+// the 0xFF, FF D0-D7 starts a segment, anything else ends the scan).  A
+// restart scan has a marker every few tens of bytes, so the events, not
+// the bytes, set its speed; the 64-byte bit mask of a chunk is found with
+// no dependence on the events before it.  A run is copied as one 64-byte
+// store at the write position, which may run past the output; the next
+// run covers that, and the output blocks a chunk may touch are saved
+// before it runs and put back past the output when the pass ends.  So
+// nothing past the destuffed output changes: the buffer is left byte for
+// byte as the byte loop leaves it.  Chunks run while 128 bytes of input
+// and 192 of output room remain; the byte loop finishes the rest, so
+// every error comes back where the byte loop gives it.
+//
+// The mask of a chunk is two 32-byte compares (AVX2) or eight uint64_t
+// words (portable), chosen once when the library loads, from what the CPU
+// reports (mjpeg_split_isa): AVX2 where the CPU has it, else the portable
+// path, on x86-64 without AVX2 as on any other architecture.  The AVX2
+// code is compiled for that ISA by a target attribute alone: the library
+// is built without -march, so that it loads on any host of its
+// architecture, the VP9 and AAC parsers included.
+//
 // Exported C ABI (ctypes); negative return values are errors.
 
 #include "bitreader.h"
 #include <cstring>
+
+#if defined(__x86_64__)
+#include <immintrin.h>
+#endif
 
 namespace {
 
@@ -91,6 +118,180 @@ struct CompSpec {
     int blocks_w;        // row-stride of this component's block grid
 };
 
+// ---- the destuff-and-split pass (mjpeg_split_segments) ----------------
+
+// The byte loop: the whole pass for short inputs and the tail of every
+// other.  Resumes at input i, output *w, nseg; leaves *w where it stopped.
+static long split_bytes(const uint8_t* data, long size, uint8_t* out,
+                        long out_cap, int32_t* seg_offsets, long max_segs,
+                        long i, long* w_io, long nseg) {
+    long w = *w_io;
+    long r = -1;
+    while (i < size) {
+        uint8_t b = data[i];
+        if (b == 0xFF) {
+            if (i + 1 < size && data[i + 1] == 0x00) {
+                if (w >= out_cap) { r = -2; goto done; }
+                out[w++] = 0xFF;
+                i += 2;
+                continue;
+            }
+            if (i + 1 < size && (data[i + 1] & 0xF8) == 0xD0) {
+                if (nseg > max_segs) { r = -3; goto done; }
+                seg_offsets[nseg++] = (int32_t)w;
+                i += 2;
+                continue;
+            }
+            break;  // EOI or other marker: end of scan
+        }
+        if (w >= out_cap) { r = -2; goto done; }
+        out[w++] = b;
+        ++i;
+    }
+    seg_offsets[nseg] = (int32_t)w;
+    r = nseg;
+done:
+    *w_io = w;
+    return r;
+}
+
+// Bit j set iff byte j of the 64 at p is 0xFF, one function per ISA.
+
+// portable: the zero-byte test on ~x, exact in every byte, then the
+// 0x80 bits gathered into 8 by one multiply
+static inline uint64_t ff_bits_word(const uint8_t* p) {
+    const uint64_t lo7 = 0x7F7F7F7F7F7F7F7Full;
+    uint64_t bits = 0;
+    for (int k = 0; k < 8; ++k) {
+        uint64_t x;
+        std::memcpy(&x, p + 8 * k, 8);
+#if __BYTE_ORDER__ == __ORDER_BIG_ENDIAN__
+        x = __builtin_bswap64(x);
+#endif
+        uint64_t y = ~x;
+        uint64_t t = ~(((y & lo7) + lo7) | y | lo7);  // 0x80 where y == 0
+        bits |= (((t >> 7) * 0x0102040810204080ull) >> 56) << (8 * k);
+    }
+    return bits;
+}
+
+#if defined(__x86_64__)
+#define SPLIT_AVX2 __attribute__((target("avx2")))
+SPLIT_AVX2 static inline uint64_t ff_bits_avx2(const uint8_t* p) {
+    const __m256i ff = _mm256_set1_epi8(-1);
+    __m256i a = _mm256_loadu_si256((const __m256i*)p);
+    __m256i b = _mm256_loadu_si256((const __m256i*)(p + 32));
+    return (uint64_t)(uint32_t)_mm256_movemask_epi8(_mm256_cmpeq_epi8(a, ff))
+        | (uint64_t)(uint32_t)_mm256_movemask_epi8(_mm256_cmpeq_epi8(b, ff))
+        << 32;
+}
+#endif
+
+// Originals of the output past the write position: 64-byte blocks of
+// out, saved before anything is stored into them, at ring[pos & 255].
+struct Saved {
+    uint8_t ring[256];
+    long end = 0;        // out[0, end) saved; nothing at or past it stored
+
+    void cover(const uint8_t* out, long upto) {
+        for (; end < upto; end += 64)
+            std::memcpy(ring + (end & 255), out + end, 64);
+    }
+    // put back out[w, end), where stores may have run past the output
+    void restore(uint8_t* out, long w) const {
+        for (long p = w; p < end; ++p) out[p] = ring[p & 255];
+    }
+};
+
+// The chunked pass (see the top of the file), FfBits giving a chunk's
+// 0xFF bytes.  A run within a chunk is shorter than 64 bytes, so each is
+// one 64-byte copy, and every store of a chunk ends before w + 128 for
+// the w the chunk starts with: those blocks are saved before it runs.
+template <uint64_t (*FfBits)(const uint8_t*)>
+static inline long split_chunks(const uint8_t* __restrict data, long size,
+                                uint8_t* __restrict out, long out_cap,
+                                int32_t* seg_offsets, long max_segs) {
+    long src = 0, w = 0, nseg = 0, r;
+    if (max_segs < 1) return -1;
+    seg_offsets[nseg++] = 0;
+    Saved saved;
+    // i0 + 128: every copy reads src + 64 <= i0 + 128; w + 192: the saved
+    // blocks end by then
+    long i0 = 0;
+    for (; i0 + 128 <= size && w + 192 <= out_cap; i0 += 64) {
+        saved.cover(out, w + 128);
+        // the scan is read once and the output written once, both mostly
+        // missing the caches (a batch of frames is tens of MB): ask for
+        // each one's line 32 chunks ahead, the output's for writing
+        __builtin_prefetch(data + i0 + 2048);
+        __builtin_prefetch(out + w + 2048, 1);
+        // src is i0, or i0 + 1 after a marker across the chunk edge, whose
+        // second byte is not 0xFF: every bit is at or past src
+        for (uint64_t m = FfBits(data + i0); m; m &= m - 1) {
+            long pos = i0 + __builtin_ctzll(m);
+            std::memcpy(out + w, data + src, 64);
+            w += pos - src;
+            uint8_t b = data[pos + 1];
+            src = pos + 2;
+            if (b == 0x00) {
+                out[w++] = 0xFF;
+            } else if ((b & 0xF8) == 0xD0) {
+                if (nseg > max_segs) { r = -3; goto done; }
+                seg_offsets[nseg++] = (int32_t)w;
+            } else {                    // EOI or other marker: end of scan
+                seg_offsets[nseg] = (int32_t)w;
+                r = nseg;
+                goto done;
+            }
+        }
+        if (src < i0 + 64) {
+            std::memcpy(out + w, data + src, 64);
+            w += i0 + 64 - src;
+            src = i0 + 64;
+        }
+    }
+    r = split_bytes(data, size, out, out_cap, seg_offsets, max_segs, src,
+                    &w, nseg);
+done:
+    saved.restore(out, w);
+    return r;
+}
+
+typedef long (*split_fn)(const uint8_t*, long, uint8_t*, long, int32_t*,
+                         long);
+
+static long split_word(const uint8_t* data, long size, uint8_t* out,
+                       long out_cap, int32_t* seg_offsets, long max_segs) {
+    return split_chunks<ff_bits_word>(data, size, out, out_cap, seg_offsets,
+                                      max_segs);
+}
+
+#if defined(__x86_64__)
+// flatten: the pass and ff_bits_avx2 inlined into this AVX2 function,
+// its 64-byte copies as 32-byte moves
+SPLIT_AVX2 __attribute__((flatten))
+static long split_avx2(const uint8_t* data, long size, uint8_t* out,
+                       long out_cap, int32_t* seg_offsets, long max_segs) {
+    return split_chunks<ff_bits_avx2>(data, size, out, out_cap, seg_offsets,
+                                      max_segs);
+}
+#endif
+
+struct SplitIsa {
+    int isa;           // 2 AVX2, 0 the portable word
+    split_fn fn;
+};
+
+static SplitIsa pick_split() {
+#if defined(__x86_64__)
+    __builtin_cpu_init();
+    if (__builtin_cpu_supports("avx2")) return {2, split_avx2};
+#endif
+    return {0, split_word};
+}
+
+static const SplitIsa kSplit = pick_split();
+
 }  // namespace
 
 extern "C" {
@@ -100,40 +301,28 @@ extern "C" {
 // device-side Huffman decoder (ops/huffman.py): each segment starts
 // byte-aligned with DC predictors reset, so thousands decode in
 // parallel, one lane each.
-//   out:          destuffed bytes of all segments, concatenated
+//   out:          destuffed bytes of all segments, concatenated; nothing
+//                 past them changes.  It may not overlap data.
 //   seg_offsets:  byte offset of segment i in out; [nseg] = total size
-// Returns nseg (>= 1) or a negative error.
+//                 (max_segs + 2 entries)
+// Returns nseg (>= 1) or a negative error: -1 max_segs < 1, -2 out_cap
+// too small, -3 more than max_segs + 1 segments.
 long mjpeg_split_segments(const uint8_t* data, long size,
                           uint8_t* out, long out_cap,
                           int32_t* seg_offsets, long max_segs) {
-    long i = 0, w = 0;
-    long nseg = 0;
-    if (max_segs < 1) return -1;
-    seg_offsets[nseg++] = 0;
-    while (i < size) {
-        uint8_t b = data[i];
-        if (b == 0xFF) {
-            if (i + 1 < size && data[i + 1] == 0x00) {
-                if (w >= out_cap) return -2;
-                out[w++] = 0xFF;
-                i += 2;
-                continue;
-            }
-            if (i + 1 < size && (data[i + 1] & 0xF8) == 0xD0) {
-                if (nseg > max_segs) return -3;
-                seg_offsets[nseg++] = (int32_t)w;
-                i += 2;
-                continue;
-            }
-            break;  // EOI or other marker: end of scan
-        }
-        if (w >= out_cap) return -2;
-        out[w++] = b;
-        ++i;
-    }
-    seg_offsets[nseg] = (int32_t)w;
-    return nseg;
+    return kSplit.fn(data, size, out, out_cap, seg_offsets, max_segs);
 }
+
+// The same pass on the portable 8-byte path, whatever the CPU: the
+// dispatched function is held to it in the tests.
+long mjpeg_split_segments_portable(const uint8_t* data, long size,
+                                   uint8_t* out, long out_cap,
+                                   int32_t* seg_offsets, long max_segs) {
+    return split_word(data, size, out, out_cap, seg_offsets, max_segs);
+}
+
+// The path mjpeg_split_segments runs: 2 AVX2, 0 portable.
+int mjpeg_split_isa(void) { return kSplit.isa; }
 
 // counts: 4 tables x 2 classes x 16 ; values: 4x2x256
 // comp_spec: per component: dc_tab, ac_tab, h, v, blocks_w  (5 ints)

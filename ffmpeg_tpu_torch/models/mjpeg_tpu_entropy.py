@@ -3,7 +3,9 @@
 Counterpart of ffmpeg_tpu/models/mjpeg_tpu_entropy.py.  The host's only
 per-frame work is the header parse and destuffing the scan and splitting
 it at restart markers (mjpeg_split_segments of the port's host C++,
-csrc/host/, loaded by native.py).  The packed segment bytes go to the card, where K1
+csrc/host/, loaded by native.py), which reads the scan in place inside
+the frame's bytes: the scan is not copied on the way in.  The packed
+segment bytes go to the card, where K1
 (ops/huffman.py jpeg_scan_decode_packed, csrc/jpeg_huffman.cu) decodes
 all segments in parallel and two full-float32 contractions per plane do
 dequant + IDCT + chroma upsample + resize, followed by the colour matrix
@@ -281,14 +283,17 @@ class MjpegTpuEntropyPipeline:
                     self._lut_cache[key] = lut
                 region[2 * self.nmcu:self.hdr] = lut
             with trace.span("mjpeg.prep.split"):
-                self._split(data[off:], region)
+                self._split(data, off, region)
 
-    def _split(self, scan: bytes, region: np.ndarray) -> None:
-        """Destuff `scan` and split it at its restart markers into
-        `region`: the segment lengths, then the packed segments."""
+    def _split(self, data: bytes, off: int, region: np.ndarray) -> None:
+        """Destuff the scan `data[off:]` and split it at its restart
+        markers into `region`: the segment lengths, then the packed
+        segments.  The C++ reads the scan in place, through a view of
+        `data`."""
+        scan = np.frombuffer(data, np.uint8)
         dst = region[self.hdr:]
         n = self.lib.mjpeg_split_segments(
-            scan, len(scan),
+            scan.ctypes.data + off, len(scan) - off,
             dst.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             len(dst),
             self._offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),

@@ -4,10 +4,18 @@ against, the AAC spectral Huffman decoder and the VP9 tile parse
 (counterpart of ffmpeg_tpu/native.py, for the port's own copy of those
 four functions).
 
+The splitter, `mjpeg_split_segments`, takes its scan as `bytes` or as an
+address (`c_void_p`), so a caller can pass a scan inside a larger buffer
+without copying it.  It picks its vector width once, from what the host
+CPU reports: `mjpeg_split_isa()` gives 2 (AVX2) or 0 (the portable
+path, which `mjpeg_split_segments_portable` runs on any CPU).
+
 At first use `g++` compiles `csrc/host/*.cpp` into one shared library
 under `build/ffmpeg_tpu_torch/` at the repository root, named by a
-content hash of the sources and flags; `ctypes` loads it.  A failed
-build raises; there is no fallback.
+content hash of the sources and flags; `ctypes` loads it.  `CXX_FLAGS`
+name no `-march`: the AVX2 code is selected at run time, so the library
+loads on any host of its architecture.  A failed build raises; there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -69,12 +77,16 @@ def build(so: Path) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     c = ctypes
-    lib.mjpeg_split_segments.restype = c.c_long
-    lib.mjpeg_split_segments.argtypes = [
-        c.c_char_p, c.c_long,                   # scan, size
-        c.POINTER(c.c_uint8), c.c_long,         # out, out_cap
-        c.POINTER(c.c_int32), c.c_long,         # seg_offsets, max_segs
-    ]
+    for split in (lib.mjpeg_split_segments,
+                  lib.mjpeg_split_segments_portable):
+        split.restype = c.c_long
+        split.argtypes = [
+            c.c_void_p, c.c_long,               # scan (bytes or address), size
+            c.POINTER(c.c_uint8), c.c_long,     # out, out_cap
+            c.POINTER(c.c_int32), c.c_long,     # seg_offsets, max_segs
+        ]
+    lib.mjpeg_split_isa.restype = c.c_int
+    lib.mjpeg_split_isa.argtypes = []
     lib.mjpeg_decode_scan.restype = c.c_int
     lib.mjpeg_decode_scan.argtypes = [
         c.c_char_p, c.c_long,                   # scan, size

@@ -3,7 +3,8 @@ reference, on the CPU: the pixel-format descriptors, the colour matrices
 and levels, the resize filter banks, the JPEG Huffman tables, Rational
 arithmetic and timestamp rescaling, the exception classes, the host C++
 (scan split and sequential decode) on every frame of the 1080p fixture,
-byte-exact; and the host modules of the decode → filter graph slice:
+byte-exact, and the split's vector and portable paths on crafted scans
+as well; and the host modules of the decode → filter graph slice:
 logging, the expression language, the option system, the stream
 containers, image packing and the frame's byte and host conversions; and
 the host modules of the audio frontend: sample formats, channel layouts,
@@ -232,6 +233,122 @@ def test_host_cpp_equals_reference(frame):
     coef = host_decode(pkt)
     assert coef.shape == (nmcu, 6, 64)
     np.testing.assert_array_equal(coef, _ref_host_decode(pkt))
+
+
+
+def _split_run(fn, scan: bytes, cap: int, max_segs: int, fill: int):
+    """fn on `scan` into an output of `cap` bytes (pre-filled with `fill`,
+    with 64 more bytes beyond it) and max_segs + 2 offsets (pre-filled,
+    with 8 more): the return code, all the offsets and all the bytes."""
+    out = np.full(cap + 64, fill, np.uint8)
+    offs = np.full(max(max_segs, 0) + 10, -7, np.int32)
+    n = fn(scan, len(scan), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+           cap, offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), max_segs)
+    return n, offs, out
+
+
+def _plain(rng, n):
+    return rng.integers(0, 255, n).astype(np.uint8)     # no 0xFF
+
+
+def _split_cases(case):
+    """(scan, out_cap, max_segs) triples of one case of
+    test_split_segments_equal_reference."""
+    rng = np.random.default_rng(2025)
+    if case.startswith("fixture"):
+        pkt = fixture_packets()[int(case[-1])]
+        st = _JpegState()
+        off, _ = _parse_until_scan(pkt, st)
+        nmcu = -(-st.width // 16) * -(-st.height // 16)
+        scan = pkt[off:]
+        return [(scan, len(scan) + 64, nmcu), (scan, len(scan), nmcu + 5)]
+    out = []
+    if case == "offsets":
+        # FF 00, FF Dn and both back to back at every offset of a 64-byte
+        # chunk, across its two 32-byte halves and the 64-byte edge
+        for o in range(64):
+            for lead in (0, 1, 63, 64, 65, 200):
+                s = _plain(rng, lead + 448)
+                s[lead + o:lead + o + 2] = (0xFF, 0x00)
+                s[lead + 128 + o:lead + 130 + o] = (0xFF, 0xD0 + o % 8)
+                s[lead + 256 + o:lead + 260 + o] = (0xFF, 0x00,
+                                                    0xFF, 0xD7 - o % 8)
+                out.append((s.tobytes() + b"\xFF\xD9", len(s) + 64, 16))
+        # markers every few bytes, as a restart scan, and a long run
+        for gap in (2, 3, 5, 17, 40, 63, 64, 65, 130):
+            s = _plain(rng, 2000)
+            for j in range(gap, 1990, gap + 2):
+                s[j:j + 2] = (0xFF, 0xD0 + j % 8 if j % 3 else 0x00)
+            out.append((s.tobytes(), len(s) + 8, 2000))
+        out.append((_plain(rng, 5000).tobytes(), 6000, 4))
+    elif case == "ff_last":
+        for n in (1, 2, 63, 64, 65, 127, 128, 129, 300, 1000):
+            s = _plain(rng, n)
+            s[-1] = 0xFF
+            out.append((s.tobytes(), n + 64, 8))
+    elif case == "eoi_mid":
+        for at in (0, 5, 64, 127, 130, 700):
+            s = _plain(rng, 1000)
+            s[at // 2] = 0xFF
+            s[at // 2 + 1] = 0x00
+            s[at:at + 2] = (0xFF, 0xD9)
+            s[at + 40:at + 42] = (0xFF, 0xD3)
+            out.append((s.tobytes(), 1100, 8))
+    elif case == "sizes":
+        for n in (0, 1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 191, 192, 193):
+            s = _plain(rng, n)
+            if n > 20:
+                s[10:12] = (0xFF, 0xD1)
+            out.append((s.tobytes(), n + 64, 4))
+    elif case == "out_cap":
+        # the output runs out at, just before and just after edges of 16 to
+        # 1024 bytes, and around the 192 bytes of room the chunks need
+        s = _plain(rng, 1500)
+        for j in range(30, 1490, 37):
+            s[j:j + 2] = (0xFF, 0x00 if j % 2 else 0xD0 + j % 8)
+        for edge in (16, 32, 64, 128, 192, 256, 512, 1024):
+            for cap in (edge - 1, edge, edge + 1):
+                out.append((s.tobytes(), cap, 100))
+        out.append((s.tobytes(), len(s), 100))
+    elif case == "max_segs":
+        # one restart marker more than max_segs allows
+        for gap in (3, 40, 100):
+            s = _plain(rng, 1200)
+            js = list(range(gap, 1190, gap + 2))
+            for j in js:
+                s[j:j + 2] = (0xFF, 0xD0 + j % 8)
+            out.append((s.tobytes(), 1300, len(js)))
+            out.append((s.tobytes(), 1300, len(js) - 1))
+        out.append((b"", 64, 0))
+    return out
+
+
+SPLIT_CASES = [f"fixture{i}" for i in range(8)] + [
+    "offsets", "ff_last", "eoi_mid", "sizes", "out_cap", "max_segs"]
+
+
+@pytest.mark.parametrize("path", ["dispatched", "portable"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_segments_equal_reference(case, path):
+    """The port's vectorised split (the path the CPU selects, and the
+    portable one) against the reference library's byte loop: the return
+    code, every offset written and every byte of the output buffer, the
+    bytes past the destuffed output included, which neither changes."""
+    lib = native.get()
+    fn = lib.mjpeg_split_segments if path == "dispatched" \
+        else lib.mjpeg_split_segments_portable
+    codes = set()
+    for k, (scan, cap, max_segs) in enumerate(_split_cases(case)):
+        got = _split_run(fn, scan, cap, max_segs, 0x5A + k)
+        want = _split_run(ref_native.get().mjpeg_split_segments, scan, cap,
+                          max_segs, 0x5A + k)
+        assert got[0] == want[0], (k, len(scan), cap, max_segs)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[2], want[2])
+        codes.add(int(want[0] > 0) if want[0] >= 0 else int(want[0]))
+    expect = {"out_cap": {1, -2}, "max_segs": {1, -1, -3}}.get(case, {1})
+    assert codes == expect
+    assert lib.mjpeg_split_isa() in (0, 2)
 
 
 # --- the host modules of the decode → filter graph slice -------------------

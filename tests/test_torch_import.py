@@ -479,6 +479,7 @@ def test_port_sources_never_import_jax():
                                             "hevc_dispatch_count_torch.py",
                                             "h264_dispatch_count_torch.py",
                                             "filter_ops_count_torch.py",
+                                            "split_bench_torch.py",
                                             "gen_torch_huffman_fixture.py"))]
     hits = [str(p.relative_to(REPO)) for p in files
             if pat.search(p.read_text())]

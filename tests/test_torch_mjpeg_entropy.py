@@ -97,6 +97,39 @@ def test_prep_frame_regions_byte_identical_fixture():
     np.testing.assert_array_equal(port.regions, ref.regions)
 
 
+def test_prep_frame_regions_equal_reference_split_fixture():
+    """All 8 fixture frames staged in turn into two slots: each slot holds
+    the reference's lengths, table and split of its frame, and past the
+    packed segments what the slot held before, byte for byte (the scan is
+    read in place, and nothing past the output changes)."""
+    import ctypes
+    from ffmpeg_tpu import native as ref_native
+    from ffmpeg_tpu.codecs.mjpeg import _JpegState, _parse_until_scan
+    from ffmpeg_tpu.ops.huffman import build_jpeg_luts9
+    pkts = fixture_packets()
+    _, port = _pipes(pkts[:2], fx.W, fx.H, fx.OUT, fx.OUT, fx.STRIDE,
+                     fx.packed_cap(pkts))
+    nmcu, hdr = port.nmcu, port.hdr
+    want = port.regions.copy()
+    for j, pkt in enumerate(pkts):
+        slot = j % 2
+        st = _JpegState()
+        off, _ = _parse_until_scan(pkt, st)
+        region = want[slot]
+        offs = np.zeros(nmcu + 2, np.int32)
+        n = ref_native.get().mjpeg_split_segments(
+            pkt[off:], len(pkt) - off,
+            region[hdr:].ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            port.cap - hdr,
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), nmcu)
+        assert n == nmcu
+        region[:2 * nmcu] = np.diff(offs[:nmcu + 1]).astype(
+            np.uint16).view(np.uint8)
+        region[2 * nmcu:hdr] = build_jpeg_luts9(st).view(np.uint8).reshape(-1)
+        port.prep_frame(pkt, slot)
+        np.testing.assert_array_equal(port.regions[slot], want[slot])
+
+
 @pytest.mark.parametrize("case", ["stride", "cap", "qtables"])
 def test_prep_frame_errors_match_reference(case):
     pkts = _pair()
