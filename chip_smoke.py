@@ -484,10 +484,31 @@ Phases, one line each:
    frame's ms a call (CUDA events, median of 3), the steps against
    max_iter, and one call's launches on the host and kernels on the
    device (torch.profiler), with the launches a step derived from them.
+33. K1's camera kernel (jpeg_scan_decode_packed_rows_kernel, the camera
+   format of models/mjpeg_tpu_entropy.py: segments of whole MCU rows,
+   4:2:2 or 4:2:0, any baseline table): (a) 64 RFC 2435 type-64 1080p
+   frames of the benchmark's generator (portbench/inputs/rtpjpeg.py:
+   4:2:2, the Annex K tables, a restart marker every MCU row) staged by
+   MjpegTpuEntropyPipeline.prep_frame, decoded in one launch, bit-exact
+   against the generator's coefficients and against decode_packed_plain
+   on the card on the same regions; the first 8 regions with random scan
+   bytes and every fourth lane padding bit-exact against the plain
+   version; (b) the 2 frames of testing.HUFFMAN_ANNEXK (4:2:0, one MCU of
+   6 blocks a segment, 8160 lanes a frame) through the same kernel,
+   bit-exact against the plain version and the C++ host decoder; (c) the
+   kernel's ms on (a)'s batch (kernel_ms, and cuda_ms with no spin), the
+   plain version's, and the bound from (a)'s bytes and the generator's
+   symbols; (d) run_batch on (a)'s frames: one launch of this kernel and
+   none of the flagship's, the first 2 frames' rgb24 planes within the
+   benchmark config's check.excess_lsb of the float64 plain reference
+   (portbench/reference/mjpeg422.py).  Its launches are counted where it
+   launches (ops/huffman.py ROWS_KERNEL_LAUNCHES); no earlier phase
+   launches it.
 Phases 9-16, 18, 20-25, 27, 28 and 31 run PyTorch only: K1 and K2 are
 not on their paths, and each prints their launch counts over its run
 (0).  K2's launches in the JSON line count phases 7, 17, 26 (d), 29 (t)
-and 30 (y), K1's phases 4, 19, 30 (z) and 32 (b).  Phases 13-32 print
+and 30 (y), K1's phases 4, 19, 30 (z) and 32 (b), and the camera
+kernel's phase 33.  Phases 13-33 print
 their wall times, and the script its own.  The CPU decodes that phases
 13 and 18 hold the card's frames against run in child processes started
 after phase 7 (cpu_oracle), beside the card's work.
@@ -521,6 +542,10 @@ REPO = Path(__file__).resolve().parent
 TIMED_BATCHES = 30
 K1_SOURCE = "ffmpeg_tpu_torch/csrc/jpeg_huffman.cu"
 K1_REPLACES = "ffmpeg_tpu/ops/huffman.py:446"
+# the camera format has no TPU kernel: the reference decodes such streams
+# with its general-length XLA loop
+ROWS_REPLACES = "ffmpeg_tpu/ops/huffman.py:199"
+CAMERA_FRAMES = 64               # phase 33: one b64 batch of the camera cell
 K2_SOURCE = "ffmpeg_tpu_torch/csrc/sad_cost_volume.cu"
 K2_REPLACES = "ffmpeg_tpu/ops/me.py:79"
 ENC_W, ENC_H = 1920, 1080
@@ -565,6 +590,16 @@ def k1_bound(lens, luts, out) -> tuple[float, str]:
     nbytes = int(lens.sum()) + sum(t.numel() * t.element_size()
                                    for t in (lens, luts, out))
     symbols = int((out != 0).sum()) + 12 * int((lens > 0).sum())
+    return bound(nbytes, 20 * symbols)
+
+
+def rows_bound(lens, tables, out, symbols: int) -> tuple[float, str]:
+    """K1's camera kernel reads each segment's scan bytes, the lengths and
+    the frames' tables once and writes its coefficients once; about 20
+    integer instructions a symbol, the symbols counted by the generator
+    that encoded the frames."""
+    nbytes = int(lens.sum()) + sum(t.numel() * t.element_size()
+                                   for t in (lens, tables, out))
     return bound(nbytes, 20 * symbols)
 
 
@@ -739,6 +774,7 @@ def main() -> int:
         rows30 = phase30_bsf_av1_vvc(dev, card, Path(tmp), out)
     phase31_multidevice(dev, card, lf_key, hevc_key)
     k1_general = phase32_general_scan(dev, card)
+    rows = phase33_camera_k1(dev, card)
     launches += k1_enc + rows30["z"]["k1"] + k1_general
     k1_err = max(k1_err, rows30["z"]["k1_err"])
     k2_launches += (k2_enc + rows26["d"]["k2"] + rows29["t_m2v"]["k2"]
@@ -758,7 +794,7 @@ def main() -> int:
         "launches": k2_launches, "max_abs_err": k2["err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -5011,6 +5047,164 @@ def phase32_general_scan(dev, card) -> int:
     print(f"phase 32 {counts}; wall time: {time.monotonic() - t_phase:.1f} s",
           flush=True)
     return huffman.KERNEL_LAUNCHES
+
+
+
+def phase33_camera_k1(dev, card) -> dict:
+    """K1's camera kernel on the card (phase 33 in the module docstring):
+    (a) 64 type-64 1080p frames of the benchmark's generator against the
+    generator and the plain version, and random bytes against the plain
+    version; (b) the Annex K 4:2:0 fixture, one MCU a segment; (c) its
+    time, the plain version's and its bound; (d) the pipeline's
+    run_batch.  Returns the kernel's entry of the JSON line."""
+    import json as _json
+    import numpy as np
+    import torch
+    from ffmpeg_tpu_torch.io.mjpeg import split_packets
+    from ffmpeg_tpu_torch.models.mjpeg_tpu_entropy import (
+        MjpegTpuEntropyPipeline, TpuEntropySpec)
+    from ffmpeg_tpu_torch.ops import huffman
+    from ffmpeg_tpu_torch.testing import HUFFMAN_ANNEXK, host_decode
+    from ffmpeg_tpu_torch.timing import cuda_ms, kernel_ms
+    from portbench.inputs.rtpjpeg import make_clip
+    from portbench.reference.mjpeg422 import Mjpeg422Reference
+    t_phase = time.monotonic()
+    if huffman.ROWS_KERNEL_LAUNCHES:
+        raise RuntimeError(f"phase 33: the camera kernel ran "
+                           f"{huffman.ROWS_KERNEL_LAUNCHES} times before it, "
+                           f"so K1's tally is not the flagship kernel's")
+    zero_counts()
+
+    def stage(pkts, spec):
+        pipe = MjpegTpuEntropyPipeline(spec, max(pkts, key=len), device=dev)
+        for i, p in enumerate(pkts):
+            pipe.prep_frame(p, i)
+        regions = torch.from_numpy(pipe.regions).to(dev)
+        return pipe, regions, *pipe.program.split_regions(regions)
+
+    def decode(fn, regions, lens, tables, hdr, kw):
+        got = fn(regions, lens, tables, hdr, **kw)
+        torch.cuda.synchronize()
+        return got
+
+    # (a) 64 camera frames: the generator, the plain version, random bytes
+    cfg = _json.loads((REPO / "portbench" / "configs"
+                       / "rtpjpeg1080_422_rgb224.json").read_text())
+    w, h, n = cfg["width"], cfg["height"], CAMERA_FRAMES
+    t = time.monotonic()
+    clip = make_clip(2 ** 33 + 33, w, h, n, cfg["quality"],
+                     cfg["restart_rows"], cfg["luma_texture"],
+                     cfg["chroma_texture"], dev)
+    make_s = time.monotonic() - t
+    spec = TpuEntropySpec(w, h, cfg["out_w"], cfg["out_h"], batch=n,
+                          stride=cfg["stride"], out_fmt=cfg["out_fmt"],
+                          filter=cfg["filter"])
+    pipe, regions, lens, tables = stage(clip.packets, spec)
+    kw = dict(mcus_per_seg=cfg["restart_rows"] * (w // 16),
+              blocks_per_mcu=4, nmcu=pipe.nmcu)
+    got = decode(huffman.jpeg_scan_decode_packed, regions, lens, tables,
+                 pipe.hdr, kw)
+    if (huffman.KERNEL_LAUNCHES, huffman.ROWS_KERNEL_LAUNCHES) != (1, 1):
+        raise RuntimeError(f"phase 33 (a): launches "
+                           f"{huffman.KERNEL_LAUNCHES}/"
+                           f"{huffman.ROWS_KERNEL_LAUNCHES}, not 1/1")
+    for f in range(n):
+        if not torch.equal(got[f].long(),
+                           clip.frame_coef(f).reshape(-1, 4, 64)):
+            raise RuntimeError(f"phase 33 (a): frame {f} differs from the "
+                               f"generator's coefficients")
+    want = decode(huffman.decode_packed_plain, regions, lens, tables,
+                  pipe.hdr, kw)
+    err = int((got.int() - want.int()).abs().max())
+    if not torch.equal(got, want):
+        raise RuntimeError(f"phase 33 (a): differs from the plain version "
+                           f"in {int((got != want).sum())} values")
+    rng = np.random.default_rng(33)
+    junk = regions[:8].clone()
+    junk[:, pipe.hdr:] = torch.from_numpy(rng.integers(
+        0, 256, tuple(junk[:, pipe.hdr:].shape), dtype=np.uint8)).to(dev)
+    jlens = lens[:8].clone()
+    jlens[:, ::4] = 0                          # padding lanes
+    jgot = decode(huffman.jpeg_scan_decode_packed, junk, jlens, tables[:8],
+                  pipe.hdr, kw)
+    jwant = decode(huffman.decode_packed_plain, junk, jlens, tables[:8],
+                   pipe.hdr, kw)
+    if not torch.equal(jgot, jwant):
+        raise RuntimeError(f"phase 33 (a): differs from the plain version "
+                           f"on random bytes in "
+                           f"{int((jgot != jwant).sum())} values")
+    err = max(err, int((jgot.int() - jwant.int()).abs().max()))
+    print(f"phase 33 (a) [{card}]: {n} type-64 {w}x{h} frames (generated "
+          f"in {make_s:.1f} s, {int(clip.symbols.sum())} symbols, "
+          f"{int(clip.long_codes.sum())} with codes over 9 bits), "
+          f"{lens.shape[1]} segments each, one launch: bit-exact against "
+          f"the generator and the plain version (max |diff| {err}); the "
+          f"first 8 regions with random scan bytes and every fourth lane "
+          f"padding bit-exact against the plain version", flush=True)
+
+    # (b) the Annex K 4:2:0 fixture, one MCU of 6 blocks a segment
+    apk = split_packets(HUFFMAN_ANNEXK.read_bytes())
+    apipe, areg, alens, atab = stage(apk, TpuEntropySpec(
+        1920, 1080, 224, 224, batch=len(apk), stride=192))
+    akw = dict(mcus_per_seg=1, blocks_per_mcu=6, nmcu=apipe.nmcu)
+    agot = decode(huffman.jpeg_scan_decode_packed, areg, alens, atab,
+                  apipe.hdr, akw)
+    if not torch.equal(agot, decode(huffman.decode_packed_plain, areg,
+                                    alens, atab, apipe.hdr, akw)):
+        raise RuntimeError("phase 33 (b): differs from the plain version")
+    for i, p in enumerate(apk):
+        if not np.array_equal(agot[i].cpu().numpy(), host_decode(p)):
+            raise RuntimeError(f"phase 33 (b): frame {i} differs from the "
+                               f"C++ host decoder")
+    print(f"phase 33 (b) [{card}]: the {len(apk)} Annex K 4:2:0 frames, "
+          f"{alens.shape[1]} one-MCU segments each, bit-exact against the "
+          f"plain version and mjpeg_decode_scan", flush=True)
+
+    # (c) time, the plain version's, the bound
+    ms = kernel_ms(lambda: huffman.jpeg_scan_decode_packed(
+        regions, lens, tables, pipe.hdr, **kw), 20)
+    nospin_ms = cuda_ms(lambda: huffman.jpeg_scan_decode_packed(
+        regions, lens, tables, pipe.hdr, **kw), 20)
+    plain_ms = cuda_ms(lambda: huffman.decode_packed_plain(
+        regions, lens, tables, pipe.hdr, **kw), 1)
+    bound_ms, by = rows_bound(lens, tables, got, int(clip.symbols.sum()))
+    print(f"phase 33 (c) [{card}]: {n} frames {ms:.4f} ms (no spin "
+          f"{nospin_ms:.4f} ms); plain version {plain_ms:.1f} ms; bound "
+          f"{bound_ms:.4f} ms by {by}, {bound_ms / ms:.1%} of it", flush=True)
+
+    # (d) the pipeline's run_batch
+    base = (huffman.KERNEL_LAUNCHES, huffman.ROWS_KERNEL_LAUNCHES)
+    comps = pipe.run_batch()
+    torch.cuda.synchronize()
+    launches = (huffman.KERNEL_LAUNCHES - base[0],
+                huffman.ROWS_KERNEL_LAUNCHES - base[1])
+    if launches != (1, 1):
+        raise RuntimeError(f"phase 33 (d): run_batch launched K1's kernels "
+                           f"{launches[0]} times, the camera kernel "
+                           f"{launches[1]}, not once and once")
+    rgb = torch.stack(list(comps), 1)
+    ref = Mjpeg422Reference(w, h, cfg["out_w"], cfg["out_h"], clip.q_luma,
+                            clip.q_chroma, dev)
+    worst = 0.0
+    for f in range(2):
+        want = ref.rgb(clip.frame_coef(f)).double().clamp(0, 255)
+        gap = float((rgb[f].double() - want).abs().max())
+        worst = max(worst, gap - 0.5, 0.0)
+    if worst >= cfg["check"]["excess_lsb"]:
+        raise RuntimeError(f"phase 33 (d): rgb24 {worst} LSB outside the "
+                           f"reference's rounding")
+    print(f"phase 33 (d) [{card}]: run_batch {tuple(rgb.shape)}: one launch "
+          f"of the camera kernel, none of the flagship's; frames 0-1 "
+          f"{worst:.3g} LSB outside the float64 reference's rounding "
+          f"(limit {cfg['check']['excess_lsb']}); wall time: "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+    if huffman.KERNEL_LAUNCHES != huffman.ROWS_KERNEL_LAUNCHES:
+        raise RuntimeError("phase 33: the flagship kernel ran in it")
+    return {"name": "jpeg_scan_decode_packed_rows", "route": "cuda",
+            "source": K1_SOURCE, "replaces": ROWS_REPLACES,
+            "launches": huffman.ROWS_KERNEL_LAUNCHES, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None}
 
 
 if __name__ == "__main__":

@@ -119,6 +119,21 @@ def _bind(lib: ctypes.CDLL) -> None:
         c.c_int,               # max_iter
         c.c_void_p,            # cudaStream_t
     ]
+    lib.jpeg_scan_decode_packed_rows_launch.restype = c.c_int
+    lib.jpeg_scan_decode_packed_rows_launch.argtypes = [
+        c.c_void_p,            # regions (B, cap) u8
+        c.c_int,               # cap
+        c.c_void_p,            # lens (B, nseg) i32
+        c.c_longlong,          # lens_stride (int32s between rows)
+        c.c_int, c.c_int,      # nseg, hdr
+        c.c_void_p,            # tables: B of build_jpeg_tables16
+        c.c_longlong,          # table_stride (bytes between tables)
+        c.c_void_p,            # out (B, nmcu, bpm, 64) i16
+        c.c_int, c.c_int,      # B, nmcu
+        c.c_int, c.c_int,      # mcus_per_seg, bpm
+        c.c_int,               # max_iter
+        c.c_void_p,            # cudaStream_t
+    ]
     lib.sad_cost_volume_launch.restype = c.c_int
     lib.sad_cost_volume_launch.argtypes = [
         c.c_void_p,            # cur (h, w) u8 or f32

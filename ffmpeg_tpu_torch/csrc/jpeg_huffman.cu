@@ -415,6 +415,262 @@ jpeg_scan_decode_packed_kernel(const uint8_t* __restrict__ regions, int cap,
     }
 }
 
+// ---- the camera format: segments of several MCUs, any baseline table ----
+//
+// Streams as IP cameras send them (RFC 2435 type 64: 4:2:2, the Annex K
+// tables, a restart marker every MCU row) put a few hundred segments in a
+// 1080p frame, each a row of 120 MCUs and ~3 KB of scan, where the
+// flagship's format has 8160 of under 200 B.  Same contract as the plain
+// version ffmpeg_tpu_torch/ops/huffman.py decode_packed_plain on such
+// regions: one lane per segment of `mcus_per_seg` MCUs of `bpm` blocks
+// (Y0 Y1 Cb Cr or Y0-Y3 Cb Cr), the last segment cut at `nmcu` MCUs, DC
+// predictors reset at each segment's start, a segment of length 0
+// decoding nothing, bytes at or past `cap` reading as 0, a lane stopping
+// after max_iter symbols, zigzag int16 coefficients out.  It replaces no
+// TPU kernel: the reference decodes such streams with its general-length
+// XLA loop (ffmpeg_tpu/ops/huffman.py jpeg_scan_decode) or on the host.
+//
+// What bounds it on this card: a batch of 64 such frames writes 64 x
+// 64800 blocks x 128 B = 531 MB of coefficients (~0.16 ms at 3.35 TB/s)
+// and reads ~23 MB of scan.  But with one thread a segment the batch has
+// ~8 640 lanes, ~2 warps an SM, and each lane walks ~4 500 symbols (the
+// longest ~6 000) in a serial chain that no other warp hides: the
+// instructions of a symbol, each waiting on the last, times the longest
+// segment's symbols, set the time, ~12x the bytes' bound (PERF.md).
+//
+// The design, the simplest mapping that keeps a frame's segments in
+// parallel, one thread a segment, with as few instructions a symbol as
+// it could keep:
+// - each thread sums the lengths before its segment itself (a few hundred
+//   loads, against thousands of symbols);
+// - the frame's tables are staged in shared memory: a 9-bit first level
+//   (len | run << 4 | size << 8, one load a symbol) and, for the longer
+//   codes (10-16 bits, ~1% of an Annex K stream's symbols), ITU T.81
+//   F.2.2.3's MAXCODE/VALPTR over lengths 10-16, all seven compared at
+//   once rather than searched in turn;
+// - each thread reads its segment from device memory in 16-byte words,
+//   the next one loaded as the current one is taken, ~20 symbols ahead of
+//   use, through the read-only cache; the refill takes no branch;
+// - the warp first clears its 32 segments' output together, 512
+//   coalesced bytes a store, and each thread then stores each non-zero
+//   coefficient as it decodes it, with nothing more on the chain.
+//   Building each block in shared memory and storing it whole took ~1.5x
+//   as long, and clearing each block as its thread starts it ~1.25x (a
+//   load and stores more a block, or eight stores, on the chain).
+
+constexpr int kSegThreads = 32;      // segments per CTA
+constexpr int kTab16Bytes = 1344;    // one table of build_jpeg_tables16
+constexpr int kLongLens = 8;         // MAXCODE, VALPTR - MINCODE: 9 + i
+
+struct SegShared {
+    uint16_t l1[4][kLutRows];        // len | run << 4 | size << 8
+    int maxcode[4][kLongLens];
+    int delta[4][kLongLens];
+    uint8_t val[4][256];
+};
+
+// MSB-first bit reader over one region row, read as 16-byte words from
+// device memory (words at or past the row's end read as 0): a 64-bit
+// buffer that takes a 32-bit word when it falls to 32 bits, from the
+// current 16-byte word, with the next one loaded as soon as the current
+// one is used up.
+struct RowReader {
+    const uint4* row;
+    int nvec;           // 16-byte words in the row
+    uint4 cur, nxt;
+    int vi;             // index of `cur`
+    int wi;             // next 32-bit word of `cur`
+    uint64_t buf;       // left-aligned
+    int nbits;
+
+    __device__ __forceinline__ uint4 load(int v) const {
+        return v < nvec ? __ldg(row + v) : make_uint4(0, 0, 0, 0);
+    }
+
+    __device__ __forceinline__ uint32_t take() {
+        const uint32_t w = wi == 0 ? cur.x : wi == 1 ? cur.y
+                         : wi == 2 ? cur.z : cur.w;
+        if (++wi == 4) {
+            cur = nxt;
+            nxt = load(++vi + 1);
+            wi = 0;
+        }
+        return bswap32(w);
+    }
+
+    __device__ __forceinline__ void init(int byte) {
+        vi = byte >> 4;
+        cur = load(vi);
+        nxt = load(vi + 1);
+        wi = (byte >> 2) & 3;
+        const int sh = (byte & 3) * 8;
+        const uint64_t hi = take();
+        buf = ((hi << 32) | take()) << sh;
+        nbits = 64 - sh;
+    }
+
+    // At least 33 valid bits after: a symbol takes at most 16 + 15.
+    // Without a branch but to load the next 16 bytes.
+    __device__ __forceinline__ void refill() {
+        const bool need = nbits <= 32;
+        const uint32_t w = wi == 0 ? cur.x : wi == 1 ? cur.y
+                         : wi == 2 ? cur.z : cur.w;
+        buf |= need ? (uint64_t)bswap32(w) << ((32 - nbits) & 63) : 0ull;
+        nbits += need ? 32 : 0;
+        wi += need;
+        if (wi == 4) {
+            cur = nxt;
+            nxt = load(++vi + 1);
+            wi = 0;
+        }
+    }
+
+    __device__ __forceinline__ uint32_t peek32() const {
+        return (uint32_t)(buf >> 32);
+    }
+
+    __device__ __forceinline__ void skip(int n) {
+        buf <<= n;
+        nbits -= n;
+    }
+};
+
+// Thread t: the frame's four tables (build_jpeg_tables16) into shared
+// memory; `tab` starts on 4 bytes.
+__device__ __forceinline__ void stage_tables16(SegShared& sh, int t,
+                                               const uint8_t* tab) {
+    for (int i = t; i < 4 * kLutRows; i += kSegThreads) {
+        const int k = i / kLutRows, r = i % kLutRows;
+        sh.l1[k][r] = *reinterpret_cast<const uint16_t*>(
+            tab + k * kTab16Bytes + 2 * r);
+    }
+    for (int i = t; i < 4 * kLongLens; i += kSegThreads) {
+        const int k = i / kLongLens, r = i % kLongLens;
+        const int* w = reinterpret_cast<const int*>(
+            tab + k * kTab16Bytes + 2 * kLutRows);
+        sh.maxcode[k][r] = w[r];
+        sh.delta[k][r] = w[kLongLens + r];
+    }
+    for (int i = t; i < 4 * 256; i += kSegThreads)
+        sh.val[i / 256][i % 256] =
+            tab[(i / 256) * kTab16Bytes + 2 * kLutRows + 64 + i % 256];
+}
+
+// Lane l of the CTA's warp: with the others, clear the output of the
+// CTA's segments [s0, s0 + kSegThreads), 16 bytes a lane a store.
+__device__ __forceinline__ void clear_segments(int l, int16_t* out, int nseg,
+                                               int s0, int nmcu,
+                                               int mcus_per_seg, int bpm) {
+    const int n = min(kSegThreads, nseg - s0);
+    for (int r = 0; r < n; ++r) {
+        const int m0 = (s0 + r) * mcus_per_seg;
+        int4* d = reinterpret_cast<int4*>(out + (size_t)m0 * bpm * 64);
+        const int n16 = min(mcus_per_seg, nmcu - m0) * bpm * 8;
+        for (int c = l; c < n16; c += kSegThreads)
+            d[c] = make_int4(0, 0, 0, 0);
+    }
+}
+
+// One lane: decode `dec` blocks of the segment at byte `start` of the
+// row into `dst`, cleared before, storing the non-zero coefficients.
+__device__ __forceinline__ void decode_segment(const SegShared& sh,
+                                               RowReader& br, int start,
+                                               int dec, int bpm,
+                                               int16_t* dst, int max_iter) {
+    br.init(start);
+    int blk = 0;        // block within the segment
+    int bm = 0;         // block within its MCU
+    int k = -1;         // next zigzag position; -1 = DC next
+    int p0 = 0, p1 = 0, p2 = 0;
+    for (int it = 0; it < max_iter && blk < dec; ++it) {
+        br.refill();
+        const uint32_t win = br.peek32();
+        const int comp = (bm >= bpm - 2) + (bm >= bpm - 1);
+        const bool is_dc = k < 0;
+        const int sel = (is_dc ? 0 : 2) + (comp > 0);
+        const uint32_t e = sh.l1[sel][win >> 23];
+        int ln = e & 15;
+        int run = (e >> 4) & 15;
+        int sz = (e >> 8) & 15;
+        if (ln == 0) {  // longer than 9 bits, or no code: the shortest
+            int fl = 0, fi = 0;           // length whose MAXCODE holds it
+#pragma unroll
+            for (int l = 16; l >= 10; --l) {
+                const int code = (int)(win >> (32 - l));
+                const bool hit = code <= sh.maxcode[sel][l - 9];
+                fl = hit ? l : fl;
+                fi = hit ? code + sh.delta[sel][l - 9] : fi;
+            }
+            if (fl) {
+                const int v = sh.val[sel][fi & 255];
+                ln = fl;
+                run = v >> 4;
+                sz = v & 15;
+            }
+        }
+        // ln + sz <= 31, all inside the 33 valid bits; sz = 0 shifts all
+        // 32 bits out
+        const uint32_t mag =
+            (uint32_t)((uint64_t)(win << ln) >> (32 - sz));
+        const uint32_t half = (1u << sz) >> 1;
+        const int val = (int)mag - (mag < half ? (int)(2 * half - 1) : 0);
+        br.skip(ln + sz);
+        const int predc = comp == 0 ? p0 : (comp == 1 ? p1 : p2);
+        const int coef = is_dc ? predc + val : val;
+        const int pos = is_dc ? 0 : k + run;
+        p0 = is_dc && comp == 0 ? coef : p0;
+        p1 = is_dc && comp == 1 ? coef : p1;
+        p2 = is_dc && comp == 2 ? coef : p2;
+        // positions only grow within a block: each is stored once
+        if ((is_dc || sz > 0) && pos < 64 && coef != 0)
+            dst[(size_t)blk * 64 + pos] = (int16_t)coef; // wraps as int16
+        const bool eob = !is_dc && sz == 0 && run == 0;
+        const bool zrl = !is_dc && sz == 0 && run == 15;
+        const int k_new = is_dc ? 1 : (zrl ? k + 16 : pos + 1);
+        const bool done = !is_dc && (eob || k_new >= 64);
+        if (done) {
+            ++blk;
+            bm = bm + 1 == bpm ? 0 : bm + 1;
+        }
+        k = done ? -1 : k_new;
+    }
+}
+
+__global__ void __launch_bounds__(kSegThreads)
+jpeg_scan_decode_packed_rows_kernel(const uint8_t* __restrict__ regions,
+                                    int cap,
+                                    const int32_t* __restrict__ lens,
+                                    long long lens_stride, int nseg,
+                                    int hdr,
+                                    const uint8_t* __restrict__ tables,
+                                    long long table_stride,
+                                    int16_t* __restrict__ out, int nmcu,
+                                    int mcus_per_seg, int bpm,
+                                    int max_iter) {
+    __shared__ SegShared sh;
+    const int b = blockIdx.y;
+    const int t = threadIdx.x;
+    const int s = blockIdx.x * kSegThreads + t;
+    stage_tables16(sh, t, tables + b * table_stride);
+    int16_t* fout = out + (size_t)b * nmcu * bpm * 64;
+    clear_segments(t, fout, nseg, blockIdx.x * kSegThreads, nmcu,
+                   mcus_per_seg, bpm);
+    __syncthreads();       // the tables staged, the lanes' zeros ordered
+    if (s >= nseg)
+        return;
+    const int32_t* flens = lens + b * lens_stride;
+    unsigned before = 0;                // wraps as the int32 cumsum does
+    for (int i = 0; i < s; ++i)
+        before += (unsigned)flens[i];
+    const int start = min(max((int)before + hdr, 0), cap);
+    const int m0 = s * mcus_per_seg;
+    const int nblk = min(mcus_per_seg, nmcu - m0) * bpm;
+    RowReader br{reinterpret_cast<const uint4*>(regions + (size_t)b * cap),
+                 cap / 16};
+    decode_segment(sh, br, start, flens[s] > 0 ? nblk : 0, bpm,
+                   fout + (size_t)m0 * bpm * 64, max_iter);
+}
+
 }  // namespace
 
 extern "C" {
@@ -434,6 +690,32 @@ int jpeg_scan_decode_packed_launch(const void* regions, int cap,
                                      (cudaStream_t)stream>>>(
         (const uint8_t*)regions, cap, (const int32_t*)lens, hdr,
         (const int8_t*)luts, lut_stride, (int16_t*)out, nmcu, max_iter);
+    return (int)cudaGetLastError();
+}
+
+// The camera format: regions (B, cap) u8, rows on 16 bytes, cap a
+// multiple of 16; lens (B, nseg) i32, row b at lens + b * lens_stride
+// (int32s: the lengths at the head of each region, read in place); the
+// segments packed tightly from byte hdr of each region; tables: B of
+// build_jpeg_tables16 (5376 B each, on 4 bytes), table b at tables + b *
+// table_stride; out (B, nmcu, bpm, 64) i16, 16-byte aligned.  Launches
+// on `stream`, does not synchronise; returns cudaGetLastError().
+int jpeg_scan_decode_packed_rows_launch(const void* regions, int cap,
+                                        const void* lens,
+                                        long long lens_stride, int nseg,
+                                        int hdr,
+                                        const void* tables,
+                                        long long table_stride, void* out,
+                                        int B, int nmcu, int mcus_per_seg,
+                                        int bpm, int max_iter,
+                                        void* stream) {
+    const dim3 grid((nseg + kSegThreads - 1) / kSegThreads, B);
+    jpeg_scan_decode_packed_rows_kernel<<<grid, kSegThreads, 0,
+                                          (cudaStream_t)stream>>>(
+        (const uint8_t*)regions, cap, (const int32_t*)lens, lens_stride,
+        nseg, hdr,
+        (const uint8_t*)tables, table_stride, (int16_t*)out, nmcu,
+        mcus_per_seg, bpm, max_iter);
     return (int)cudaGetLastError();
 }
 

@@ -14,13 +14,19 @@ They decode in parallel, one lane per segment:
   one Huffman symbol on every lane per step, with table gathers.  It is
   the oracle for K1 and the path CPU tensors take.
 - `jpeg_scan_decode_packed` is K1's entry point: it takes the packed
-  per-frame regions of models/mjpeg_tpu_entropy.py directly.  On a CUDA
-  tensor it launches the hand-written kernel csrc/jpeg_huffman.cu; on a
-  CPU tensor it gathers the lanes and runs `jpeg_scan_decode9`.
+  per-frame regions of models/mjpeg_tpu_entropy.py directly, in either of
+  their formats: the flagship's (one 4:2:0 MCU a segment, codes of at
+  most 9 bits) and the camera format (segments of whole MCU rows or one
+  MCU, 4:2:0 or 4:2:2, any baseline table).  On a CUDA tensor it launches
+  a hand-written kernel of csrc/jpeg_huffman.cu, one a format; on a CPU
+  tensor it gathers the lanes and runs `jpeg_scan_decode9`, or runs
+  `jpeg_scan_decode` a frame at a time for the camera format.
 
-`build_jpeg_luts9` (numpy) builds the per-frame tables K1 reads; it and
-`build_jpeg_luts` are the port's copies of the reference's, held equal to
-them by tests.
+`build_jpeg_luts9` (numpy) builds the flagship format's per-frame tables;
+it and `build_jpeg_luts` are the port's copies of the reference's, held
+equal to them by tests.  `build_jpeg_tables16` builds the camera
+format's two-level tables, which `luts16_from_tables` expands to
+`build_jpeg_luts`'s.
 
 Reference for the sequential semantics: libavcodec/mjpegdec.c
 decode_block / ITU T.81 §F.2.2.
@@ -35,13 +41,17 @@ import torch.nn.functional as F
 from .. import _cuda_build
 
 BLOCKS_PER_SEG = 6              # one 4:2:0 MCU: Y0 Y1 Y2 Y3 Cb Cr
-MAX_ITER = BLOCKS_PER_SEG * 130  # symbol cap per lane: a corrupt code
-                                 # (table length 0) cannot loop forever
+SYMBOLS_PER_BLOCK = 130         # symbol cap per lane, per block of its
+                                # segment: a corrupt code (table length
+                                # 0) cannot loop forever
+MAX_ITER = BLOCKS_PER_SEG * SYMBOLS_PER_BLOCK
 _DONE_CHECK = 8                 # steps between "all lanes done?" syncs
 
-# Launches of the K1 kernel (counted by jpeg_scan_decode_packed where it
-# launches, and nowhere else).
+# Launches of K1's kernels, either format (counted by
+# jpeg_scan_decode_packed where it launches, and nowhere else), and of
+# the camera format's kernel alone.
 KERNEL_LAUNCHES = 0
+ROWS_KERNEL_LAUNCHES = 0
 
 
 def build_lut(counts: np.ndarray, values: np.ndarray) -> np.ndarray:
@@ -104,6 +114,83 @@ def build_jpeg_luts9(st) -> np.ndarray:
                 vi += 1
             code <<= 1
     return out
+
+
+# One table of build_jpeg_tables16, little-endian: the first level, one
+# entry a 9-bit peek (len | run << 4 | size << 8; len 0: no code of at
+# most 9 bits starts there), then ITU T.81 F.2.2.3's MAXCODE and
+# VALPTR - MINCODE for code lengths 9 + i (i = 1..7; entry 0 unused, -1
+# and 0), then HUFFVAL.
+TABLE16 = np.dtype([("l1", "<u2", 512), ("maxcode", "<i4", 8),
+                    ("delta", "<i4", 8), ("val", "u1", 256)])
+TABLE16_BYTES = 4 * TABLE16.itemsize      # a frame's four tables, 5376 B
+
+
+def build_jpeg_tables16(st) -> np.ndarray:
+    """Any baseline tables (codes of up to 16 bits) of a parsed
+    _JpegState -> (TABLE16_BYTES,) uint8: four TABLE16 records ordered
+    [dc_luma, dc_chroma, ac_luma, ac_chroma], as build_jpeg_luts9 orders
+    its columns.  Codes of at most 9 bits resolve in the first level, the
+    longer ones by F.2.2.3's search over lengths 10-16.  Raises on a
+    table whose codes overflow their lengths."""
+    comps = st.components
+    specs = [(st.dc_counts[comps[0].dc_tab], st.dc_values[comps[0].dc_tab]),
+             (st.dc_counts[comps[1].dc_tab], st.dc_values[comps[1].dc_tab]),
+             (st.ac_counts[comps[0].ac_tab], st.ac_values[comps[0].ac_tab]),
+             (st.ac_counts[comps[1].ac_tab], st.ac_values[comps[1].ac_tab])]
+    out = np.zeros(4, TABLE16)
+    for t, (counts, values) in enumerate(specs):
+        rec = out[t]
+        rec["maxcode"][:] = -1
+        code = 0
+        vi = 0
+        for l in range(1, 17):
+            n = int(counts[l - 1])
+            if code + n > (1 << l):
+                raise ValueError("jpeg: Huffman table overflows its code "
+                                 "lengths")
+            if l <= 9:
+                for j in range(n):
+                    lo = (code + j) << (9 - l)
+                    v = int(values[vi + j])
+                    rec["l1"][lo:lo + (1 << (9 - l))] = \
+                        l | (v >> 4) << 4 | (v & 15) << 8
+            elif n:
+                rec["maxcode"][l - 9] = code + n - 1
+                rec["delta"][l - 9] = vi - code
+            code = (code + n) << 1
+            vi += n
+        rec["val"][:] = values
+    return out.view(np.uint8)
+
+
+def luts16_from_tables(tables: torch.Tensor) -> torch.Tensor:
+    """(TABLE16_BYTES,) uint8 of build_jpeg_tables16 -> the (4, 65536)
+    int32 tables of build_jpeg_luts (len << 8 | symbol a 16-bit peek, 0
+    for no code), on the device of `tables`: what K1's two levels give
+    for every peek."""
+    dev = tables.device
+    rec = tables.to(torch.int64).reshape(4, TABLE16.itemsize)
+
+    def words(lo, n, size):
+        b = rec[:, lo:lo + n * size].reshape(4, n, size)
+        v = sum(b[..., k] << (8 * k) for k in range(size))
+        return v - ((v >> (8 * size - 1)) << (8 * size)) if size == 4 else v
+    l1 = words(0, 512, 2)
+    maxcode = words(1024, 8, 4)
+    delta = words(1056, 8, 4)
+    val = rec[:, 1088:]
+    peek = torch.arange(1 << 16, device=dev)
+    e = l1[:, peek >> 7]
+    ln = e & 15
+    sym = ((e >> 4) & 15) << 4 | ((e >> 8) & 15)
+    for l in range(10, 17):
+        code = (peek >> (16 - l))[None, :]
+        hit = (ln == 0) & (code <= maxcode[:, l - 9, None])
+        idx = ((code + delta[:, l - 9, None]) & 255).expand(4, -1)
+        sym = torch.where(hit, val.gather(1, idx), sym)
+        ln = torch.where(hit, l, ln)
+    return torch.where(ln > 0, ln << 8 | sym, 0).to(torch.int32)
 
 
 def jpeg_scan_decode9(rows: torch.Tensor, valid: torch.Tensor,
@@ -314,31 +401,99 @@ def segment_starts(lens: torch.Tensor, hdr: int) -> torch.Tensor:
     return torch.cumsum(lens, 1, dtype=torch.int32) - lens + hdr
 
 
-def _check_packed(regions, lens, luts, hdr):
+def _check_packed(regions, lens, luts, hdr, segment=(1, 6)):
     if regions.dtype != torch.uint8 or regions.dim() != 2:
         raise ValueError("regions must be (B, cap) uint8")
     B, cap = regions.shape
     if lens.dtype != torch.int32 or lens.dim() != 2 or lens.shape[0] != B:
-        raise ValueError("lens must be (B, nmcu) int32")
-    if luts.dtype != torch.int8 or tuple(luts.shape) != (B, 512, 12):
-        raise ValueError("luts must be (B, 512, 12) int8")
+        raise ValueError("lens must be (B, nseg) int32")
+    if luts.dtype == torch.int8:
+        if tuple(luts.shape) != (B, 512, 12) or segment != (1, 6):
+            raise ValueError("luts (B, 512, 12) int8 take segments of one "
+                             "4:2:0 MCU")
+    elif luts.dtype != torch.uint8 or tuple(luts.shape) != (B,
+                                                             TABLE16_BYTES):
+        raise ValueError(f"luts must be (B, 512, 12) int8 or (B, "
+                         f"{TABLE16_BYTES}) uint8")
+    if segment[0] < 1 or segment[1] not in (4, 6):
+        raise ValueError("segments of whole 4:2:0 or 4:2:2 MCUs only")
     if not 0 <= hdr <= cap:
         raise ValueError("hdr outside the region")
     if not (lens.device == luts.device == regions.device):
         raise ValueError("regions, lens and luts must share a device")
 
 
-def decode_packed_plain(regions: torch.Tensor, lens: torch.Tensor,
-                        luts: torch.Tensor, hdr: int) -> torch.Tensor:
-    """K1's plain PyTorch version, on any device: gather each segment's
-    bytes into a lane row, then `jpeg_scan_decode9` over all frames'
-    lanes at once.
+def _segment_mcus(nseg, mcus_per_seg, nmcu):
+    """The MCUs of `nseg` segments of `mcus_per_seg` MCUs, the last one
+    shorter where `nmcu` says so."""
+    nmcu = nseg * mcus_per_seg if nmcu is None else nmcu
+    if not (nseg - 1) * mcus_per_seg < nmcu <= nseg * mcus_per_seg:
+        raise ValueError(f"{nseg} segments of {mcus_per_seg} MCUs cannot "
+                         f"hold {nmcu} MCUs")
+    return nmcu
 
-    A row holds every byte a lane can reach in MAX_ITER symbols of at
-    most 9 + 15 bits, and bytes at or past the region's end read as 0, as
-    in the kernel; so the two agree on any bytes, corrupt ones included.
+
+def _decode_rows_plain(regions, lens, tables, hdr, mcus_per_seg,
+                       blocks_per_mcu, nmcu):
+    """Segments of several MCUs and any baseline table: `jpeg_scan_decode`
+    over the lanes of all frames that share their tables (as a camera's
+    frames do), with the 16-bit tables that the two-level ones give.
+    Each region is followed by enough zero bytes that no lane reaches the
+    next one in max_iter symbols of at most 16 + 15 bits, so bytes past a
+    region read as 0, as in the kernel; calls are cut so that bit offsets
+    and coefficient indices stay within int32."""
+    B, nseg = lens.shape
+    cap = regions.shape[1]
+    nmcu = _segment_mcus(nseg, mcus_per_seg, nmcu)
+    nblk = mcus_per_seg * blocks_per_mcu
+    max_iter = SYMBOLS_PER_BLOCK * nblk
+    first = torch.arange(nseg, device=lens.device) * mcus_per_seg
+    blk_end = (nmcu - first).clamp(max=mcus_per_seg) * blocks_per_mcu
+    comp = (0,) * (blocks_per_mcu - 2) + (1, 2)
+    row = cap + (max_iter * 31 + 7) // 8 + 8
+    per_call = max(1, min((2 ** 31 - 1) // (8 * row),
+                          (2 ** 31 - 1) // (nseg * nblk * 64)))
+    starts = segment_starts(lens, hdr).clamp(0, cap).to(torch.int64)
+    out = torch.empty((B, nseg, nblk, 64), dtype=torch.int16,
+                      device=regions.device)
+    uniq, group = torch.unique(tables, dim=0, return_inverse=True)
+    for g in range(uniq.shape[0]):
+        luts = luts16_from_tables(uniq[g])
+        frames = (group == g).nonzero().flatten()
+        for fr in frames.split(per_call):
+            n = fr.numel()
+            buf = F.pad(regions[fr], (0, row - cap)).reshape(-1)
+            first = torch.arange(n, device=regions.device)[:, None] * row
+            coef = jpeg_scan_decode(
+                buf, ((starts[fr] + first) * 8).reshape(-1),
+                (lens[fr] > 0).reshape(-1), luts, nblk, comp, max_iter,
+                blk_end.repeat(n))
+            out[fr] = coef.reshape(n, nseg, nblk, 64).to(torch.int16)
+    return out.reshape(B, nseg * mcus_per_seg, blocks_per_mcu,
+                       64)[:, :nmcu].contiguous()
+
+
+def decode_packed_plain(regions: torch.Tensor, lens: torch.Tensor,
+                        luts: torch.Tensor, hdr: int, *,
+                        mcus_per_seg: int = 1, blocks_per_mcu: int = 6,
+                        nmcu: int | None = None) -> torch.Tensor:
+    """K1's plain PyTorch version, on any device, for both of
+    `jpeg_scan_decode_packed`'s layouts.
+
+    One 4:2:0 MCU a segment with (B, 512, 12) tables: gather each
+    segment's bytes into a lane row, then `jpeg_scan_decode9` over all
+    frames' lanes at once.  A row holds every byte a lane can reach in
+    MAX_ITER symbols of at most 9 + 15 bits, and bytes at or past the
+    region's end read as 0, as in the kernel; so the two agree on any
+    bytes, corrupt ones included.
+
+    Otherwise (tables of build_jpeg_tables16): `jpeg_scan_decode` a frame
+    at a time, each lane one segment of `mcus_per_seg` MCUs.
     """
-    _check_packed(regions, lens, luts, hdr)
+    _check_packed(regions, lens, luts, hdr, (mcus_per_seg, blocks_per_mcu))
+    if luts.dtype == torch.uint8:
+        return _decode_rows_plain(regions, lens, luts, hdr, mcus_per_seg,
+                                  blocks_per_mcu, nmcu)
     B, cap = regions.shape
     nmcu = lens.shape[1]
     width = -(-(MAX_ITER * 24 // 8 + 4) // 32) * 32
@@ -351,26 +506,41 @@ def decode_packed_plain(regions: torch.Tensor, lens: torch.Tensor,
 
 
 def jpeg_scan_decode_packed(regions: torch.Tensor, lens: torch.Tensor,
-                            luts: torch.Tensor, hdr: int) -> torch.Tensor:
+                            luts: torch.Tensor, hdr: int, *,
+                            mcus_per_seg: int = 1, blocks_per_mcu: int = 6,
+                            nmcu: int | None = None) -> torch.Tensor:
     """K1: decode every segment of a batch of packed frame regions.
 
     regions: (B, cap) uint8, one frame per row, segment bytes packed
              tightly from byte `hdr` on.
-    lens:    (B, nmcu) int32 segment byte lengths (0 = padding lane).
-    luts:    (B, 512, 12) int8 per-frame tables from build_jpeg_luts9.
-    Returns (B, nmcu, 6, 64) int16 zigzag coefficients.
+    lens:    (B, nseg) int32 segment byte lengths (0 = padding lane).
+    luts:    the frames' tables, in one of two layouts:
+             - (B, 512, 12) int8 from build_jpeg_luts9 (codes of at most
+               9 bits), with segments of one 4:2:0 MCU: the flagship's
+               layout;
+             - (B, TABLE16_BYTES) uint8 from build_jpeg_tables16 (any
+               baseline table), with segments of `mcus_per_seg` MCUs of
+               `blocks_per_mcu` blocks (6: 4:2:0, Y0-Y3 Cb Cr; 4: 4:2:2,
+               Y0 Y1 Cb Cr), the last segment cut at `nmcu` MCUs
+               (default nseg * mcus_per_seg).
+    Returns (B, nmcu, blocks_per_mcu, 64) int16 zigzag coefficients.
 
-    A CUDA tensor goes to the kernel csrc/jpeg_huffman.cu, which is built
-    at first use; a CPU tensor to the plain version.  Any other device,
-    a failed build and a failed launch raise.
+    A CUDA tensor goes to a kernel of csrc/jpeg_huffman.cu, which is
+    built at first use; a CPU tensor to the plain version.  Any other
+    device, a failed build and a failed launch raise.
     """
     global KERNEL_LAUNCHES
     if regions.device.type == "cpu":
-        return decode_packed_plain(regions, lens, luts, hdr)
+        return decode_packed_plain(regions, lens, luts, hdr,
+                                   mcus_per_seg=mcus_per_seg,
+                                   blocks_per_mcu=blocks_per_mcu, nmcu=nmcu)
     if regions.device.type != "cuda":
         raise ValueError(f"jpeg_scan_decode_packed: no kernel for device "
                          f"{regions.device}")
-    _check_packed(regions, lens, luts, hdr)
+    _check_packed(regions, lens, luts, hdr, (mcus_per_seg, blocks_per_mcu))
+    if luts.dtype == torch.uint8:
+        return _launch_rows(regions, lens, luts, hdr, mcus_per_seg,
+                            blocks_per_mcu, nmcu)
     B, cap = regions.shape
     nmcu = lens.shape[1]
     regions = regions.contiguous()
@@ -389,4 +559,41 @@ def jpeg_scan_decode_packed(regions: torch.Tensor, lens: torch.Tensor,
             luts.stride(0), out.data_ptr(), B, nmcu, MAX_ITER, stream)
     _cuda_build.check(lib, code, "jpeg_scan_decode_packed")
     KERNEL_LAUNCHES += 1
+    return out
+
+
+def _launch_rows(regions, lens, tables, hdr, mcus_per_seg, blocks_per_mcu,
+                 nmcu):
+    """The kernel for segments of several MCUs and two-level tables; it
+    reads each region in 16-byte words, so a region row must start on 16
+    bytes and `cap` be a multiple of 16."""
+    global KERNEL_LAUNCHES, ROWS_KERNEL_LAUNCHES
+    B, cap = regions.shape
+    nseg = lens.shape[1]
+    nmcu = _segment_mcus(nseg, mcus_per_seg, nmcu)
+    regions = regions.contiguous()
+    if lens.stride(1) != 1:
+        lens = lens.contiguous()
+    if tables.stride(1) != 1:
+        tables = tables.contiguous()
+    if cap % 16 or regions.data_ptr() % 16 or tables.data_ptr() % 4 \
+            or tables.stride(0) % 4 or lens.data_ptr() % 4:
+        raise ValueError("jpeg_scan_decode_packed: region rows must start "
+                         "on 16 bytes and tables on 4")
+    out = torch.empty((B, nmcu, blocks_per_mcu, 64), dtype=torch.int16,
+                      device=regions.device)
+    if out.numel() == 0:
+        return out
+    lib = _cuda_build.get()
+    with torch.cuda.device(regions.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.jpeg_scan_decode_packed_rows_launch(
+            regions.data_ptr(), cap, lens.data_ptr(), lens.stride(0), nseg,
+            hdr,
+            tables.data_ptr(), tables.stride(0), out.data_ptr(), B, nmcu,
+            mcus_per_seg, blocks_per_mcu,
+            SYMBOLS_PER_BLOCK * mcus_per_seg * blocks_per_mcu, stream)
+    _cuda_build.check(lib, code, "jpeg_scan_decode_packed")
+    KERNEL_LAUNCHES += 1
+    ROWS_KERNEL_LAUNCHES += 1
     return out

@@ -1,5 +1,6 @@
 """The port on the card: its kernels against their plain PyTorch
-versions, bit-exact: K1 (ffmpeg_tpu_torch/csrc/jpeg_huffman.cu) and K2
+versions, bit-exact: K1 (ffmpeg_tpu_torch/csrc/jpeg_huffman.cu, both
+of its formats: the flagship's and the camera MJPEG of RFC 2435) and K2
 (ffmpeg_tpu_torch/csrc/sad_cost_volume.cu); and the PyTorch-only paths
 (the MJPEG decoder, the filter graph, build_decode_scale and entry())
 against the same code on the CPU and the reference's committed output,
@@ -113,6 +114,111 @@ def test_k1_matches_plain_on_corrupt_bytes_and_padding_lanes(cuda):
     lens0 = lens.clone()
     lens0[:, ::5] = 0                         # padding lanes
     _check_k1(pipe, junk, lens0, luts)
+
+
+def _camera_regions(device, frames, w=1920, h=1080):
+    """RFC 2435 type-64 frames of the benchmark's generator (4:2:2, the
+    Annex K tables, a restart marker every MCU row), staged by the
+    pipeline: (clip, pipeline, regions, lens, tables) on `device`."""
+    import json
+    from pathlib import Path
+    from portbench.inputs.rtpjpeg import make_clip
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "portbench"
+                      / "configs" / "rtpjpeg1080_422_rgb224.json").read_text())
+    clip = make_clip(2 ** 33 + 5, w, h, frames, 88, 1, cfg["luma_texture"],
+                     cfg["chroma_texture"], "cpu")
+    spec = TpuEntropySpec(w, h, 224, 224, batch=frames,
+                          stride=16384 if w == 1920 else 2048)
+    pipe = MjpegTpuEntropyPipeline(spec, max(clip.packets, key=len),
+                                   device=device)
+    for i, p in enumerate(clip.packets):
+        pipe.prep_frame(p, i)
+    regions = torch.from_numpy(pipe.regions).to(device)
+    return (clip, pipe, regions) + pipe.program.split_regions(regions)
+
+
+def test_k1_camera_matches_generator_and_plain(cuda):
+    """The camera format's kernel on 1080p type-64 frames (135 segments
+    of 120 MCUs, codes of up to 16 bits): equal to the generator's
+    coefficients, and to the plain version on the first frame."""
+    clip, pipe, regions, lens, tables = _camera_regions(cuda, 4)
+    kw = dict(mcus_per_seg=120, blocks_per_mcu=4, nmcu=pipe.nmcu)
+    before = (huffman.KERNEL_LAUNCHES, huffman.ROWS_KERNEL_LAUNCHES)
+    got = huffman.jpeg_scan_decode_packed(regions, lens, tables, pipe.hdr,
+                                          **kw)
+    torch.cuda.synchronize()
+    assert (huffman.KERNEL_LAUNCHES, huffman.ROWS_KERNEL_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert got.is_cuda and got.shape == (4, 16200, 4, 64)
+    for f in range(4):
+        assert torch.equal(got[f].cpu().long(),
+                           clip.frame_coef(f).reshape(-1, 4, 64))
+    want = huffman.decode_packed_plain(regions[:1].cpu(), lens[:1].cpu(),
+                                       tables[:1].cpu(), pipe.hdr, **kw)
+    assert torch.equal(got[:1].cpu(), want)
+
+
+def test_k1_camera_matches_plain_on_corrupt_bytes_and_padding_lanes(cuda):
+    clip, pipe, regions, lens, tables = _camera_regions(cuda, 2, 256, 72)
+    kw = dict(mcus_per_seg=16, blocks_per_mcu=4, nmcu=pipe.nmcu)
+    rng = np.random.default_rng(5)
+    junk = regions.clone()
+    junk[:, pipe.hdr:] = torch.from_numpy(rng.integers(
+        0, 256, tuple(junk[:, pipe.hdr:].shape), dtype=np.uint8)).to(cuda)
+    lens0 = lens.clone()
+    lens0[:, ::4] = 0                         # padding lanes
+    got = huffman.jpeg_scan_decode_packed(junk, lens0, tables, pipe.hdr,
+                                          **kw)
+    want = huffman.decode_packed_plain(junk.cpu(), lens0.cpu(),
+                                       tables.cpu(), pipe.hdr, **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_k1_camera_format_on_annexk_420_one_mcu_segments(cuda):
+    """The Annex K 4:2:0 fixture (two 1080p frames, a restart marker
+    every MCU, codes of up to 16 bits) takes the camera format with one
+    MCU of 6 blocks a segment, 8160 lanes a frame: the camera kernel's
+    coefficients equal the plain version's and the C++ host decoder's."""
+    from ffmpeg_tpu_torch.io.mjpeg import split_packets
+    pkts = split_packets(fx.HUFFMAN_ANNEXK.read_bytes())
+    spec = TpuEntropySpec(fx.W, fx.H, fx.OUT, fx.OUT, batch=len(pkts),
+                          stride=fx.STRIDE)
+    pipe = MjpegTpuEntropyPipeline(spec, max(pkts, key=len), device=cuda)
+    for i, p in enumerate(pkts):
+        pipe.prep_frame(p, i)
+    stream = pipe._stream
+    assert stream.two_level and stream.bpm == 6 and pipe.nseg == pipe.nmcu
+    regions = torch.from_numpy(pipe.regions).to(cuda)
+    lens, tables = pipe.program.split_regions(regions)
+    kw = dict(mcus_per_seg=1, blocks_per_mcu=6, nmcu=pipe.nmcu)
+    before = huffman.ROWS_KERNEL_LAUNCHES
+    got = huffman.jpeg_scan_decode_packed(regions, lens, tables, pipe.hdr,
+                                          **kw)
+    torch.cuda.synchronize()
+    assert huffman.ROWS_KERNEL_LAUNCHES == before + 1
+    assert got.shape == (len(pkts), 8160, 6, 64)
+    want = huffman.decode_packed_plain(regions.cpu(), lens.cpu(),
+                                       tables.cpu(), pipe.hdr, **kw)
+    assert torch.equal(got.cpu(), want)
+    for i, p in enumerate(pkts):
+        assert np.array_equal(got[i].cpu().numpy(), fx.host_decode(p))
+
+
+def test_camera_pipeline_on_card_matches_cpu(cuda):
+    """Two 256x72 type-64 frames through prep_frame and run_batch on the
+    card and on the CPU: the rgb24 planes within 1 LSB (float32 sums in
+    another order before the rounding), on at most 1% of samples."""
+    pkts = _camera_regions("cpu", 2, 256, 72)[0].packets
+    outs = []
+    for dev in (cuda, "cpu"):
+        spec = TpuEntropySpec(256, 72, 64, 48, batch=2, stride=2048)
+        pipe = MjpegTpuEntropyPipeline(spec, pkts[0], device=dev)
+        for i, p in enumerate(pkts):
+            pipe.prep_frame(p, i)
+        outs.append([c.cpu() for c in pipe.run_batch()])
+    for g, w in zip(*outs):
+        d = (g.int() - w.int()).abs()
+        assert d.max() <= 1 and (d > 0).float().mean() <= 0.01
 
 
 def test_general_scan_decode_on_card_matches_cpu(cuda):

@@ -486,6 +486,25 @@ def test_port_sources_never_import_jax():
     assert not hits, hits
 
 
+def test_camera_benchmark_files_never_import_jax():
+    """The camera MJPEG cell's files under portbench/ run on the card,
+    which has no JAX: none imports jax or the JAX package, and the RFC
+    2435 generator and the 4:2:2 plain reference import nothing of the
+    port either (the tests hold the port to them)."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|ffmpeg_tpu)\b", re.M)
+    port = re.compile(r"^\s*(import|from)\s+(ffmpeg_tpu_torch)\b", re.M)
+    bench = REPO / "portbench"
+    plain = [bench / "inputs" / "rtpjpeg.py",
+             bench / "reference" / "mjpeg422.py"]
+    driven = [bench / "paths" / "rtpjpeg_pipeline.py",
+              bench / "metrics" / "k1_lane_skew.py"]
+    for p in plain + driven:
+        src = p.read_text()
+        assert not pat.search(src), p
+        if p in plain:
+            assert not port.search(src), p
+
+
 def test_chip_smoke_imports_only_the_port():
     """The card's machine has no JAX: the smoke script names neither jax
     nor the reference package, only ffmpeg_tpu_torch."""
